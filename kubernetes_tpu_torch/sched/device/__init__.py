@@ -1,0 +1,23 @@
+"""Batch scheduling engine on a CUDA device (PyTorch port).
+
+  - host-side encoder (tables.py): api objects -> Struct-of-Arrays cluster
+    state (label/port/disk-key interning into bitsets, integer resource
+    vectors, initial per-node aggregates),
+  - device engine (engine.py): a sequential per-pod loop of tensor ops
+    whose carry stays on the device; each step is O(nodes) vector work —
+    predicate masks, integer 0..10 priority scores, masked argmax host
+    selection with a deterministic tie-break — then an O(1) commit,
+  - the predicate-filter kernel (filter_kernel.py, csrc/filter_kernel.cu)
+    behind the extender Filter verb.
+
+Bit-exactness contract: given the same snapshot, the engine's assignments
+equal the JAX engine's (and so the serial oracle's) pod for pod.
+"""
+
+from .tables import ClusterSnapshot, DevicePolicy, EncodeResult, encode_snapshot
+from .engine import BatchEngine, schedule_batch
+
+__all__ = [
+    "ClusterSnapshot", "DevicePolicy", "EncodeResult", "encode_snapshot",
+    "BatchEngine", "schedule_batch",
+]
