@@ -20,22 +20,36 @@ every answer to a reference:
             nodes through the port's HTTP client; the answers must equal
             those of a DeviceBackend on the CPU, and the filter kernel's
             launch count must have risen.
+  reject    the GPU evidence tool's `kernels` section
+            (kubemark/gpu_evidence.py): the argsort kernel bit-equal to
+            its plain version, a launch CUDA refuses raising, that
+            refusing launch in place of the filter kernel's making
+            BatchEngine.filter_masks raise with no mask, and the filter
+            kernel bit-equal again; then the argsort kernel's time beside
+            its plain version's, torch.argsort's and its bound.
+  e2e       the evidence tool's `e2e` section: the live batch pipeline
+            under run_scheduling_benchmark(5000, 30000, "batch") on the
+            card; every pod bound, the per-node counts equal to
+            E2E_COUNTS (the JAX engine's answer), and chained tiles.
 
-Kernel launch counts are set to 0 just before the engine phase and read
-just after the extender phase. Each phase prints one JSON line; a failed
-check raises, so the script exits non-zero and prints no result. Every
-line carries the card's name and power limit (nvidia-smi). The last
-lines are the card's line, the kernel table, and
-{"ok": true, "device": {...}}. Needs one CUDA device; exits non-zero
-without one, or without the rest of the repository beside it.
+Three paths are driven, each with the kernel launch counts set to 0 just
+before it and read just after: the engine and extender phases (the
+filter kernel), the reject phase (the argsort kernel), and the e2e phase
+(which runs neither kernel: its scan is eager PyTorch until ROADMAP K1).
+Each phase prints one JSON line; a failed check raises, so the script
+exits non-zero and prints no result. Every line carries the card's name
+and power limit (nvidia-smi). The last lines are the card's line, the
+kernel table, and {"ok": true, "device": {...}}. Needs one CUDA device;
+exits non-zero without one, or without the rest of the repository beside
+it.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -54,14 +68,6 @@ EXTENDER_EXISTING = 2000
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 def call_ms(fn, warmup: int = 3, reps: int = 20) -> float:
@@ -124,9 +130,10 @@ def filter_ops(p: int, n: int, lw: int, pw: int, kw: int) -> int:
 def phase_build():
     import torch
 
-    from kubernetes_tpu_torch.sched.device import _build, filter_kernel
+    from kubernetes_tpu_torch.sched.device import (_build, filter_kernel,
+                                                   reject_kernel)
     t0 = time.monotonic()
-    records = _build.build_all([filter_kernel.SOURCE])
+    records = _build.build_all([filter_kernel.SOURCE, reject_kernel.SOURCE])
     for r in records:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -291,13 +298,76 @@ def phase_extender():
             "filter_kernel_launches": launches_card}
 
 
+def phase_reject():
+    """The evidence tool's kernels section, every field held, then the
+    argsort kernel timed at the section's shape. Returns (record, the
+    argsort kernel's launches in the section)."""
+    import torch
+
+    from kubernetes_tpu_torch.kubemark import gpu_evidence
+    from kubernetes_tpu_torch.sched.device import reject_kernel as rk
+
+    rk.argsort_rows.launches = 0          # this path starts here
+    sec = gpu_evidence.section_kernels()
+    launches = rk.argsort_rows.launches   # ... and ends here
+    failed = [k for k in ("filter_parity", "reject_parity",
+                          "rejection_raised", "no_fallback", "parity_after")
+              if not sec[k]]
+    if failed:
+        raise AssertionError(f"reject phase: {failed} false: {sec}")
+    if launches == 0:
+        raise AssertionError("the kernels section never launched the "
+                             "argsort kernel")
+    x = gpu_evidence.reject_inputs(torch.device("cuda"))["ties"]
+    r, c = x.shape
+    # the function reads each input once and writes each output once;
+    # a comparison sort needs at least C log2 C comparisons per row
+    nbytes = 2 * r * c * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = r * c * math.log2(c) / ALU32_OPS_PER_S * 1e3
+    rec = {"phase": "reject", **sec, "shape": [r, c],
+           "ms": device_ms(lambda: rk.argsort_rows(x)),
+           "plain_ms": device_ms(lambda: rk.argsort_rows_plain(x)),
+           "library_ms": device_ms(
+               lambda: torch.argsort(x, dim=-1, stable=True)),
+           "call_ms": call_ms(lambda: rk.argsort_rows(x)),
+           "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+           "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    return rec, launches
+
+
+def phase_e2e():
+    """The live pipeline at 5000 x 30000 on the card, held to the JAX
+    engine's per-node counts."""
+    from kubernetes_tpu_torch.kubemark import gpu_evidence
+    from kubernetes_tpu_torch.kubemark.fixtures import E2E_COUNTS
+
+    want = E2E_COUNTS
+    sec = gpu_evidence.section_e2e(want["n_nodes"], want["n_pods"])
+    if sec["scheduled"] != want["n_pods"]:
+        raise AssertionError(f"e2e bound {sec['scheduled']} of "
+                             f"{want['n_pods']} pods")
+    if (sec["counts_sha256"], sec["counts_bound"]) != (want["sha256"],
+                                                      want["bound"]):
+        raise AssertionError(
+            f"e2e per-node counts {sec['counts_sha256']} / "
+            f"{sec['counts_bound']} differ from the JAX engine's "
+            f"{want['sha256']} / {want['bound']}")
+    if sec["tiles_chained"] <= 0:
+        raise AssertionError(f"e2e chained no tile: {sec}")
+    return {"phase": "e2e", **sec, "counts_ok": True}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import card_line
     from kubernetes_tpu_torch.sched.device import filter_kernel as fk
+    from kubernetes_tpu_torch.sched.device import reject_kernel as rk
 
     card = card_line()
 
@@ -315,6 +385,13 @@ def main() -> int:
     if launches == 0:
         raise AssertionError("the main path never launched the filter "
                              "kernel")
+    reject, reject_launches = phase_reject()
+    stamp(reject)
+    fk.filter_masks.launches = 0          # the e2e path starts here
+    rk.argsort_rows.launches = 0
+    stamp({**phase_e2e(),                 # ... and ends here
+           "filter_launches": fk.filter_masks.launches,
+           "argsort_launches": rk.argsort_rows.launches})
     print(card, flush=True)
     emit({"kernels": [{
         "name": "filter_masks", "route": "cuda",
@@ -324,7 +401,16 @@ def main() -> int:
         "max_abs_err": filt["max_abs_err"],
         "ms": filt["ms"], "plain_ms": filt["plain_ms"],
         "bound_ms": filt["bound_ms"], "bound_by": filt["bound_by"],
-        "library_ms": None, "shape": filt["shape"]}]})
+        "library_ms": None, "shape": filt["shape"]}, {
+        "name": "argsort_rows", "route": "cuda",
+        "source": "kubernetes_tpu_torch/sched/device/csrc/reject_kernel.cu",
+        "replaces": "kubernetes_tpu/kubemark/tpu_evidence.py:369",
+        "launches": reject_launches,
+        "equal_plain": reject["reject_parity"],
+        "max_abs_err": reject["reject_max_abs_err"],
+        "ms": reject["ms"], "plain_ms": reject["plain_ms"],
+        "bound_ms": reject["bound_ms"], "bound_by": reject["bound_by"],
+        "library_ms": reject["library_ms"], "shape": reject["shape"]}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

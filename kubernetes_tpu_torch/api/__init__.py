@@ -1,0 +1,2 @@
+from .registry import Registry, ResourceInfo
+from .client import Client, InProcClient

@@ -16,6 +16,14 @@ existing pods (the JAX package's pallas-filter test fixture).
 the int32 `assigned` array of the real pods and the count of bound pods.
 A CPU test recomputes them with the JAX engine; the card, which has no
 JAX, is held to them.
+
+`E2E_COUNTS` pins the live pipeline's answer at the north-star size
+(kubemark.benchmark.run_scheduling_benchmark(5000, 30000, "batch")): the
+sha256 of the per-node counts of bound pods, in node-name order. The
+benchmark's pods are identical, so the k-th placement does not depend on
+which pod arrives k-th, and the counts are those of one uninterrupted
+engine run over the fleet's nodes; a CPU test computes them with the JAX
+engine that way.
 """
 
 from __future__ import annotations
@@ -45,6 +53,25 @@ SMOKE_DIGESTS = {
         "sha256": "5aadfd8a6552c5e39d7d309ca034c504debac2a1e961d3f19a83d9f9c984592d",
         "bound": 8192},
 }
+
+
+E2E_COUNTS = {
+    "n_nodes": 5000, "n_pods": 30000, "max_pods": 32,
+    "sha256": "9d2e7731530a7252b14bb2c659906a71922a7eac001e8fe04ba6d0f8b86b141b",
+    "bound": 30000}
+
+
+def node_counts_digest(node_names, hosts):
+    """-> (sha256 hex of the int32 count of `hosts` on each of
+    `node_names` in sorted name order, pods counted). Hosts outside the
+    node list (or None) are not counted."""
+    names = sorted(node_names)
+    slot = {n: i for i, n in enumerate(names)}
+    counts = np.zeros(len(names), np.int32)
+    for h in hosts:
+        if h in slot:
+            counts[slot[h]] += 1
+    return hashlib.sha256(counts.tobytes()).hexdigest(), int(counts.sum())
 
 
 def assigned_digest(assigned, n_pods: int):

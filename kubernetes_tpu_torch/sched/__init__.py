@@ -1,3 +1,2 @@
 from .api import HostPriority, Policy
-
-__all__ = ["HostPriority", "Policy"]
+from .generic import FitError, GenericScheduler, NoNodesAvailable

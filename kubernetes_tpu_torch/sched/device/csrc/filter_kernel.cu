@@ -171,3 +171,7 @@ extern "C" int filter_masks_launch(
       (uint8_t*)out);
   return (int)cudaGetLastError();
 }
+
+extern "C" const char* filter_error_name(int err) {
+  return cudaGetErrorName((cudaError_t)err);
+}

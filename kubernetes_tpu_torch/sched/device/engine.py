@@ -38,6 +38,7 @@ set.
 
 from __future__ import annotations
 
+import time
 from dataclasses import replace as _dc_replace
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -366,6 +367,48 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device, copy=True)
 
 
+# the tensor dtype `_tensor` gives each encoder dtype: torch dtypes never
+# compare equal to numpy's, so whoever matches an encoding against a
+# device carry (sched/batch.py _carry_compatible) goes through this map
+CARRY_DTYPES = {np.dtype(np.int64): torch.int64,
+                np.dtype(np.int32): torch.int32,
+                np.dtype(np.uint32): torch.int32,
+                np.dtype(np.bool_): torch.bool}
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class PendingAssignment:
+    """The assignment of a run dispatched with block=False: `tensor` is
+    the i32[P] result on the engine's device. On a CUDA device the run
+    also queued its copy into pinned host memory and recorded `event`
+    after it, so whichever thread lands the tile waits on that event
+    alone (no device-wide synchronize, nothing queued after it) and
+    reads the host copy."""
+
+    def __init__(self, tensor: torch.Tensor):
+        self.tensor = tensor
+        self.event = None
+        self._host = tensor
+        if tensor.is_cuda:
+            self._host = torch.empty(tensor.shape, dtype=tensor.dtype,
+                                     pin_memory=True)
+            self._host.copy_(tensor, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def is_ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def result(self) -> np.ndarray:
+        """Wait for the run (this event only) -> i32[P] numpy."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self._host.numpy()
+
+
 class BatchEngine:
     """Batch scheduler on one device. `device=None` means the card; the
     tests pass device="cpu"."""
@@ -378,6 +421,23 @@ class BatchEngine:
         self._anti_weight = (policy.anti_affinity_weight
                              if policy is not None
                              and policy.needs_anti_affinity else 0)
+        # host->device transfer accounting, under the JAX engine's keys;
+        # table_bytes is a gauge (one full NodeConst + State upload).
+        # There is no device table mirror yet (ROADMAP K3): every run
+        # uploads the full tables and counts them as full uploads.
+        self.upload_stats = {"full_tiles": 0, "delta_tiles": 0,
+                             "reuse_tiles": 0, "full_bytes": 0,
+                             "delta_bytes": 0, "pod_bytes": 0,
+                             "table_bytes": 0}
+        # run_chunked accounting: calls, scan steps (padded pods
+        # included) and host seconds spent in the call — for the eager
+        # scan, the host's dispatch of every step
+        self.scan_stats = {"runs": 0, "steps": 0, "seconds": 0.0}
+
+    @property
+    def n_shards(self) -> int:
+        """Devices the node axis is split over: one (no mesh yet)."""
+        return 1
 
     @staticmethod
     def _enc_flags(enc: EncodeResult) -> Tuple[bool, bool]:
@@ -421,10 +481,11 @@ class BatchEngine:
                 nz_cpu=pb.nz_cpu.astype(i64),
                 nz_mem=pb.nz_mem.astype(i64) * g))
 
-    def device_args(self, enc: EncodeResult
-                    ) -> Tuple[NodeConst, State, PodXs]:
+    def device_args(self, enc: EncodeResult, with_state: bool = True
+                    ) -> Tuple[NodeConst, Optional[State], PodXs]:
         """EncodeResult (numpy arrays, from either package's encoder) ->
-        (NodeConst, State, PodXs) of tensors on the engine's device."""
+        (NodeConst, State, PodXs) of tensors on the engine's device.
+        with_state=False skips the State upload (None in its place)."""
         enc = self._ensure_safe_dtypes(enc)
         nt, st, pb = enc.node_tab, enc.init_state, enc.pod_batch
         d = self.device
@@ -441,13 +502,16 @@ class BatchEngine:
             offgrid_max=t(enc.offgrid_max), aff_dom=t(nt.aff_dom),
             zone_id=t(nt.zone_id), zone_scratch=t(nt.zone_scratch),
             static_mask=t(nt.static_mask), static_score=t(nt.static_score))
-        state = State(cpu_used=t(st.cpu_used), mem_used=t(st.mem_used),
-                      nz_cpu=t(st.nz_cpu), nz_mem=t(st.nz_mem),
-                      pod_count=t(st.pod_count), port_bits=t(st.port_bits),
-                      disk_any=t(st.disk_any), disk_rw=t(st.disk_rw),
-                      spread=t(st.spread), aff_count=t(st.aff_count),
-                      aff_total=t(st.aff_total), svc_count=t(st.svc_count),
-                      svc_total=t(st.svc_total))
+        state = None
+        if with_state:
+            state = State(
+                cpu_used=t(st.cpu_used), mem_used=t(st.mem_used),
+                nz_cpu=t(st.nz_cpu), nz_mem=t(st.nz_mem),
+                pod_count=t(st.pod_count), port_bits=t(st.port_bits),
+                disk_any=t(st.disk_any), disk_rw=t(st.disk_rw),
+                spread=t(st.spread), aff_count=t(st.aff_count),
+                aff_total=t(st.aff_total), svc_count=t(st.svc_count),
+                svc_total=t(st.svc_total))
         pods = PodXs(valid=t(pb.valid), req_cpu=t(pb.req_cpu),
                      req_mem=t(pb.req_mem), zero_req=t(pb.zero_req),
                      nz_cpu=t(pb.nz_cpu), nz_mem=t(pb.nz_mem),
@@ -533,9 +597,23 @@ class BatchEngine:
 
         state_override: start from this on-device State instead of the
         encoded init (chains tile k+1 off tile k's final carry; it is
-        copied, never mutated). block=False returns the assignment as a
-        device tensor without waiting for it."""
-        node, state, pods = self.device_args(enc)
+        copied, never mutated, and the encoded init is not uploaded).
+        block=False returns a PendingAssignment instead of waiting: the
+        carry stays on the device and the assignment lands with the
+        CUDA event recorded after the last chunk.
+
+        Every call uploads the full node tables (and the State init
+        unless chained): upload_stats counts it as one full tile."""
+        t0 = time.monotonic()
+        node, state, pods = self.device_args(
+            enc, with_state=state_override is None)
+        table_bytes = _nbytes(node) + _nbytes(
+            state if state is not None else state_override)
+        self.upload_stats["table_bytes"] = table_bytes
+        self.upload_stats["full_tiles"] += 1
+        self.upload_stats["full_bytes"] += _nbytes(node) + (
+            _nbytes(state) if state is not None else 0)
+        self.upload_stats["pod_bytes"] += _nbytes(pods)
         if state_override is not None:
             state = _clone_state(state_override)
         aux = _node_aux(node)
@@ -551,9 +629,11 @@ class BatchEngine:
                 for lo in range(0, p + pad, chunk)]
         flat = (torch.cat(outs)[:p] if outs
                 else torch.zeros(0, dtype=torch.int32, device=self.device))
-        if block:
-            return flat.cpu().numpy(), state
-        return flat, state
+        out = (flat.cpu().numpy() if block else PendingAssignment(flat))
+        self.scan_stats["runs"] += 1
+        self.scan_stats["steps"] += p + pad
+        self.scan_stats["seconds"] += time.monotonic() - t0
+        return out, state
 
     def schedule(self, snap: ClusterSnapshot, pod_pad_to: Optional[int] = None,
                  chunk: Optional[int] = None

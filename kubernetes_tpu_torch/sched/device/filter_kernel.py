@@ -184,7 +184,23 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_int] * 5
         + [ctypes.c_void_p] * (len(FilterArgs._fields) + 2))
     lib.filter_masks_launch.restype = ctypes.c_int
+    lib.filter_error_name.argtypes = [ctypes.c_int]
+    lib.filter_error_name.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(a: FilterArgs, out: torch.Tensor) -> int:
+    """Queue the kernel on the current stream -> the CUDA error code of
+    the launch (0 = launched). Module-level so that the evidence tool can
+    swap in a launch CUDA refuses, as the JAX evidence swapped
+    pallas_filter._filter_call, and show that filter_masks raises."""
+    p, n = a.shape
+    with torch.cuda.device(a.valid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return _library().filter_masks_launch(
+            p, n, a.labels.shape[1], a.port_bits.shape[1],
+            a.disk_any.shape[1], *(t.data_ptr() for t in a),
+            out.data_ptr(), stream)
 
 
 def filter_masks(a: FilterArgs) -> torch.Tensor:
@@ -200,15 +216,11 @@ def filter_masks(a: FilterArgs) -> torch.Tensor:
     out = torch.empty((p, n), dtype=torch.bool, device=a.valid.device)
     if p == 0 or n == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(a.valid.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.filter_masks_launch(
-            p, n, a.labels.shape[1], a.port_bits.shape[1],
-            a.disk_any.shape[1], *(t.data_ptr() for t in a),
-            out.data_ptr(), stream)
+    err = _launch(a, out)
     if err != 0:
-        raise RuntimeError(f"filter kernel launch failed: CUDA error {err}")
+        name = _library().filter_error_name(err).decode()
+        raise RuntimeError(
+            f"filter kernel launch failed: CUDA error {err} ({name})")
     filter_masks.launches += 1
     return out
 

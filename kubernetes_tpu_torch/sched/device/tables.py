@@ -1,8 +1,8 @@
 """Host-side snapshot encoder: api objects -> Struct-of-Arrays device tables.
 
-The port's own copy of the JAX package's encoder (pure numpy; the torch
-engine turns its arrays into tensors in `engine.device_args`). The
-incremental encoder's dirty-row journal is not carried over yet.
+The port's own copy of the JAX package's encoder, with the incremental
+encoder's `TableDelta` journal (pure numpy; the torch engine turns its
+arrays into tensors in `engine.device_args`).
 
 This is the strings->tensors boundary (SURVEY.md section 7 hard part 3).
 Label key=value pairs, host ports, and volume conflict keys are interned
@@ -190,6 +190,59 @@ class StateArrays:
 
 
 @dataclass
+class TableDelta:
+    """Slot-granular change journal of one encode against the encoder's
+    persistent node tables, consumed by the engine's device-resident
+    table cache (engine._TableCache).
+
+    `table_gen` is the encoder's monotonic mutation counter at encode
+    time; `node_dirty_gen[slot]` / `state_dirty_gen[slot]` are the
+    counter values when that slot's NodeConst-side / State-side rows
+    last changed (captured under the encoder lock, so they are
+    consistent with the host arrays this encode copied); `full_gen` is
+    the counter at the last whole-table invalidation (capacity growth,
+    which reshapes and re-shards every array). A cache whose content is
+    current at generation g needs exactly the rows with dirty_gen > g
+    re-uploaded — and a full re-upload iff full_gen > g. The split
+    matters because State rows churn on every assumed pod while
+    NodeConst rows move only on node events: a steady pipeline scatters
+    a handful of NodeConst rows (or none) per tile.
+
+    `encoder_id` names the encoder INSTANCE whose mutation counter the
+    generations count. Generations from two encoders are incomparable
+    even at identical table shapes (each counts its own timeline), so
+    the engine's cache must also match on identity — otherwise a fresh
+    encoder's low generations would read as "nothing changed" against a
+    mirror holding another encoder's rows.
+
+    `shard_epochs[s]` is the encoder's epoch for mesh shard s at encode
+    time. An epoch moves only when the slot->shard mapping moves — a
+    survivor re-shard after a shard owner's lease expires rewrites the
+    whole vector (length changes to the survivor count, every entry
+    bumps past the old maximum). A cached device mirror is only valid
+    for a delta carrying the SAME vector: any difference means the rows
+    it holds live on the wrong devices (or on a dead one), so the cache
+    must miss and reseed from host truth — the materialized journal
+    replay. Epochs are scoped to one encoder_id; across instances they
+    are incomparable, exactly like the generations."""
+    table_gen: int
+    node_dirty_gen: np.ndarray   # i64[n_cap]
+    state_dirty_gen: np.ndarray  # i64[n_cap]
+    full_gen: int
+    encoder_id: int
+    shard_epochs: Tuple[int, ...] = (0,)
+
+    def replay_slots(self, from_gen: int) -> np.ndarray:
+        """Slots journaled on EITHER side since `from_gen` — the rows a
+        mirror current at that generation must replay to catch up. A
+        re-shard re-journals every occupied slot at fresh generations,
+        so replay_slots(pre-failure full_gen) is exactly the row set
+        rebuilt on the survivors (shard_replay_rows_total counts it)."""
+        return np.nonzero((self.node_dirty_gen > from_gen)
+                          | (self.state_dirty_gen > from_gen))[0]
+
+
+@dataclass
 class EncodeResult:
     node_tab: NodeArrays
     pod_batch: PodArrays
@@ -201,6 +254,18 @@ class EncodeResult:
     # >1 when the resource arrays were narrowed to i32: every memory
     # quantity is stored divided by this exact common divisor
     mem_scale: int = 1
+    # incremental-encoder only: the _Group objects behind pod_batch's
+    # group_id column, so assume_assigned can bump their per-node rows
+    # without re-matching selectors
+    tile_groups: Optional[list] = None
+    # incremental-encoder only: the encoder's state_epoch at encode time
+    # (assume_assigned's fast path and the device-carry chain both
+    # require no intervening mutations)
+    state_epoch: int = -1
+    # incremental-encoder only: dirty-slot journal for the engine's
+    # device-resident table cache (None -> the encode has no generation
+    # tracking and the engine always uploads the full tables)
+    delta: Optional[TableDelta] = None
 
 
 _I32_BOUND = 1 << 30  # slack below 2^31 for the x10 score scaling

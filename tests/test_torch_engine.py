@@ -118,11 +118,17 @@ def test_chained_run_chunked_matches_jax(tier):
 
 
 def test_block_false_returns_device_tensor():
+    """block=False hands back a PendingAssignment: the i32 result tensor
+    on the engine's device (on the card with the CUDA event recorded
+    after the last chunk; on the CPU there is nothing to wait for)."""
     _, enc = encodings(rand_cluster(2))
     te = BatchEngine(device="cpu")
-    flat, _ = te.run_chunked(enc, 16, block=False)
+    pending, _ = te.run_chunked(enc, 16, block=False)
+    flat = pending.tensor
     assert isinstance(flat, torch.Tensor) and flat.dtype == torch.int32
-    assert np.array_equal(flat.numpy(), te.run_chunked(enc, 16)[0])
+    assert flat.device == te.device and pending.event is None
+    assert pending.is_ready()
+    assert np.array_equal(pending.result(), te.run_chunked(enc, 16)[0])
 
 
 @pytest.mark.parametrize("tier", sorted(TIERS))
@@ -170,3 +176,29 @@ def test_engine_requires_explicit_device_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchEngine()
+
+
+def test_upload_and_scan_stats_count_every_run_in_full():
+    """No device table mirror yet: every run_chunked uploads the node
+    tables (and the State init unless chained) and upload_stats says so
+    under the JAX engine's keys, and never reports a delta upload."""
+    _, enc = encodings(rand_cluster(3))
+    te = BatchEngine(device="cpu")
+    assert te.n_shards == 1
+    node, state, pods = te.device_args(enc)
+    nb = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    _, carry = te.run_chunked(enc, 16)
+    te.run_chunked(enc, 16, state_override=carry)
+    st = te.upload_stats
+    assert set(st) == {"full_tiles", "delta_tiles", "reuse_tiles",
+                       "full_bytes", "delta_bytes", "pod_bytes",
+                       "table_bytes"}
+    assert st["full_tiles"] == 2
+    assert st["delta_tiles"] == st["reuse_tiles"] == st["delta_bytes"] == 0
+    assert st["full_bytes"] == 2 * nb(node) + nb(state)
+    assert st["pod_bytes"] == 2 * nb(pods)
+    assert st["table_bytes"] == nb(node) + nb(state)
+    p = enc.pod_batch.valid.shape[0]
+    assert te.scan_stats["runs"] == 2
+    assert te.scan_stats["steps"] == 2 * (p + (-p) % 16)
+    assert te.scan_stats["seconds"] > 0

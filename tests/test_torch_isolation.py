@@ -1,6 +1,7 @@
-"""The port stands alone: importing and running it (scheduling a batch and
-one extender round trip on the CPU) loads neither jax nor any module of
-the JAX package, and its entry points refuse to run without a CUDA device
+"""The port stands alone: importing and running it (scheduling a batch,
+one extender round trip, and the live pipeline under the kubemark
+benchmark and the evidence tool's e2e section, all on the CPU) loads
+neither jax nor any module of the JAX package, and its entry points refuse to run without a CUDA device
 unless a device is named. Run in a subprocess, because this test
 process has jax loaded (tests/conftest.py)."""
 
@@ -41,16 +42,27 @@ def is_foreign(m):
     return (m == "jax" or m.startswith("jax.") or m == "kubernetes_tpu"
             or m.startswith("kubernetes_tpu."))
 
+# the live pipeline under the kubemark benchmark, and the evidence tool
+from kubernetes_tpu_torch.kubemark.benchmark import run_scheduling_benchmark
+from kubernetes_tpu_torch.kubemark.gpu_evidence import section_e2e
+bench = run_scheduling_benchmark(n_nodes=8, n_pods=40, wait_running=True,
+                                 device="cpu")
+e2e = section_e2e(8, 40, device="cpu")
+
 torch.cuda.is_available = lambda: False
 errors = []
-for make in (BatchEngine, DeviceBackend):
+for make in (BatchEngine, DeviceBackend,
+             lambda: run_scheduling_benchmark(2, 1),
+             lambda: section_e2e(2, 1)):
     try:
         make()
     except RuntimeError as e:
         errors.append(str(e))
 print(json.dumps({"foreign": sorted(m for m in sys.modules if is_foreign(m)),
                   "bound": sum(n is not None for n in names),
-                  "fit": len(fit), "prio": len(prio), "errors": errors}))
+                  "fit": len(fit), "prio": len(prio), "errors": errors,
+                  "bench": [bench.scheduled, bench.running],
+                  "e2e": e2e["scheduled"]}))
 """
 
 
@@ -64,7 +76,8 @@ def test_port_runs_without_jax_or_the_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["foreign"] == []
     assert res["bound"] > 0 and 0 < res["fit"] < 20 and res["prio"] == 20
-    assert len(res["errors"]) == 2
+    assert res["bench"] == [40, 40] and res["e2e"] == 40
+    assert len(res["errors"]) == 4
     assert all("no CUDA device" in e for e in res["errors"])
 
 
