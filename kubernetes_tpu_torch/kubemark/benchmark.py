@@ -32,7 +32,9 @@ from ..sched.scheduler import Scheduler
 from .fleet import HollowFleet
 
 WRITER_THREADS = 30  # ref: scheduler_test.go:379
-HEARTBEAT_INTERVAL_S = 86400.0  # no fleet heartbeat inside the window
+# the JAX benchmark's fleet heartbeat (its run_scheduling_benchmark passes
+# heartbeat_interval=600.0): the same traffic under the same name
+HEARTBEAT_INTERVAL_S = 600.0
 
 
 @dataclass
@@ -138,15 +140,14 @@ def run_scheduling_benchmark(n_nodes: int = 1000, n_pods: int = 1000,
         raise NotImplementedError(
             "the chaos arm (the chaos package) is not ported yet: "
             "ROADMAP.md Queue 1, 'Harness and entry points'")
-    # heartbeats quiesce during the measured window: the reference's
+    # the fleet beats as in the JAX benchmark: every node once per 600 s,
+    # one shard of a tenth of the fleet every 30-90 s. The reference's
     # BenchmarkScheduling fixture has NO kubelets (nodes are API
-    # objects, scheduler_test.go:329) — the fleet is here to confirm
-    # Running. The JAX package's 600 s interval (one shard of 500
-    # nodes beaten every ~60 s) kept its seconds-long window quiet; the
-    # port's window lasts minutes (its scan is eager, PERF.md), and a
-    # beat inside it is 500 node updates, each of which moves the
-    # encoder's state_epoch and stops tiles chaining on the device
-    # carry. A day's interval keeps the reference's intent.
+    # objects, scheduler_test.go:329); the fleet is here to confirm
+    # Running. A window of seconds sees no beat; a window of minutes
+    # sees a shard's node updates, each of which moves the encoder's
+    # state_epoch, so the next tile starts from a full upload instead
+    # of the device carry. Both are the JAX benchmark's traffic.
     fleet = HollowFleet(client, n_nodes, cpu="4", memory="32Gi",
                         max_pods=max_pods_per_node,
                         heartbeat_interval=HEARTBEAT_INTERVAL_S).run()

@@ -6,6 +6,12 @@ section with an atomic rename at each flush, and each flush folds the
 completed sections into the per-section best artifact (`--best-out`).
 
     python -m kubernetes_tpu_torch.kubemark.gpu_evidence --out PATH
+    python -m kubernetes_tpu_torch.kubemark.gpu_evidence --turns-against DIR
+
+The second form only times this checkout's hand kernels against those of
+another checkout at DIR (for example `git archive <parent>
+kubernetes_tpu_torch | tar -x -C DIR`) in the order other, this, this,
+other on one card, and prints one JSON object (`section_turns`).
 
 Sections:
 
@@ -40,6 +46,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import time
 import traceback
@@ -155,6 +162,176 @@ def section_dispatch(device=None) -> dict:
             "device_put_mb_per_s": nbytes / 2 ** 20 / put_s}
 
 
+def call_ms(fn, warmup: int = 3, reps: int = 20) -> float:
+    """Median wall time of one call as the card sees it (CUDA events
+    around each call, after warm-up): includes the host's time to check
+    inputs and launch whenever that exceeds the device's work."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20, trials: int = 5) -> float:
+    """Device time of one call: `reps` calls captured into one CUDA graph,
+    the graph replayed between CUDA events, so no host time is counted.
+    Median over `trials` replays, divided by `reps`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def launch_floor_ms(device=None) -> float:
+    """device_ms of a kernel that does nothing: what any one launch
+    costs in a graph, the floor under every kernel's `ms`."""
+    from ..sched.device import reject_kernel
+    d = _cuda(device)
+    return device_ms(lambda: reject_kernel.empty_launch(d))
+
+
+def kernel_timing(kernel, plain, library, floor_ms: float) -> dict:
+    """A kernel's device time beside its plain version's, the one
+    PyTorch call that computes the same function (None where there is
+    none) and the launch floor; call_ms adds the host's launch."""
+    return {"launch_floor_ms": floor_ms, "ms": device_ms(kernel),
+            "plain_ms": device_ms(plain),
+            "library_ms": None if library is None else device_ms(library),
+            "call_ms": call_ms(kernel)}
+
+
+def filter_bound(args, rate: dict) -> dict:
+    """The filter kernel's bound on FilterArgs at the card's integer
+    rate (bounds.card_rate), with the rate's keys."""
+    from ..sched.device import bounds
+    p, n = args.shape
+    ops = bounds.filter_ops(p, n, args.labels.shape[1],
+                            args.port_bits.shape[1], args.disk_any.shape[1])
+    return {**bounds.bound(args.nbytes(), ops, rate["int_ops_per_s"]),
+            "bytes": args.nbytes(), "ops": ops, **rate}
+
+
+def argsort_bound(x, rate: dict) -> dict:
+    """The argsort kernel's bound on f32[R, C]: each input read once,
+    each int32 index written once, ceil(log2 C!) compares a row."""
+    from ..sched.device import bounds
+    r, c = x.shape
+    nbytes = 2 * r * c * 4
+    ops = bounds.argsort_ops(r, c)
+    return {**bounds.bound(nbytes, ops, rate["int_ops_per_s"]),
+            "bytes": nbytes, "ops": ops, **rate}
+
+
+TURNS = ("other", "this", "this", "other")
+
+
+def turns(fns: dict, library=None, device=None) -> dict:
+    """Device time of two versions of one kernel, in turns on one card:
+    `fns` maps "this" and "other" to a callable that launches each. Per
+    turn of TURNS: the launch floor, the side's device_ms and, where
+    given, that of the PyTorch call computing the same function."""
+    d = _cuda(device)
+    rec = {"order": list(TURNS), "ms": [], "launch_floor_ms": []}
+    if library is not None:
+        rec["library_ms"] = []
+    for who in TURNS:
+        rec["launch_floor_ms"].append(launch_floor_ms(d))
+        rec["ms"].append(device_ms(fns[who]))
+        if library is not None:
+            rec["library_ms"].append(device_ms(library))
+    return rec
+
+
+def load_wrappers(root: str) -> dict:
+    """Another checkout's `sched/device/{_build,filter_kernel,
+    reject_kernel}.py`, loaded as a package of their own beside this
+    checkout's (its kernels build from its own sources into its own
+    `_build/`)."""
+    import importlib.util
+    import sys
+    import types
+    pkg_dir = os.path.join(os.path.abspath(root), "kubernetes_tpu_torch",
+                           "sched", "device")
+    name = "_other_device_kernels"
+    pkg = types.ModuleType(name)
+    pkg.__path__ = [pkg_dir]
+    sys.modules[name] = pkg
+    mods = {}
+    for mod_name in ("_build", "filter_kernel", "reject_kernel"):
+        spec = importlib.util.spec_from_file_location(
+            f"{name}.{mod_name}", os.path.join(pkg_dir, f"{mod_name}.py"))
+        mods[mod_name] = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mods[mod_name]
+        spec.loader.exec_module(mods[mod_name])
+    return mods
+
+
+def section_turns(other_root: str, device=None) -> dict:
+    """This checkout's hand kernels against another checkout's, in
+    turns (`--turns-against DIR`), on the inputs chip_smoke times: the
+    filter on the mixed snapshot (seed 7, 20000 existing pods) at 8192 x
+    5000 and its pod 1 alone (the extender's launch), the argsort on the
+    seeded [8, 128]. Each output is first held equal to the other's and
+    to the plain version. The other checkout's wrappers must take the
+    same arguments (`filter_masks(FilterArgs)`, `argsort_rows(x)`)."""
+    from ..sched.device import (BatchEngine, encode_snapshot, filter_kernel,
+                                reject_kernel)
+    from .fixtures import mixed_snapshot
+    d = _cuda(device)
+    other = load_wrappers(other_root)
+    ofk, ork = other["filter_kernel"], other["reject_kernel"]
+    enc = encode_snapshot(mixed_snapshot(7, 5000, 8192, 20000))
+    args = filter_kernel.FilterArgs.from_engine(
+        *BatchEngine(device=d).device_args(enc))
+    x = reject_inputs(d)["ties"]
+    cases = {f"argsort_rows {x.shape[0]}x{x.shape[1]}": (
+        reject_kernel.argsort_rows, ork.argsort_rows,
+        reject_kernel.argsort_rows_plain, x,
+        lambda: torch.argsort(x, dim=-1, stable=True))}
+    for shape, a in (("8192x5000", args), ("1x5000", args.pod_slice(1, 2))):
+        cases[f"filter_masks {shape}"] = (
+            filter_kernel.filter_masks,
+            lambda a, _f=ofk: _f.filter_masks(_f.FilterArgs(*a)),
+            filter_kernel.filter_masks_plain, a, None)
+    out = {"card": card_line(), "kernels": {}}
+    for name, (this_fn, other_fn, plain_fn, a, library) in cases.items():
+        got = this_fn(a)
+        if not (torch.equal(got, other_fn(a))
+                and torch.equal(got, plain_fn(a))):
+            raise AssertionError(f"{name}: this checkout's kernel differs "
+                                 f"from the other's or the plain version")
+        out["kernels"][name] = turns(
+            {"this": lambda: this_fn(a), "other": lambda: other_fn(a)},
+            library, d)
+    return out
+
+
 def reject_inputs(device) -> dict:
     """The argsort kernel's inputs: the JAX section's all-ones [8, 128],
     and a seeded [8, 128] of small integers (many ties) with -0.0,
@@ -223,7 +400,8 @@ def section_kernels(device=None) -> dict:
     scratch = torch.empty(REJECT_SHAPE, dtype=torch.int32, device=d)
 
     def refusing_launch(args, mask_out):
-        return reject_kernel._launch(ones, scratch, refused)
+        return reject_kernel._launch(
+            ones, scratch, reject_kernel.launch_plan(*ones.shape, refused))
 
     orig = filter_kernel._launch
     launches = filter_kernel.filter_masks.launches
@@ -417,7 +595,14 @@ def main() -> int:
     ap.add_argument("--out", default="GPU_EVIDENCE.json")
     ap.add_argument("--best-out", default="GPU_EVIDENCE_BEST.json")
     ap.add_argument("--skip-e2e", action="store_true")
+    ap.add_argument("--turns-against", metavar="DIR", default="",
+                    help="only time this checkout's kernels against those "
+                         "of the checkout at DIR (section_turns) and print "
+                         "the JSON")
     args = ap.parse_args()
+    if args.turns_against:
+        print(json.dumps(section_turns(args.turns_against)))
+        return 0
 
     ev = _Evidence(args.out, best_path=args.best_out)
     ev.run_section("platform", section_platform)

@@ -15,14 +15,15 @@ version agree bit for bit.
 Source: `csrc/filter_kernel.cu`, built with nvcc for sm_90a at first use
 (`_build.load_library`) and called through ctypes.
 
-Bound: bytes. The output is one byte per (pod, node) and dominates: at
-P = 8192, N = 5000 it is 41 MB against ~0.2 MB of inputs, so the least
-time on an H100 SXM is ~41 MB / 3.35 TB/s ~ 12 us. The design follows
-from that: one thread per output element with nodes on threadIdx.x, so
-each warp writes 32 consecutive output bytes and reads its node columns
-coalesced; the block's pod rows are staged in shared memory once; the
-mask is written as uint8 straight into a torch.bool tensor (a quarter of
-the TPU kernel's int32 output, and no cast afterwards).
+Bound: 32-bit integer operations (`bounds.filter_ops`): at P = 8192,
+N = 5000 with one-word bitsets, 11 instructions an element, ~0.027 ms
+on an H100 SXM, against ~0.012 ms for the 41 MB bool output. The design
+spends nothing per element beyond that arithmetic: each thread owns 4
+consecutive nodes, folds their pod-independent terms into registers
+once, walks a tile of 64 pods staged in shared memory, and stores the 4
+fits of a pod as one uint32 (a warp writes 128 contiguous bytes). The
+bitset widths are a template argument (`launch_plan` picks it): sets of
+at most 1 or 2 words live in registers, wider ones are read in the loop.
 
 On a CPU tensor the wrapper computes `filter_masks_plain` instead; on a
 CUDA tensor it launches the kernel or raises.
@@ -40,9 +41,33 @@ import torch
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "filter_kernel.cu")
-# pod rows per block; must match FILTER_BLOCK_PODS in the source
-BLOCK_PODS = 8
+# the kernel's blocking; each must match its #define in the source
+BLOCK_THREADS = 128       # FILTER_BLOCK_THREADS
+NODES_PER_THREAD = 4      # FILTER_NODES_PER_THREAD
+POD_TILE = 64             # FILTER_POD_TILE
+# the templated bitset widths: a snapshot whose label, port and disk sets
+# all fit in one of these words takes that instantiation; wider ones take
+# the general instantiation (0), which reads the words in the pod loop
+WORD_CAPS = (1, 2)
 _MAX_GRID_Y = 65535
+
+
+class LaunchPlan(NamedTuple):
+    """What `filter_masks_launch` is given besides the tensors: the
+    bitset width of the instantiation (0 = any width) and the grid (node
+    groups on x, pod tiles on y)."""
+    words: int
+    grid_x: int
+    grid_y: int
+
+
+def launch_plan(p: int, n: int, lw: int, pw: int, kw: int) -> LaunchPlan:
+    """The instantiation and grid for P pods, N nodes and bitsets of
+    lw / pw / kw words."""
+    widest = max(lw, pw, kw)
+    words = next((w for w in WORD_CAPS if widest <= w), 0)
+    return LaunchPlan(words, -(-n // (BLOCK_THREADS * NODES_PER_THREAD)),
+                      -(-p // POD_TILE))
 
 
 class FilterArgs(NamedTuple):
@@ -171,7 +196,7 @@ def _check(a: FilterArgs) -> None:
                              f"{t.dtype}, expected {shape} {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"filter input {name} is not contiguous")
-    if -(-p // BLOCK_PODS) > _MAX_GRID_Y:
+    if -(-p // POD_TILE) > _MAX_GRID_Y:
         raise ValueError(f"{p} pods exceed the kernel's grid limit")
 
 
@@ -179,9 +204,10 @@ def _check(a: FilterArgs) -> None:
 def _library() -> ctypes.CDLL:
     from ._build import load_library
     lib = load_library(SOURCE)
-    # (P, N, LW, PW, KW), one pointer per FilterArgs field, out, stream
+    # (words, grid_x, grid_y, P, N, LW, PW, KW), one pointer per
+    # FilterArgs field, out, stream
     lib.filter_masks_launch.argtypes = (
-        [ctypes.c_int] * 5
+        [ctypes.c_int] * 8
         + [ctypes.c_void_p] * (len(FilterArgs._fields) + 2))
     lib.filter_masks_launch.restype = ctypes.c_int
     lib.filter_error_name.argtypes = [ctypes.c_int]
@@ -195,12 +221,12 @@ def _launch(a: FilterArgs, out: torch.Tensor) -> int:
     swap in a launch CUDA refuses, as the JAX evidence swapped
     pallas_filter._filter_call, and show that filter_masks raises."""
     p, n = a.shape
+    widths = a.labels.shape[1], a.port_bits.shape[1], a.disk_any.shape[1]
     with torch.cuda.device(a.valid.device):
         stream = torch.cuda.current_stream().cuda_stream
         return _library().filter_masks_launch(
-            p, n, a.labels.shape[1], a.port_bits.shape[1],
-            a.disk_any.shape[1], *(t.data_ptr() for t in a),
-            out.data_ptr(), stream)
+            *launch_plan(p, n, *widths), p, n, *widths,
+            *(t.data_ptr() for t in a), out.data_ptr(), stream)
 
 
 def filter_masks(a: FilterArgs) -> torch.Tensor:

@@ -15,10 +15,14 @@ Order: `jnp.argsort`'s, not torch's. XLA sorts floats by a key in which
 the TPU; torch.argsort does not), and every NaN sorts after +inf; the
 sort is stable, so equal keys keep index order.
 
-Source: `csrc/reject_kernel.cu` (one block per row, the row's keys in
-shared memory, each element ranked by counting the elements that sort
-before it). Bound: bytes; at [8, 128] it moves 8 KiB, ~2.4 ns at
-3.35 TB/s, so a launch costs far more than its bound.
+Source: `csrc/reject_kernel.cu`. Each element becomes one distinct 64-bit
+key (NaN flag, the float's order-preserving integer image, the column
+index), and a bitonic network sorts the keys: for C <= 1024 one warp a
+row with its keys in registers (`__shfl_xor_sync` between lanes), for
+wider rows one block a row with its keys in shared memory. Bound:
+bytes; at [8, 128] it moves 8 KiB, ~2.4 ns at 3.35 TB/s, so a launch
+costs far more than its bound. `empty_launch` queues a kernel that does
+nothing: the launch floor every kernel's time is read against.
 
 On a CPU tensor the wrapper computes `argsort_rows_plain`; on a CUDA
 tensor it launches the kernel or raises.
@@ -29,15 +33,26 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+from typing import NamedTuple
 
 import torch
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "reject_kernel.cu")
 MAX_BLOCK_THREADS = 1024
-# keys + NaN flags of one row live in the kernel's static-size window of
-# dynamic shared memory (no opt-in attribute is set)
+# up to here a warp sorts a row in registers, 32 keys a lane at most
+WARP_MAX_COLS = 1024
+# the 64-bit keys of one row live in the shared path's static-size window
+# of dynamic shared memory (no opt-in attribute is needed)
 _MAX_COLS = 48 * 1024 // 8
+
+
+class LaunchPlan(NamedTuple):
+    """What `argsort_rows_launch` is given: keys a lane of the warp
+    kernel (0 = the shared-memory kernel), blocks, threads a block."""
+    keys_per_lane: int
+    grid: int
+    threads: int
 
 
 def _sort_keys(x: torch.Tensor):
@@ -71,26 +86,54 @@ def _library() -> ctypes.CDLL:
     from ._build import load_library
     lib = load_library(SOURCE)
     lib.argsort_rows_launch.argtypes = (
-        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
     lib.argsort_rows_launch.restype = ctypes.c_int
     lib.argsort_rows_error_name.argtypes = [ctypes.c_int]
     lib.argsort_rows_error_name.restype = ctypes.c_char_p
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
     return lib
 
 
-def default_block_threads(cols: int) -> int:
-    """min(C, 1024) rounded up to a whole warp."""
-    return min(MAX_BLOCK_THREADS, -(-max(cols, 1) // 32) * 32)
+def launch_plan(rows: int, cols: int, block_threads: int = 0) -> LaunchPlan:
+    """The kernel and grid for f32[rows, cols]. block_threads 0 picks one
+    warp a block on the warp path (one row a block: the rows spread over
+    the SMs, so no two share one SM's shuffle unit) and 1024 threads on
+    one row a block on the shared path; any other multiple of 32 is
+    launched as it is, more than the card takes included."""
+    threads = block_threads or (32 if cols <= WARP_MAX_COLS
+                                else MAX_BLOCK_THREADS)
+    if threads <= 0 or threads % 32:
+        raise ValueError(f"block_threads {threads} is not a positive "
+                         f"multiple of 32 (the kernel works in whole warps)")
+    if cols > WARP_MAX_COLS:
+        return LaunchPlan(0, rows, threads)
+    k = 1
+    while 32 * k < cols:
+        k *= 2
+    return LaunchPlan(k, -(-rows // (threads // 32)), threads)
 
 
-def _launch(x: torch.Tensor, out: torch.Tensor, block_threads: int) -> int:
-    """Queue the kernel on the current stream -> the CUDA error code of
-    the launch (0 = launched)."""
+def _launch(x: torch.Tensor, out: torch.Tensor, plan: LaunchPlan) -> int:
+    """Queue the kernel on the current stream as `plan` says -> the CUDA
+    error code of the launch (0 = launched)."""
     r, c = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         return _library().argsort_rows_launch(
-            r, c, block_threads, x.data_ptr(), out.data_ptr(), stream)
+            r, c, *plan, x.data_ptr(), out.data_ptr(), stream)
+
+
+def empty_launch(device) -> None:
+    """Queue the kernel that does nothing (one warp) on the current
+    stream: the launch floor probe. Not a kernel of the system: it
+    has no plain version and no launch count."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().empty_launch(stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err} "
+                           f"({error_name(err)})")
 
 
 def error_name(err: int) -> str:
@@ -100,13 +143,13 @@ def error_name(err: int) -> str:
 def argsort_rows(x: torch.Tensor, block_threads: int = 0) -> torch.Tensor:
     """-> i32[R, C] stable row-wise argsort of f32[R, C].
 
-    block_threads: the kernel's block size; 0 picks
-    default_block_threads(C). Any other value is launched as it
-    is: the evidence tool passes more than the card's 1024 threads to
+    block_threads: the kernel's block size; 0 lets launch_plan pick it.
+    Any other multiple of 32 is launched as it is: the evidence tool passes more than the card's 1024 threads to
     show that a refused launch raises RuntimeError."""
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f"argsort_rows takes f32[R, C], not "
                          f"{x.dtype}{list(x.shape)}")
+    plan = launch_plan(*x.shape, block_threads)   # raises on a bad block
     if x.device.type == "cpu":
         return argsort_rows_plain(x)
     if x.device.type != "cuda":
@@ -119,7 +162,7 @@ def argsort_rows(x: torch.Tensor, block_threads: int = 0) -> torch.Tensor:
     out = torch.empty((r, c), dtype=torch.int32, device=x.device)
     if r == 0 or c == 0:
         return out
-    err = _launch(x, out, block_threads or default_block_threads(c))
+    err = _launch(x, out, plan)
     if err != 0:
         raise RuntimeError(f"argsort kernel launch failed: CUDA error "
                            f"{err} ({error_name(err)})")

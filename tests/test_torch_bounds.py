@@ -1,0 +1,178 @@
+"""The port's kernel bounds (kubernetes_tpu_torch.sched.device.bounds),
+the launch plans the kernel wrappers hand their CUDA entry points, and
+the traffic of the port's kubemark benchmark against the JAX one's.
+Everything here is arithmetic on shapes or Python around the kernels:
+the kernels themselves run on the card (tests/test_torch_gpu.py)."""
+
+import inspect
+import math
+import re
+
+import pytest
+import torch
+
+import kubernetes_tpu.kubemark.benchmark as jax_benchmark
+import kubernetes_tpu_torch.kubemark.benchmark as port_benchmark
+from kubernetes_tpu_torch.kubemark import gpu_evidence
+from kubernetes_tpu_torch.kubemark.fixtures import mixed_snapshot
+from kubernetes_tpu_torch.sched.device import (BatchEngine, bounds,
+                                               encode_snapshot, filter_kernel,
+                                               reject_kernel)
+
+H100_SMS, H100_CLOCK_HZ = 132, 1.98e9
+
+
+def _defines(source: str) -> dict:
+    with open(source) as f:
+        return {m[1]: int(m[2]) for m in
+                re.finditer(r"^#define (\w+) (\d+)$", f.read(), re.M)}
+
+
+def test_int_rate_is_64_lanes_per_sm_per_clock():
+    assert bounds.int_ops_per_s(H100_SMS, H100_CLOCK_HZ) == \
+        H100_SMS * 64 * H100_CLOCK_HZ
+    assert bounds.int_ops_per_s(H100_SMS, H100_CLOCK_HZ) == \
+        pytest.approx(16.727e12, rel=1e-4)
+    # a quarter of the float32 figure (FMA = 2 ops on 128 lanes) that
+    # the bound used before
+    assert bounds.int_ops_per_s(H100_SMS, H100_CLOCK_HZ) == \
+        pytest.approx(67e12 / 4, rel=0.01)
+
+
+def test_filter_bound_at_the_batch_shape_with_the_mixed_widths():
+    # the mixed fixture's bitsets are one word each (widths do not grow
+    # with the pod count: its labels, ports and disks are few)
+    enc = encode_snapshot(mixed_snapshot(7, 5000, 16, 20000))
+    small = filter_kernel.FilterArgs.from_engine(
+        *BatchEngine(device="cpu").device_args(enc))
+    widths = (small.labels.shape[1], small.port_bits.shape[1],
+              small.disk_any.shape[1])
+    assert widths == (1, 1, 1)
+    p, n = 8192, 5000
+    args = small._replace(**{
+        f: torch.zeros((p,) + getattr(small, f).shape[1:],
+                       dtype=getattr(small, f).dtype)
+        for f in filter_kernel._POD_FIELDS})
+    assert args.shape == (p, n)
+    # 44 bytes a node, 30 a pod, one bool an element
+    assert args.nbytes() == 44 * n + 30 * p + p * n == 41_425_760
+    ops = bounds.filter_ops(p, n, *widths)
+    # 4 compares, a LOP3 a bitset word, 2 PLOP3s, 1 placement
+    assert ops == 11 * p * n == 450_560_000
+    assert bounds.filter_ops(p, n, 2, 3, 4) == (7 + 2 + 3 + 8) * p * n
+    rate = {"int_ops_per_s": bounds.int_ops_per_s(H100_SMS, H100_CLOCK_HZ),
+            "sms": H100_SMS, "sm_clock_mhz": 1980.0}
+    b = gpu_evidence.filter_bound(args, rate)
+    assert b["bound_by"] == "operations"
+    assert b["ops_bound_ms"] == pytest.approx(0.02694, abs=1e-5)
+    assert b["bytes_bound_ms"] == pytest.approx(0.01237, abs=1e-5)
+    assert b["bound_ms"] == b["ops_bound_ms"]
+    assert (b["sms"], b["sm_clock_mhz"]) == (H100_SMS, 1980.0)
+
+
+@pytest.mark.parametrize("cols", [1, 2, 3, 128, 1000, 6144])
+def test_argsort_ops_is_log2_factorial_per_row(cols):
+    want = math.ceil(sum(math.log2(k) for k in range(2, cols + 1)))
+    assert bounds.argsort_ops(8, cols) == 8 * want
+    if cols == 128:
+        assert bounds.argsort_ops(8, 128) == 8 * 717
+
+
+def test_argsort_bound_is_bytes_at_the_evidence_shape():
+    x = gpu_evidence.reject_inputs("cpu")["ties"]
+    rate = {"int_ops_per_s": bounds.int_ops_per_s(H100_SMS, H100_CLOCK_HZ)}
+    b = gpu_evidence.argsort_bound(x, rate)
+    assert b["bytes"] == 8 * 128 * 8
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(8192 / 3.35e12 * 1e3)
+
+
+def test_filter_blocking_matches_the_source():
+    d = _defines(filter_kernel.SOURCE)
+    assert d["FILTER_BLOCK_THREADS"] == filter_kernel.BLOCK_THREADS
+    assert d["FILTER_NODES_PER_THREAD"] == filter_kernel.NODES_PER_THREAD
+    assert d["FILTER_POD_TILE"] == filter_kernel.POD_TILE
+    with open(filter_kernel.SOURCE) as f:
+        cases = set(map(int, re.findall(r"case (\d+): filter_kernel<",
+                                        f.read())))
+    assert cases == set(filter_kernel.WORD_CAPS) | {0}
+
+
+@pytest.mark.parametrize("p", [1, 7, 8192])
+@pytest.mark.parametrize("n", [4096, 5012, 5000, 5001])   # N % 16: 0 4 8 1
+def test_filter_grid_covers_ragged_shapes(p, n):
+    plan = filter_kernel.launch_plan(p, n, 1, 1, 1)
+    per_block = filter_kernel.BLOCK_THREADS * filter_kernel.NODES_PER_THREAD
+    assert (plan.grid_x - 1) * per_block < n <= plan.grid_x * per_block
+    tile = filter_kernel.POD_TILE
+    assert (plan.grid_y - 1) * tile < p <= plan.grid_y * tile
+    assert plan.grid_y <= filter_kernel._MAX_GRID_Y
+    if (p, n) == (8192, 5000):
+        # 10 node groups x 128 pod tiles: one wave on 132 SMs
+        assert (plan.grid_x, plan.grid_y) == (10, 128)
+
+
+@pytest.mark.parametrize("widths,words", [
+    ((1, 1, 1), 1), ((2, 1, 1), 2), ((1, 2, 2), 2), ((2, 2, 2), 2),
+    ((3, 1, 1), 0), ((1, 1, 5), 0), ((1, 40, 1), 0)])
+def test_filter_instantiation_follows_the_widest_set(widths, words):
+    assert filter_kernel.launch_plan(8192, 5000, *widths).words == words
+
+
+@pytest.mark.parametrize("rows,cols,plan", [
+    (8, 128, (4, 8, 32)), (1, 1, (1, 1, 32)), (3, 37, (2, 3, 32)),
+    (1, 32, (1, 1, 32)), (1, 33, (2, 1, 32)), (9, 1024, (32, 9, 32)),
+    (1000, 1000, (32, 1000, 32)), (2, 1025, (0, 2, 1024)),
+    (2, 6144, (0, 2, 1024))])
+def test_argsort_plan(rows, cols, plan):
+    assert tuple(reject_kernel.launch_plan(rows, cols)) == plan
+
+
+def test_argsort_plan_launches_a_refused_block_as_given():
+    # the evidence tool's refusal: 2048 threads, one block for 8 rows
+    assert tuple(reject_kernel.launch_plan(8, 128, 2048)) == (4, 1, 2048)
+    assert tuple(reject_kernel.launch_plan(8, 128, 256)) == (4, 1, 256)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        reject_kernel.launch_plan(8, 128, 100)
+    with open(reject_kernel.SOURCE) as f:
+        cases = set(map(int, re.findall(r"case (\d+):", f.read())))
+    assert cases == {0, 1, 2, 4, 8, 16, 32}
+
+
+def test_turns_load_another_checkouts_wrappers():
+    # this checkout loaded as the other one: its modules sit beside this
+    # checkout's, and their plain paths agree on the CPU
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    other = gpu_evidence.load_wrappers(root)
+    ofk, ork = other["filter_kernel"], other["reject_kernel"]
+    assert ofk is not filter_kernel and ork is not reject_kernel
+    assert ofk.SOURCE == filter_kernel.SOURCE
+    x = gpu_evidence.reject_inputs("cpu")["ties"]
+    assert torch.equal(ork.argsort_rows(x), reject_kernel.argsort_rows(x))
+    enc = encode_snapshot(mixed_snapshot(7, 50, 9, 30))
+    args = filter_kernel.FilterArgs.from_engine(
+        *BatchEngine(device="cpu").device_args(enc))
+    assert torch.equal(ofk.filter_masks(ofk.FilterArgs(*args)),
+                       filter_kernel.filter_masks(args))
+
+
+def test_benchmark_heartbeat_is_the_jax_benchmarks(monkeypatch):
+    jax_src = inspect.getsource(jax_benchmark.run_scheduling_benchmark)
+    jax_interval = float(re.search(r"heartbeat_interval=([0-9.]+)",
+                                   jax_src)[1])
+    assert jax_interval == 600.0
+
+    class Captured(Exception):
+        pass
+
+    seen = {}
+
+    def fleet(*args, **kwargs):
+        seen.update(kwargs)
+        raise Captured
+
+    monkeypatch.setattr(port_benchmark, "HollowFleet", fleet)
+    with pytest.raises(Captured):
+        port_benchmark.run_scheduling_benchmark(10, 10, device="cpu")
+    assert seen["heartbeat_interval"] == jax_interval

@@ -6,13 +6,18 @@ file imports nothing of JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
 
-from kubernetes_tpu_torch.kubemark.fixtures import mixed_snapshot
-from kubernetes_tpu_torch.sched.device import BatchEngine, encode_snapshot
-from kubernetes_tpu_torch.sched.device import filter_kernel
+from kubernetes_tpu_torch.core import types as api
+from kubernetes_tpu_torch.core.quantity import Quantity
+from kubernetes_tpu_torch.kubemark.fixtures import MI, mixed_snapshot
+from kubernetes_tpu_torch.sched.device import (BatchEngine, ClusterSnapshot,
+                                               encode_snapshot)
+from kubernetes_tpu_torch.sched.device import filter_kernel, reject_kernel
 
 # the JAX package's pallas-filter test shapes, plus the extender's
 FILTER_SHAPES = [(7, 3, 5, 1), (137, 53, 200, 7), (512, 16, 64, 3),
@@ -43,6 +48,170 @@ def test_filter_kernel_matches_plain(cuda, n_nodes, n_pods, n_existing,
     assert torch.equal(got.cpu(), torch.from_numpy(probe_mask))
 
 
+INT32_MAX, INT32_MIN = 2 ** 31 - 1, -2 ** 31
+
+
+def _words(rng, shape, density):
+    """Random uint32 bitset words, carried as int32 views."""
+    bits = (rng.random(shape + (32,)) < density).astype(np.uint64)
+    words = (bits << np.arange(32, dtype=np.uint64)).sum(-1)
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32))
+
+
+def _random_args(p, n, widths=(1, 1, 1), seed=0):
+    """FilterArgs on the CPU with every edge of the predicates: cap == 0
+    (unlimited), cap - used wrapping in int32, requests at INT32_MAX,
+    exceeded nodes, zero-request pods, pods pinned to a node, to no node
+    (-1), off the table (-2) and past N."""
+    rng = np.random.default_rng(seed)
+    lw, pw, kw = widths
+
+    def i32(values, size):
+        return torch.from_numpy(rng.choice(
+            np.array(values, np.int64), size=size).astype(np.int32))
+
+    def flag(prob, size):
+        return torch.from_numpy(rng.random(size) < prob)
+
+    host = rng.choice(np.array([-1] * 12 + [-2, 0, n - 1, n + 5]), size=p)
+    host = np.where(rng.random(p) < 0.05, rng.integers(0, n, p), host)
+    return filter_kernel.FilterArgs(
+        valid=flag(0.9, n),
+        cpu_cap=i32([0, 1000, 4000, INT32_MAX, INT32_MIN + 5], n),
+        mem_cap=i32([0, 2000, 8000, INT32_MIN], n),
+        pod_cap=i32([0, 2, 40, 40], n), exceed_cpu=flag(0.05, n),
+        exceed_mem=flag(0.05, n), static_mask=flag(0.95, n),
+        labels=_words(rng, (n, lw), 0.5),
+        cpu_used=i32([0, 100, 900, 3500, 4500], n),
+        mem_used=i32([0, 10, 1500, 9000], n),
+        pod_count=i32([0, 1, 2, 39], n),
+        port_bits=_words(rng, (n, pw), 0.05),
+        disk_any=_words(rng, (n, kw), 0.05),
+        disk_rw=_words(rng, (n, kw), 0.02),
+        pvalid=flag(0.95, p),
+        preq_cpu=i32([0, 100, 100, 500, 2000, INT32_MAX], p),
+        preq_mem=i32([0, 100, 100, 5000, INT32_MAX], p),
+        pzero=flag(0.1, p),
+        psel=_words(rng, (p, lw), 0.03 / lw),
+        pports=_words(rng, (p, pw), 0.03 / pw),
+        pqany=_words(rng, (p, kw), 0.03 / kw),
+        pqrw=_words(rng, (p, kw), 0.02 / kw),
+        phost=torch.from_numpy(host.astype(np.int32)))
+
+
+def _on(args, device):
+    return filter_kernel.FilterArgs(*(t.to(device) for t in args))
+
+
+def _kernel_equals_plain(args):
+    before = filter_kernel.filter_masks.launches
+    got = filter_kernel.filter_masks(args)
+    torch.cuda.synchronize()
+    assert filter_kernel.filter_masks.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == args.shape
+    assert torch.equal(got, filter_kernel.filter_masks_plain(args))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 7, 8192])
+@pytest.mark.parametrize("n", [1, 3, 4, 5000, 5001, 5003])
+def test_filter_kernel_ragged_shapes_match_plain(cuda, p, n):
+    # N = 5001 and 5003 start most rows off a 4-byte boundary; N < 4
+    # leaves every row a ragged tail
+    _kernel_equals_plain(_on(_random_args(p, n, seed=p * 7 + n), cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widths", [(2, 1, 2), (3, 5, 4)])
+def test_filter_kernel_wider_bitsets_match_plain(cuda, widths):
+    # (2, 1, 2) takes the two-word instantiation, (3, 5, 4) the general one
+    args = _on(_random_args(512, 5001, widths, seed=sum(widths)), cuda)
+    assert filter_kernel.launch_plan(*args.shape, *widths).words == \
+        (2 if max(widths) == 2 else 0)
+    got = _kernel_equals_plain(args)
+    assert 0.0 < float(got.float().mean()) < 1.0
+
+
+def _wide_snapshot(n_nodes, n_pods):
+    """A snapshot whose labels, host ports and disks each need three
+    bitset words: 80 label values, 70 host ports, 70 disks."""
+    nodes = [api.Node(
+        metadata=api.ObjectMeta(name=f"w{i:04d}",
+                                labels={f"k{i % 80}": "v", "zone": "a"}),
+        status=api.NodeStatus(capacity={
+            "cpu": Quantity(4000), "memory": Quantity(512 * MI * 1000),
+            "pods": Quantity(40 * 1000)})) for i in range(n_nodes)]
+
+    def pod(name, node="", port=None, disk=None, selector=None):
+        vols = ([api.Volume(name="d", gce_persistent_disk=(
+            api.GCEPersistentDiskVolumeSource(pd_name=disk)))]
+            if disk else [])
+        return api.Pod(
+            metadata=api.ObjectMeta(name=name, namespace="default"),
+            spec=api.PodSpec(
+                node_name=node, volumes=vols, node_selector=selector or {},
+                containers=[api.Container(
+                    name="c", image="i",
+                    ports=([api.ContainerPort(host_port=port)]
+                           if port else []),
+                    resources=api.ResourceRequirements(requests={
+                        "cpu": Quantity(100),
+                        "memory": Quantity(64 * MI * 1000)}))]))
+
+    existing = [pod(f"e{j}", node=f"w{j % n_nodes:04d}", port=9000 + j % 70,
+                    disk=f"pd-{j % 70}") for j in range(3 * n_nodes)]
+    pending = [pod(f"p{j}", port=9000 + j % 70 if j % 3 == 0 else None,
+                   disk=f"pd-{j % 70}" if j % 3 == 1 else None,
+                   selector={f"k{j % 80}": "v"} if j % 2 else None)
+               for j in range(n_pods)]
+    return ClusterSnapshot(nodes=nodes, existing_pods=existing, services=[],
+                           controllers=[], pending_pods=pending)
+
+
+@pytest.mark.gpu
+def test_filter_kernel_wide_snapshot_matches_plain_and_probe(cuda):
+    enc = encode_snapshot(_wide_snapshot(300, 64))
+    assert filter_kernel.supports(enc)
+    engine = BatchEngine(device=cuda)
+    args = filter_kernel.FilterArgs.from_engine(*engine.device_args(enc))
+    widths = (args.labels.shape[1], args.port_bits.shape[1],
+              args.disk_any.shape[1])
+    assert min(widths) >= 3
+    assert filter_kernel.launch_plan(*args.shape, *widths).words == 0
+    got = _kernel_equals_plain(args)
+    probe_mask, _ = engine.probe(enc)
+    assert torch.equal(got.cpu(), torch.from_numpy(probe_mask))
+    assert 0.0 < float(got.float().mean()) < 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fits", [True, False])
+def test_filter_kernel_uniform_masks(cuda, fits):
+    args = _random_args(96, 5001, seed=3)
+    if fits:
+        n, p = args.valid.shape[0], args.pvalid.shape[0]
+        args = args._replace(
+            valid=torch.ones(n, dtype=torch.bool),
+            static_mask=torch.ones(n, dtype=torch.bool),
+            exceed_cpu=torch.zeros(n, dtype=torch.bool),
+            exceed_mem=torch.zeros(n, dtype=torch.bool),
+            cpu_cap=torch.zeros(n, dtype=torch.int32),
+            mem_cap=torch.zeros(n, dtype=torch.int32),
+            pod_cap=torch.ones(n, dtype=torch.int32),
+            pod_count=torch.zeros(n, dtype=torch.int32),
+            pvalid=torch.ones(p, dtype=torch.bool),
+            psel=torch.zeros_like(args.psel),
+            pports=torch.zeros_like(args.pports),
+            pqany=torch.zeros_like(args.pqany),
+            pqrw=torch.zeros_like(args.pqrw),
+            phost=torch.full((p,), -1, dtype=torch.int32))
+    else:
+        args = args._replace(pvalid=torch.zeros_like(args.pvalid))
+    got = _kernel_equals_plain(_on(args, cuda))
+    assert bool(got.all()) if fits else not bool(got.any())
+
+
 @pytest.mark.gpu
 def test_engine_on_card_matches_cpu(cuda):
     enc = encode_snapshot(mixed_snapshot(3, 300, 96, 200))
@@ -58,7 +227,6 @@ REJECT_SHAPES = [(8, 128), (3, 37), (64, 1000)]
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,cols", REJECT_SHAPES)
 def test_reject_kernel_matches_plain(cuda, rows, cols):
-    from kubernetes_tpu_torch.sched.device import reject_kernel
     rng = np.random.default_rng(rows * cols)
     x = rng.integers(-3, 4, (rows, cols)).astype(np.float32)
     x[:, ::5] = rng.choice(np.array([0.0, -0.0, np.nan, -np.inf, 1e-45],
@@ -72,10 +240,40 @@ def test_reject_kernel_matches_plain(cuda, rows, cols):
     assert torch.equal(got, reject_kernel.argsort_rows_plain(x))
 
 
+# bit patterns: +0, -0, denormals of both signs (the largest too), +inf,
+# -inf, and NaNs of both signs with different payloads
+SPECIAL_BITS = np.array([0x00000000, 0x80000000, 0x00000001, 0x80000001,
+                         0x007FFFFF, 0x7F800000, 0xFF800000, 0x7FC00000,
+                         0xFFC00000, 0x7F800001, 0xFFBADBAD, 0x7FFFFFFF],
+                        np.uint32)
+
+
 @pytest.mark.gpu
-def test_refused_launch_raises_and_context_survives(cuda):
-    from kubernetes_tpu_torch.sched.device import reject_kernel
-    x = torch.ones(8, 128, device=cuda)
+@pytest.mark.parametrize("cols", [1, 2, 31, 32, 33, 127, 128, 129, 1000,
+                                  6144])
+def test_reject_kernel_columns_match_plain(cuda, cols):
+    # the plain version holds [R, C, C] temporaries: fewer rows as C grows
+    rows = 1000 if cols <= 129 else 40 if cols <= 1000 else 3
+    rng = np.random.default_rng(cols)
+    x = rng.integers(-3, 4, (rows, cols)).astype(np.float32)
+    special = rng.random((rows, cols)) < 0.3
+    x[special] = rng.choice(SPECIAL_BITS, size=int(special.sum())).view(
+        np.float32)
+    x = torch.from_numpy(x).to(cuda)
+    got = reject_kernel.argsort_rows(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, reject_kernel.argsort_rows_plain(x))
+    # each row is a permutation of its column indices
+    assert torch.equal(got.sort(dim=1).values,
+                       torch.arange(cols, dtype=torch.int32, device=cuda)
+                       .expand(rows, cols))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cols", [128, 2000])
+def test_refused_launch_raises_and_context_survives(cuda, cols):
+    # 128 columns take the warp kernel, 2000 the shared-memory one
+    x = torch.ones(8, cols, device=cuda)
     before = reject_kernel.argsort_rows.launches
     with pytest.raises(RuntimeError, match="cudaErrorInvalidConfiguration"):
         reject_kernel.argsort_rows(
@@ -83,8 +281,18 @@ def test_refused_launch_raises_and_context_survives(cuda):
     assert reject_kernel.argsort_rows.launches == before
     got = reject_kernel.argsort_rows(x)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), torch.arange(128, dtype=torch.int32)
-                       .expand(8, 128))
+    assert torch.equal(got.cpu(), torch.arange(cols, dtype=torch.int32)
+                       .expand(8, cols))
+
+
+@pytest.mark.gpu
+def test_launch_floor_probe_runs_uncounted(cuda):
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import launch_floor_ms
+    before = reject_kernel.argsort_rows.launches
+    reject_kernel.empty_launch(cuda)
+    torch.cuda.synchronize()
+    assert 0.0 < launch_floor_ms(cuda) < 1.0
+    assert reject_kernel.argsort_rows.launches == before
 
 
 @pytest.mark.gpu
@@ -95,6 +303,68 @@ def test_kernels_evidence_section_holds(cuda):
 
 
 @pytest.mark.gpu
+def test_turns_against_this_checkout(cuda):
+    import os
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import (TURNS,
+                                                           section_turns)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = section_turns(root, cuda)
+    assert set(out["kernels"]) == {"argsort_rows 8x128",
+                                   "filter_masks 8192x5000",
+                                   "filter_masks 1x5000"}
+    for name, rec in out["kernels"].items():
+        assert rec["order"] == list(TURNS)
+        assert len(rec["ms"]) == len(rec["launch_floor_ms"]) == len(TURNS)
+        assert all(0.0 < t < 10.0 for t in rec["ms"]), (name, rec)
+        assert ("library_ms" in rec) == name.startswith("argsort")
+
+
+def _wait(cond, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.05)
+    return False
+
+
+def _tiled_pipeline(device, n_nodes=40, n_pods=160, tile=32):
+    """The live batch loop over pods that all sit in the FIFO before it
+    starts, in tiles of `tile`, so tiles chain on the device carry.
+    -> ({pod: node}, chained tiles)."""
+    from kubernetes_tpu_torch.api.client import InProcClient
+    from kubernetes_tpu_torch.api.registry import Registry
+    from kubernetes_tpu_torch.kubemark.benchmark import _bench_pod
+    from kubernetes_tpu_torch.sched.batch import BatchScheduler
+    from kubernetes_tpu_torch.sched.factory import ConfigFactory
+    from kubernetes_tpu_torch.utils.metrics import MetricsRegistry
+    metrics = MetricsRegistry()
+    client = InProcClient(Registry())
+    factory = ConfigFactory(client, rate_limit=False).start()
+    sched = None
+    try:
+        for node in mixed_snapshot(3, n_nodes, 0, 0).nodes:
+            client.create("nodes", node)
+        assert _wait(lambda: len(factory.node_lister.list()) == n_nodes)
+        client.create_batch("pods", [_bench_pod(i) for i in range(n_pods)],
+                            "default")
+        assert _wait(lambda: len(factory.pod_queue.list()) == n_pods)
+        sched = BatchScheduler(factory.create_batch(
+            engine=BatchEngine(device=device), tile_size=tile,
+            metrics=metrics)).run()
+        assert _wait(lambda: all(
+            p.spec.node_name for p in client.list("pods", "default")[0]))
+        sched.drain_commits()
+        return ({p.metadata.name: p.spec.node_name
+                 for p in client.list("pods", "default")[0]},
+                metrics.counter("batch_tiles_total", {"chained": "true"}))
+    finally:
+        if sched is not None:
+            sched.stop()
+        factory.stop()
+
+
+@pytest.mark.gpu
 def test_pipeline_on_card_matches_cpu(cuda):
     from kubernetes_tpu_torch.kubemark.gpu_evidence import section_e2e
     got = section_e2e(20, 200, device=cuda)
@@ -102,3 +372,9 @@ def test_pipeline_on_card_matches_cpu(cuda):
     assert got["scheduled"] == want["scheduled"] == 200
     assert (got["counts_sha256"], got["counts_bound"]) == \
         (want["counts_sha256"], want["counts_bound"])
+    # the chained path: tiles that start from the previous tile's state
+    # on the card bind as the CPU run does
+    card, chained = _tiled_pipeline(cuda)
+    cpu, _ = _tiled_pipeline("cpu")
+    assert chained > 0
+    assert card == cpu and all(card.values())

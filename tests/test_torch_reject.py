@@ -29,7 +29,7 @@ from kubernetes_tpu_torch.kubemark.gpu_evidence import (_Evidence,
                                                         reject_inputs)
 from kubernetes_tpu_torch.sched.device import reject_kernel
 from kubernetes_tpu_torch.sched.device.reject_kernel import (
-    argsort_rows, argsort_rows_plain, default_block_threads)
+    argsort_rows, argsort_rows_plain, launch_plan)
 
 
 def jax_bad_kernel(x: np.ndarray) -> np.ndarray:
@@ -92,9 +92,13 @@ def test_wrapper_checks():
         argsort_rows(torch.ones(8, 128, dtype=torch.float64))
     with pytest.raises(ValueError, match="f32"):
         argsort_rows(torch.ones(128))
-    assert default_block_threads(128) == 128
-    assert default_block_threads(37) == 64
-    assert default_block_threads(5000) == reject_kernel.MAX_BLOCK_THREADS
+    with pytest.raises(ValueError, match="multiple of 32"):
+        argsort_rows(torch.ones(8, 128), block_threads=48)
+    # a warp (a row) a block up to 1024 columns, then 1024 threads a row
+    assert launch_plan(8, 128).threads == 32
+    assert launch_plan(8, 37).threads == 32
+    assert launch_plan(8, 1024).threads == 32
+    assert launch_plan(8, 5000).threads == reject_kernel.MAX_BLOCK_THREADS
 
 
 def _doc(ts, engine_rate, e2e_rate, p50, kernels_ok=True):
