@@ -7,7 +7,7 @@ Drives the port's main device path once on the card, at the north-star
 size, through the entry points a user calls, and holds every kernel and
 every answer to a reference:
 
-  build     nvcc-builds every CUDA source of the path (all at once).
+  build     nvcc-builds every CUDA source (all four at once).
   filter    the predicate-filter kernel on a mixed 8192-pod x 5000-node
             snapshot: bit-equal to its plain PyTorch version on the card
             and to the engine's probe mask; a mask that is neither all
@@ -33,9 +33,32 @@ every answer to a reference:
   e2e       the evidence tool's `e2e` section: the live batch pipeline
             under run_scheduling_benchmark(5000, 30000, "batch") on the
             card, with the JAX benchmark's traffic (fleet heartbeats
-            every 600 s); every pod bound and the per-node counts equal
-            to E2E_COUNTS (the JAX engine's answer). Chained and
-            unchained tiles are reported, not held.
+            every 600 s) and the device table mirror on; every pod bound
+            and the per-node counts equal to E2E_COUNTS (the JAX
+            engine's answer); at least one tile off the mirror (delta
+            or reuse) and the scatter kernel launched. Chained and
+            unchained tiles and the upload bytes are reported.
+  scatter   the dirty-row scatter kernel on the 5000-node fleet's node
+            and State tables (5120 slots), at the e2e's dirty rows a
+            launch and at 5000 rows: bit-equal to its plain version and
+            to `index_copy_` per column; kernel / plain / `index_copy_`
+            times beside the bound and the launch floor.
+  preempt   an IncrementalEncoder over 5000 nodes, each full by CPU with
+            16 bound pods of seeded priorities (80,000 pods), and 64
+            seeded preemptors: victim_table -> BatchEngine.find_victims
+            on the card for each, equal to oracle_find_victims field for
+            field and to the plain version; the sha256 over the 64
+            results equal to PREEMPT_DIGEST (the JAX engine's answer);
+            the victim kernel timed at 5120 x 16.
+  no_fallback  a victim-kernel launch the card refuses (more threads a
+            block than it takes), swapped in: find_victims raises and
+            returns nothing; restored, the search equals the oracle.
+            The same for the scatter kernel: a refused launch in its
+            place makes run_chunked raise on a tile off the mirror.
+  mixed     mixed mode (factory.create_mixed): the device probe on the
+            card and one HTTP extender (the port's ExtenderServer over a
+            CPU backend) place 8 pods on 5000 nodes, one at a time; the
+            bindings equal those of the same policy on device="cpu".
 
 Bounds (`kubernetes_tpu_torch/sched/device/bounds.py`): the larger of the
 bytes over 3.35 TB/s and the 32-bit integer operations over the card's
@@ -44,10 +67,13 @@ with a bound names the rate (`int_ops_per_s`, `sm_clock_mhz`, `sms`).
 The launch floor is the device time of a kernel that does nothing,
 timed like every kernel (20 launches in one CUDA graph).
 
-Three paths are driven, each with the kernel launch counts set to 0 just
+Five paths are driven, each with the kernel launch counts set to 0 just
 before it and read just after: the engine and extender phases (the
-filter kernel), the reject phase (the argsort kernel), and the e2e phase
-(which runs neither kernel: its scan is eager PyTorch until ROADMAP K1).
+filter kernel), the reject phase (the argsort kernel), the e2e phase
+(the scatter kernel, through the table mirror; its scan is eager
+PyTorch until ROADMAP K1), the preempt phase's 64 searches (the victim
+kernel) and the mixed phase (no kernel: its probe is plain PyTorch
+until ROADMAP K5).
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero and prints no result. Every line carries the card's name
 and power limit (nvidia-smi). The last lines are the card's line, the
@@ -74,6 +100,8 @@ FILTER_SEED = 7
 FILTER_SHAPE = (5000, 8192, 20000)        # nodes, pods, existing pods
 EXTENDER_PODS = (1, 5, 7)                 # plain, node selector, host port
 EXTENDER_EXISTING = 2000
+SCATTER_SEED = 13
+MIXED_PODS = 8
 
 
 def emit(obj) -> None:
@@ -84,9 +112,12 @@ def phase_build():
     import torch
 
     from kubernetes_tpu_torch.sched.device import (_build, filter_kernel,
-                                                   reject_kernel)
+                                                   reject_kernel,
+                                                   scatter_kernel,
+                                                   victim_kernel)
     t0 = time.monotonic()
-    records = _build.build_all([filter_kernel.SOURCE, reject_kernel.SOURCE])
+    records = _build.build_all([filter_kernel.SOURCE, reject_kernel.SOURCE,
+                                scatter_kernel.SOURCE, victim_kernel.SOURCE])
     for r in records:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -293,6 +324,9 @@ def phase_e2e():
 
     want = E2E_COUNTS
     sec = gpu_evidence.section_e2e(want["n_nodes"], want["n_pods"])
+    up = sec["upload_stats"]
+    if up["delta_tiles"] + up["reuse_tiles"] < 1:
+        raise AssertionError(f"e2e: no tile ran off the table mirror: {up}")
     if sec["scheduled"] != want["n_pods"]:
         raise AssertionError(f"e2e bound {sec['scheduled']} of "
                              f"{want['n_pods']} pods")
@@ -302,7 +336,393 @@ def phase_e2e():
             f"e2e per-node counts {sec['counts_sha256']} / "
             f"{sec['counts_bound']} differ from the JAX engine's "
             f"{want['sha256']} / {want['bound']}")
-    return {"phase": "e2e", **sec, "counts_ok": True}
+    return {"phase": "e2e", **sec, "counts_ok": True,
+            **{k: up[k] for k in ("full_tiles", "delta_tiles", "reuse_tiles",
+                                  "full_bytes", "delta_bytes")}}
+
+
+def _random_rows(column, r, rng):
+    """r random rows for a mirror column, in the encoder's dtypes."""
+    import numpy as np
+    import torch
+    shape = (r,) + tuple(column.shape[1:])
+    if column.dtype == torch.bool:
+        return rng.random(shape) < 0.5
+    dt = np.int64 if column.dtype == torch.int64 else np.uint32
+    return rng.integers(0, 2 ** 32, shape).astype(dt)
+
+
+def phase_scatter(rate, floor_ms, e2e_rows: int):
+    """The scatter kernel on the e2e fleet's tables, at the e2e's dirty
+    rows a launch and at 5000 rows, held bit-equal to its plain version
+    and to index_copy_ a column, then timed. -> (record, timings by
+    row count)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.kubemark.benchmark import _bench_pod
+    from kubernetes_tpu_torch.kubemark.fixtures import E2E_COUNTS
+    from kubernetes_tpu_torch.kubemark.fleet import HollowFleet
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import kernel_timing
+    from kubernetes_tpu_torch.sched.device import BatchEngine, bounds
+    from kubernetes_tpu_torch.sched.device import engine as eng_mod
+    from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
+    from kubernetes_tpu_torch.sched.device.incremental import \
+        IncrementalEncoder
+
+    n = E2E_COUNTS["n_nodes"]
+    fleet = HollowFleet(None, n, cpu="4", memory="32Gi",
+                        max_pods=E2E_COUNTS["max_pods"])
+    inc = IncrementalEncoder()
+    for i in range(n):
+        inc.on_node_add(fleet._node_object(i))
+    engine = BatchEngine()
+    dev = engine.device
+    node_h, state_h, _ = engine.host_args(
+        inc.encode_tile([_bench_pod(0)], [], []))
+    node, state = eng_mod._upload(node_h, dev), eng_mod._upload(state_h, dev)
+    tables = {"node": [getattr(node, f) for f in eng_mod._NODE_ROW_FIELDS],
+              "state": [getattr(state, f) for f in eng_mod._STATE_ROW_FIELDS]}
+    rng = np.random.default_rng(SCATTER_SEED)
+    e2e_rows = min(e2e_rows, n)
+    rec = {"phase": "scatter", "slots": int(node_h.valid.shape[0]),
+           "e2e_rows": e2e_rows, "equal_plain": True,
+           "equal_library": True, "max_abs_err": 0, "tables": {}}
+    timed = {}
+    for r in sorted({e2e_rows, n}):
+        idx = rng.permutation(n)[:r].astype(np.int64)
+        for name, cols in tables.items():
+            rows = [_random_rows(c, r, rng) for c in cols]
+            plain = [c.clone() for c in cols]
+            lib = [c.clone() for c in cols]
+            staged = sk.to_device(sk.stage(cols, idx, rows, pin=True), dev)
+            sk.launch_staged(staged)
+            sk.scatter_staged_plain(plain, staged)
+            idx_dev = torch.from_numpy(idx).to(dev)
+            rows_dev = [torch.from_numpy(sk._host_view(a)).to(dev)
+                        for a in rows]
+            index_copy(lib, idx_dev, rows_dev)
+            torch.cuda.synchronize()
+            for got, want, other in zip(cols, plain, lib):
+                err = int((got.long() - want.long()).abs().max())
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"scatter kernel != plain version "
+                                         f"({name} table, {r} rows)")
+                if not torch.equal(got, other):
+                    raise AssertionError(f"scatter kernel != index_copy_ "
+                                         f"({name} table, {r} rows)")
+            row_bytes = [f[0] for f in staged.fields]
+            t = {**kernel_timing(lambda: sk.launch_staged(staged),
+                                 lambda: sk.scatter_staged_plain(plain,
+                                                                 staged),
+                                 lambda: index_copy(lib, idx_dev,
+                                                    rows_dev), floor_ms),
+                 "wrapper_ms": _wrapper_ms(lambda: sk.scatter_rows(
+                     cols, idx, rows)),
+                 **bounds.scatter_bound(r, row_bytes, rate),
+                 "columns": len(cols), "row_bytes": sum(row_bytes)}
+            rec["tables"][f"{name} x {r}"] = t
+            timed[(name, r)] = t
+    return rec, timed
+
+
+def index_copy(columns, idx, rows) -> None:
+    """The scatter as one typed `index_copy_` a column, from rows already
+    on the card: the PyTorch yardstick of the scatter kernel
+    (`library_ms`), which the port never calls."""
+    for t, r in zip(columns, rows):
+        t.index_copy_(0, idx, r)
+
+
+def _wrapper_ms(fn) -> float:
+    """Host-clock ms of one whole wrapper call (pack on the host, one
+    copy, one launch) up to its completion, the median of 20."""
+    import statistics
+
+    import torch
+    times = []
+    for _ in range(23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[3:])
+
+
+def phase_preempt(rate, floor_ms):
+    """The full-width preemption fixture through victim_table and the
+    victim kernel, each search held to the oracle and the plain version,
+    the 64 results to PREEMPT_DIGEST. -> (record, the kernel's launches
+    in the 64 searches, a table at the widest victim axis)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.kubemark import fixtures as fx
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import kernel_timing
+    from kubernetes_tpu_torch.sched.device import BatchEngine, bounds
+    from kubernetes_tpu_torch.sched.device import victim_kernel as vk
+    from kubernetes_tpu_torch.sched.preemption import oracle_find_victims
+
+    t0 = time.monotonic()
+    spec = fx.preempt_spec()
+    inc = fx.preempt_encoder(spec)
+    pods = fx.preempt_pods(spec)
+    build_s = time.monotonic() - t0
+    engine = BatchEngine()
+    dev = engine.device
+    results, tables = [], []
+    seconds = {"table": 0.0, "search": 0.0, "oracle": 0.0}
+    vk.victim_search.launches = 0         # this path starts here
+    launches = 0
+    for pod in pods:
+        t0 = time.monotonic()
+        table = inc.victim_table(pod)
+        t1 = time.monotonic()
+        got = engine.find_victims(table)
+        t2 = time.monotonic()
+        launches += vk.victim_search.launches
+        vk.victim_search.launches = 0
+        want = oracle_find_victims(table)
+        seconds["table"] += t1 - t0
+        seconds["search"] += t2 - t1
+        seconds["oracle"] += time.monotonic() - t2
+        if ((got.pick, got.kstar, got.feasible)
+                != (want.pick, want.kstar, want.feasible)
+                or not np.array_equal(got.node_kstar, want.node_kstar)
+                or not np.array_equal(got.node_score, want.node_score)
+                or got.victim_keys(table) != want.victim_keys(table)):
+            raise AssertionError(f"{pod.metadata.name}: the victim search "
+                                 f"on the card differs from the oracle")
+        p_pick, p_kstar, p_score = vk.victim_search_plain(
+            vk.VictimArgs.from_table(table, dev))
+        if (int(p_pick) != got.pick
+                or not np.array_equal(p_kstar.cpu().numpy(), got.node_kstar)
+                or not np.array_equal(p_score.cpu().numpy(),
+                                      got.node_score)):
+            raise AssertionError(f"{pod.metadata.name}: the victim kernel "
+                                 f"differs from its plain version")
+        results.append((got, table))
+        tables.append(table)
+    digest = fx.preempt_digest(results)     # ... and ends at the last one
+    if digest != fx.PREEMPT_DIGEST:
+        raise AssertionError(f"preempt digest {digest} differs from the "
+                             f"JAX engine's {fx.PREEMPT_DIGEST}")
+    if launches != len(pods):
+        raise AssertionError(f"victim kernel launched {launches} times "
+                             f"for {len(pods)} searches")
+    feasible = sum(r.feasible for r, _ in results)
+    if not 0 < feasible < len(results):
+        raise AssertionError(f"degenerate preempt fixture: {feasible} of "
+                             f"{len(results)} feasible")
+    # the main path's widest table, timed (the search with the most
+    # victims walked among the widest ones)
+    wide = max(tables, key=lambda t: (t.v, int(t.v_valid.sum())))
+    args = vk.VictimArgs.from_table(wide, dev)
+    read, steps = vk.walk(args)
+    n, v = args.shape
+    timing = {**kernel_timing(lambda: vk.victim_search(args),
+                              lambda: vk.victim_search_plain(args), None,
+                              floor_ms),
+              **bounds.victim_bound(n, read, steps, rate),
+              "walk_read": read, "walk_steps": steps}
+    rec = {"phase": "preempt", "nodes": wide.n, "bound_pods": len(spec[1]),
+           "preemptors": len(pods), "shape": [n, v],
+           "victim_axes": sorted({t.v for t in tables}),
+           "feasible": feasible,
+           "evicting": sum(r.kstar > 0 for r, _ in results),
+           "zero_request": sum(t.zero_req for t in tables),
+           "build_s": build_s, **{f"{k}_s": x for k, x in seconds.items()},
+           "digest": digest, "digest_ok": True, "equal_oracle": True,
+           "equal_plain": True, "max_abs_err": 0, **timing}
+    return rec, launches, wide
+
+
+def _scatter_refusal():
+    """A scatter-kernel launch the card refuses (the argsort kernel with
+    more threads a block than the card takes) in place of the real one,
+    on a tile off the table mirror: run_chunked must raise and return
+    nothing; restored, the same tile scatters again and equals the CPU
+    engine's."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.kubemark import fixtures as fx
+    from kubernetes_tpu_torch.sched.device import BatchEngine
+    from kubernetes_tpu_torch.sched.device import reject_kernel as rk
+    from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
+
+    inc = fx.preempt_encoder(fx.preempt_spec(n_nodes=64, n_preemptors=0))
+    tile = [fx._preempt_pod(f"z{i}", "", 0, 0, 0) for i in range(8)]
+    engine = BatchEngine()
+    enc = inc.encode_tile(tile, [], [])
+    assigned, _ = engine.run_chunked(enc, 8)      # seeds the mirror
+    inc.assume_assigned(enc, tile, assigned)
+    enc = inc.encode_tile(tile[:1], [], [])       # a tile of dirty rows
+    ones = torch.ones(8, 128, device=engine.device)
+    scratch = torch.empty(8, 128, dtype=torch.int32, device=engine.device)
+    real = sk._launch
+    before = sk.scatter_rows.launches
+    got, error = None, None
+    sk._launch = lambda staged: rk._launch(
+        ones, scratch, rk.launch_plan(8, 128, 2 * rk.MAX_BLOCK_THREADS))
+    try:
+        got, _ = engine.run_chunked(enc, 8)
+    except RuntimeError as e:
+        error = str(e)
+    finally:
+        sk._launch = real
+    if got is not None or error is None \
+            or sk.scatter_rows.launches != before:
+        raise AssertionError("a refused scatter launch did not raise "
+                             "through run_chunked")
+    # the mirror's generations moved only past scatters that landed, so
+    # the same tile scatters again
+    again, _ = engine.run_chunked(enc, 8)
+    want, _ = BatchEngine(device="cpu").run_chunked(enc, 8)
+    if not np.array_equal(again, want):
+        raise AssertionError("the tile after a refused scatter differs "
+                             "from the CPU engine's")
+    return error
+
+
+def phase_no_fallback(table):
+    """A victim-kernel launch the card refuses, in place of the real one:
+    find_victims must raise and return nothing; restored, the search
+    equals the oracle again (the context survived). Then the same for
+    the scatter kernel through run_chunked."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.sched.device import BatchEngine
+    from kubernetes_tpu_torch.sched.device import victim_kernel as vk
+    from kubernetes_tpu_torch.sched.preemption import oracle_find_victims
+
+    engine = BatchEngine()
+    real = vk._launch
+    before = vk.victim_search.launches
+    got, error = None, None
+    vk._launch = lambda a, k, s, p: real(a, k, s, p, threads=2048)
+    try:
+        got = engine.find_victims(table)
+    except RuntimeError as e:
+        error = str(e)
+    finally:
+        vk._launch = real
+    if got is not None or error is None \
+            or vk.victim_search.launches != before:
+        raise AssertionError("a refused victim-kernel launch did not "
+                             "raise through find_victims")
+    again, want = engine.find_victims(table), oracle_find_victims(table)
+    if (again.pick, again.kstar) != (want.pick, want.kstar) \
+            or not np.array_equal(again.node_score, want.node_score):
+        raise AssertionError("the victim search after a refused launch "
+                             "differs from the oracle")
+    return {"phase": "no_fallback", "raised": True, "error": error[:200],
+            "equal_after": True,
+            "scatter_error": _scatter_refusal()[:200],
+            "scatter_raised": True}
+
+
+def _mixed_bindings(device, snap, server_url):
+    """Mixed mode over snap's nodes with one HTTP extender, its pods
+    created one at a time, each bound before the next -> names."""
+    from kubernetes_tpu_torch.api.client import InProcClient
+    from kubernetes_tpu_torch.api.registry import Registry
+    from kubernetes_tpu_torch.sched.api import ExtenderConfig, Policy
+    from kubernetes_tpu_torch.sched.factory import ConfigFactory
+    from kubernetes_tpu_torch.sched.scheduler import Scheduler
+
+    client = InProcClient(Registry())
+    factory = ConfigFactory(client, rate_limit=False).start()
+    sched = None
+    try:
+        config = factory.create_mixed(Policy(extenders=[ExtenderConfig(
+            url_prefix=server_url, filter_verb="filter",
+            prioritize_verb="prioritize", weight=2, http_timeout=300.0)]),
+            device=device)
+        if config is None:
+            raise AssertionError("the policy does not qualify for mixed "
+                                 "mode")
+        client.create_batch("nodes", snap.nodes)
+        deadline = time.monotonic() + 300
+        while len(factory.node_lister.list()) < len(snap.nodes):
+            if time.monotonic() > deadline:
+                raise AssertionError("mixed: the node cache never synced")
+            time.sleep(0.05)
+        sched = Scheduler(config).run()
+        out, seconds = [], []
+        for pod in snap.pending_pods:
+            t0 = time.monotonic()
+            client.create("pods", pod)
+            name = pod.metadata.name
+            while not client.get("pods", name, "default").spec.node_name:
+                if time.monotonic() > t0 + 300:
+                    raise AssertionError(f"mixed: {name} never bound")
+                time.sleep(0.01)
+            seconds.append(time.monotonic() - t0)
+            out.append(client.get("pods", name, "default").spec.node_name)
+        return out, seconds
+    finally:
+        if sched is not None:
+            sched.stop()
+        factory.stop()
+
+
+def phase_mixed():
+    """Mixed mode on the card against the same policy on the CPU."""
+    from kubernetes_tpu_torch.kubemark.fixtures import mixed_snapshot
+    from kubernetes_tpu_torch.sched.api import HostPriority
+    from kubernetes_tpu_torch.sched.extender_server import (CallableBackend,
+                                                            ExtenderServer)
+
+    n_nodes = FILTER_SHAPE[0]
+    snap = mixed_snapshot(FILTER_SEED, n_nodes, MIXED_PODS + 1, 0)
+    # pod 0 names its node in its spec (already bound): the rest
+    snap.pending_pods = snap.pending_pods[1:]
+
+    def tenth(pod, node):              # the extender's own predicate
+        return int(node.metadata.name[1:]) % 10 == 1
+
+    def zone_bonus(pod, nodes):
+        return [HostPriority(n.metadata.name,
+                             10 if n.metadata.labels.get("zone") == "z1"
+                             else 0) for n in nodes]
+
+    server = ExtenderServer(CallableBackend(
+        predicates=[tenth], prioritizers=[(zone_bonus, 1)])).start()
+    try:
+        card, card_s = _mixed_bindings(None, snap, server.url)
+        cpu, _ = _mixed_bindings("cpu", snap, server.url)
+    finally:
+        server.stop()
+    if card != cpu:
+        raise AssertionError(f"mixed mode on the card bound {card}, on "
+                             f"the CPU {cpu}")
+    if not all(card) or any(int(h[1:]) % 10 != 1 for h in card):
+        raise AssertionError(f"mixed mode ignored the extender: {card}")
+    return {"phase": "mixed", "nodes": n_nodes, "pods": len(card),
+            "bindings": card, "equal_cpu": True, "pod_s": card_s}
+
+
+def _counts():
+    from kubernetes_tpu_torch.sched.device import (filter_kernel,
+                                                   reject_kernel,
+                                                   scatter_kernel,
+                                                   victim_kernel)
+    return {"filter_masks": filter_kernel.filter_masks,
+            "argsort_rows": reject_kernel.argsort_rows,
+            "scatter_rows": scatter_kernel.scatter_rows,
+            "victim_search": victim_kernel.victim_search}
+
+
+def _zero_counts():
+    for fn in _counts().values():
+        fn.launches = 0
+    _counts()["scatter_rows"].rows = 0
+
+
+def _read_counts():
+    return {name: fn.launches for name, fn in _counts().items()}
 
 
 def main() -> int:
@@ -314,8 +734,9 @@ def main() -> int:
     from kubernetes_tpu_torch.kubemark.gpu_evidence import (card_line,
                                                             launch_floor_ms)
     from kubernetes_tpu_torch.sched.device import bounds
+    from kubernetes_tpu_torch.kubemark.fixtures import E2E_COUNTS
     from kubernetes_tpu_torch.sched.device import filter_kernel as fk
-    from kubernetes_tpu_torch.sched.device import reject_kernel as rk
+    from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
 
     card = card_line()
 
@@ -339,12 +760,25 @@ def main() -> int:
                              "kernel")
     reject, reject_launches = phase_reject(rate, floor_ms)
     stamp(reject)
-    fk.filter_masks.launches = 0          # the e2e path starts here
-    rk.argsort_rows.launches = 0
-    stamp({**phase_e2e(),                 # ... and ends here
-           "filter_launches": fk.filter_masks.launches,
-           "argsort_launches": rk.argsort_rows.launches})
+    _zero_counts()                        # the e2e path starts here
+    e2e = phase_e2e()
+    e2e_launches = _read_counts()         # ... and ends here
+    e2e_rows = sk.scatter_rows.rows
+    stamp({**e2e, "launches": e2e_launches, "scatter_rows": e2e_rows})
+    if e2e_launches["scatter_rows"] == 0:
+        raise AssertionError("the e2e never launched the scatter kernel")
+    rows_a_launch = max(1, round(e2e_rows / e2e_launches["scatter_rows"]))
+    scatter, scatter_t = phase_scatter(rate, floor_ms, rows_a_launch)
+    stamp(scatter)
+    preempt, preempt_launches, wide = phase_preempt(rate, floor_ms)
+    stamp(preempt)
+    stamp(phase_no_fallback(wide))
+    _zero_counts()                        # the mixed path starts here
+    mixed = phase_mixed()
+    stamp({**mixed, "launches": _read_counts()})   # ... and ends here
     print(card, flush=True)
+    big = scatter_t[("state", E2E_COUNTS["n_nodes"])]
+    small = scatter_t[("state", scatter["e2e_rows"])]
     emit({"kernels": [{
         "name": "filter_masks", "route": "cuda",
         "source": "kubernetes_tpu_torch/sched/device/csrc/filter_kernel.cu",
@@ -369,6 +803,30 @@ def main() -> int:
         "bound_ms": reject["bound_ms"], "bound_by": reject["bound_by"],
         "library_ms": reject["library_ms"], "main_path_ms": reject["ms"],
         "main_path_bound_ms": reject["bound_ms"],
+        "launch_floor_ms": floor_ms, **rate}, {
+        "name": "scatter_rows", "route": "cuda",
+        "source": "kubernetes_tpu_torch/sched/device/csrc/scatter_kernel.cu",
+        "replaces": "kubernetes_tpu/sched/device/engine.py:669",
+        "launches": e2e_launches["scatter_rows"],
+        "main_path_shape": [scatter["e2e_rows"], small["columns"]],
+        "equal_plain": scatter["equal_plain"],
+        "max_abs_err": scatter["max_abs_err"],
+        "shape": [E2E_COUNTS["n_nodes"], big["columns"]],
+        "ms": big["ms"], "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+        "library_ms": big["library_ms"], "main_path_ms": small["ms"],
+        "main_path_bound_ms": small["bound_ms"],
+        "launch_floor_ms": floor_ms, **rate}, {
+        "name": "victim_search", "route": "cuda",
+        "source": "kubernetes_tpu_torch/sched/device/csrc/victim_kernel.cu",
+        "replaces": "kubernetes_tpu/sched/device/engine.py:700",
+        "launches": preempt_launches, "main_path_shape": preempt["shape"],
+        "equal_plain": preempt["equal_plain"],
+        "max_abs_err": preempt["max_abs_err"], "shape": preempt["shape"],
+        "ms": preempt["ms"], "plain_ms": preempt["plain_ms"],
+        "bound_ms": preempt["bound_ms"], "bound_by": preempt["bound_by"],
+        "library_ms": None, "main_path_ms": preempt["ms"],
+        "main_path_bound_ms": preempt["bound_ms"],
         "launch_floor_ms": floor_ms, **rate}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

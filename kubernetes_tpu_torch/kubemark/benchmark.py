@@ -110,7 +110,8 @@ def run_scheduling_benchmark(n_nodes: int = 1000, n_pods: int = 1000,
                              registry: Optional[Registry] = None,
                              chaos_seed: Optional[int] = None,
                              chaos_error_rate: float = 0.01,
-                             device=None
+                             device=None,
+                             delta_uploads: bool = True
                              ) -> BenchmarkResult:
     """Stand up master + fleet + scheduler, blast pods from 30 writers,
     measure time until every pod is bound (and optionally Running).
@@ -123,7 +124,11 @@ def run_scheduling_benchmark(n_nodes: int = 1000, n_pods: int = 1000,
     value but None raises.
 
     device: where the batch engine runs; None is the CUDA device and
-    raises without one."""
+    raises without one.
+
+    delta_uploads: False forces the engine to re-upload the full node
+    tables every tile (no device table mirror) — the control arm of the
+    delta-scatter A/B, as in the JAX benchmark."""
     if mode == "batch":
         # no card and no device named: raise before anything starts
         resolve_device(device)
@@ -154,6 +159,7 @@ def run_scheduling_benchmark(n_nodes: int = 1000, n_pods: int = 1000,
     factory = ConfigFactory(client, rate_limit=False).start()
     if mode == "batch":
         sched = BatchScheduler(factory.create_batch(device=device)).run()
+        sched.config.engine.delta_uploads = delta_uploads
     elif mode == "serial":
         sched = Scheduler(factory.create()).run()
     else:
@@ -293,16 +299,21 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="where the batch engine runs (default: cuda)")
     ap.add_argument("--wait-running", action="store_true")
+    ap.add_argument("--full-uploads", action="store_true",
+                    help="re-upload the full node tables every tile (the "
+                         "control arm of the delta-scatter A/B)")
     args = ap.parse_args()
     r = run_scheduling_benchmark(
         args.nodes, args.pods, args.mode,
-        wait_running=args.wait_running, device=args.device)
+        wait_running=args.wait_running, device=args.device,
+        delta_uploads=not args.full_uploads)
     print(json.dumps({
         "metric": f"e2e_scheduling_throughput_{r.mode}",
         "nodes": r.n_nodes, "pods": r.n_pods, "scheduled": r.scheduled,
         "elapsed_s": round(r.elapsed_s, 3),
         "value": round(r.pods_per_sec, 1), "unit": "pods/sec",
-        "vs_baseline": round(r.pods_per_sec / 50.0, 1)}))
+        "vs_baseline": round(r.pods_per_sec / 50.0, 1),
+        "upload_stats": r.upload_stats}))
 
 
 if __name__ == "__main__":

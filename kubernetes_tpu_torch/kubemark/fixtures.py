@@ -24,11 +24,20 @@ benchmark's pods are identical, so the k-th placement does not depend on
 which pod arrives k-th, and the counts are those of one uninterrupted
 engine run over the fleet's nodes; a CPU test computes them with the JAX
 engine that way.
+
+`preempt_spec` is the full-width preemption fixture: 5000 nodes, each
+full by CPU with 16 bound pods of seeded priorities (80,000 pods), and
+64 seeded preemptors of varied priority and request (some with no
+feasible victim set, some requesting nothing, some with a node
+selector). `preempt_encoder` / `preempt_pods` build it in the port;
+`PREEMPT_DIGEST` pins the sha256 of the 64 victim searches
+(`preempt_digest`), which a CPU test recomputes with the JAX engine.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import random
 
 import numpy as np
@@ -59,6 +68,103 @@ E2E_COUNTS = {
     "n_nodes": 5000, "n_pods": 30000, "max_pods": 32,
     "sha256": "9d2e7731530a7252b14bb2c659906a71922a7eac001e8fe04ba6d0f8b86b141b",
     "bound": 30000}
+
+
+PREEMPT_SEED = 5
+PREEMPT_SHAPE = (5000, 16, 64)     # nodes, bound pods a node, preemptors
+PREEMPT_DIGEST = "f1a101e2193f1e457138c6866165cdd0a217a8d83b231ab02eb96dbc6db30b91"
+
+
+def preempt_spec(seed: int = PREEMPT_SEED, n_nodes: int = PREEMPT_SHAPE[0],
+                 per_node: int = PREEMPT_SHAPE[1],
+                 n_preemptors: int = PREEMPT_SHAPE[2]):
+    """The preemption fixture as plain data, so that either package can
+    build its objects from it: -> (nodes [(name, cpu milli, memory
+    bytes, pod cap, zone)], bound pods [(name, node, priority, cpu
+    milli, memory bytes)], preemptors [(name, priority, cpu milli,
+    memory bytes, zone selector or "")]). Each node's cpu capacity is
+    the sum of its pods' requests: the fleet is full by CPU. A third of
+    the nodes cap their pod count at the pods they hold."""
+    rng = random.Random(seed)
+    nodes, bound = [], []
+    for i in range(n_nodes):
+        name = f"n{i:05d}"
+        cpus = [rng.choice([100, 200, 250, 300, 400])
+                for _ in range(per_node)]
+        for k, cpu in enumerate(cpus):
+            bound.append((f"{name}-{k:02d}", name,
+                          rng.choice([-1000, -100, -10, 0, 10, 100, 1000]),
+                          cpu, rng.choice([64, 128, 256]) * MI))
+        nodes.append((name, sum(cpus), 32 * GI,
+                      per_node if i % 3 == 0 else 2 * per_node,
+                      f"z{i % 8}"))
+    preemptors = []
+    for j in range(n_preemptors):
+        cpu = rng.choice([100, 500, 1000, 2500, 8000])
+        mem = rng.choice([0, 256 * MI, GI])
+        if j % 8 == 0:
+            cpu = mem = 0
+        preemptors.append((f"surge-{j:02d}",
+                           rng.choice([-2000, -100, 0, 50, 500, 2000]),
+                           cpu, mem, f"z{j % 8}" if j % 5 == 0 else ""))
+    return nodes, bound, preemptors
+
+
+def _preempt_node(name, cpu, mem, pods, zone) -> api.Node:
+    return api.Node(
+        metadata=api.ObjectMeta(name=name, labels={"zone": zone}),
+        status=api.NodeStatus(capacity={
+            "cpu": Quantity(cpu), "memory": Quantity(mem * 1000),
+            "pods": Quantity(pods * 1000)}))
+
+
+def _preempt_pod(name, node, prio, cpu, mem, zone="") -> api.Pod:
+    requests = {}
+    if cpu or mem:
+        requests = {"cpu": Quantity(cpu), "memory": Quantity(mem * 1000)}
+    return api.Pod(
+        metadata=api.ObjectMeta(name=name, namespace="default",
+                                uid=f"uid-{name}"),
+        spec=api.PodSpec(
+            containers=[api.Container(
+                name="c", image="i",
+                resources=api.ResourceRequirements(requests=requests))],
+            node_name=node, priority=prio,
+            node_selector={"zone": zone} if zone else {}))
+
+
+def preempt_encoder(spec):
+    """The port's IncrementalEncoder holding the spec's nodes and bound
+    pods, each assumed straight into it (no store)."""
+    from ..sched.device.incremental import IncrementalEncoder
+    nodes, bound, _ = spec
+    inc = IncrementalEncoder()
+    for n in nodes:
+        inc.on_node_add(_preempt_node(*n))
+    for b in bound:
+        inc.on_pod_add(_preempt_pod(*b))
+    return inc
+
+
+def preempt_pods(spec):
+    """The spec's preemptors as the port's pods."""
+    return [_preempt_pod(name, "", prio, cpu, mem, zone)
+            for name, prio, cpu, mem, zone in spec[2]]
+
+
+def preempt_digest(results) -> str:
+    """sha256 over victim searches, given as (OracleResult, its
+    VictimTable) pairs in order: pick, k*, feasible, the per-node k* and
+    score arrays and the victim keys of each."""
+    h = hashlib.sha256()
+    for res, table in results:
+        h.update(json.dumps([int(res.pick), int(res.kstar),
+                             bool(res.feasible),
+                             [list(k) for k in res.victim_keys(table)]]
+                            ).encode())
+        h.update(np.ascontiguousarray(res.node_kstar, np.int64).tobytes())
+        h.update(np.ascontiguousarray(res.node_score, np.int64).tobytes())
+    return h.hexdigest()
 
 
 def node_counts_digest(node_names, hosts):

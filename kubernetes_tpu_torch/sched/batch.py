@@ -11,9 +11,11 @@ The port's copy of the JAX package's live tile loop. A dispatched tile's
 assignment is a device tensor with a CUDA event recorded after its last
 chunk (engine.PendingAssignment): the scheduler thread never waits on
 the device; whichever thread lands the tile waits on that tile's event
-alone. The mesh, shard-failure and preemption wiring of the JAX loop
-are not ported yet (ROADMAP.md Queue 1): their config options accept
-only None.
+alone. The mesh and shard-failure wiring of the JAX loop are not ported
+yet (ROADMAP.md Queue 1): their config options accept only None.
+Priority preemption is (`preemption=`, `_try_preempt`), with one
+difference: a failed victim search is not taken for "no victims" (see
+`_try_preempt`).
 
 Semantics parity: the engine carries assume-pod state inside the scan, so
 within a tile pod k+1 sees pod k's binding exactly as the serial
@@ -41,7 +43,7 @@ logger = logging.getLogger(__name__)
 
 from .. import obs
 from ..core import types as api
-from ..core.errors import NotFound
+from ..core.errors import Conflict, NotFound
 from ..utils.metrics import MetricsRegistry, global_metrics
 from .device import BatchEngine, ClusterSnapshot
 from .device.engine import CARRY_DTYPES
@@ -106,12 +108,16 @@ class BatchSchedulerConfig:
                  mesh=None, shard_monitor=None, preemption=None,
                  device=None):
         self.factory = factory
-        # the JAX loop's node-axis mesh, shard-lease monitor and priority
-        # preemption pass wait for their ports (ROADMAP.md Queue 1,
-        # 'Multi-GPU node-axis sharding' and 'Preemption, device half'):
-        # until then only the default None is accepted
-        for name, value in (("mesh", mesh), ("shard_monitor", shard_monitor),
-                            ("preemption", preemption)):
+        # priority preemption (sched/preemption.py PreemptionPass):
+        # None (the default) keeps the pre-priority behavior — an
+        # infeasible pod takes the plain error path no matter its
+        # priority. Only meaningful on the incremental path (the victim
+        # table is a cut of the encoder's ledger).
+        self.preemption = preemption
+        # the JAX loop's node-axis mesh and shard-lease monitor wait for
+        # their ports (ROADMAP.md Queue 1, 'Multi-GPU node-axis
+        # sharding'): until then only the default None is accepted
+        for name, value in (("mesh", mesh), ("shard_monitor", shard_monitor)):
             if value is not None:
                 raise NotImplementedError(
                     f"BatchSchedulerConfig({name}=...) is not ported yet; "
@@ -771,6 +777,16 @@ class BatchScheduler:
         f = self.config.factory
         for pod in unscheduled:
             try:
+                try:
+                    if self._try_preempt(pod):
+                        continue
+                except Exception as e:
+                    # the victim search failed (not "found nothing"):
+                    # logged with its trace, and the pod takes the error
+                    # path with that failure instead of a FitError
+                    logger.exception("victim search failed")
+                    self._fail_tile([pod], e)
+                    continue
                 err = FitError(pod, {})
                 if f.recorder is not None:
                     f.recorder.eventf(pod, "Warning", "FailedScheduling",
@@ -778,6 +794,137 @@ class BatchScheduler:
                 self._error(pod, err)
             except Exception:
                 logger.exception("routing unscheduled pod failed")
+
+    def _try_preempt(self, pod: api.Pod) -> bool:
+        """Priority preemption for one unschedulable pod (selection
+        rule + wrongful-eviction invariants in
+        sched/preemption.py). Returns True when the pod was handled —
+        requeued FIFO after evicting its victim set, after finding
+        freed capacity, or while a prior round's victims drain — and
+        False to fall through to the plain error path.
+
+        Ordering invariant: the preemptor is NEVER bound here. It
+        requeues FIFO and binds on a later tile, which only sees the
+        victims' capacity once their DELETE echoes journal the release
+        into the encoder — no optimistic double-booking. Evictions are
+        uid-preconditioned graceful deletes (the eviction contract:
+        Conflict means a same-name replacement won the name,
+        NotFound means someone else finished the job), and the whole
+        round is fenced on the shard-epoch vector captured with the
+        victim table — a mid-preemption reshard drops the victim set
+        instead of evicting against stale capacity.
+
+        Only the encoder's cut is caught here: a victim search that
+        fails (a refused kernel launch) raises to the caller."""
+        c = self.config
+        pre = c.preemption
+        inc = self._inc
+        if pre is None or inc is None:
+            return False
+        from .preemption import PreemptionDecision, preemptor_eligible
+        if not preemptor_eligible(pod):
+            # ports/volumes/affinity: predicates the victim search does
+            # not model — preempting for this pod could be wrongful
+            return False
+        f = c.factory
+        c.metrics.inc("preemption_attempts_total")
+        try:
+            table = inc.victim_table(pod)
+        except (KeyError, ValueError):
+            # the encoder's cut met a record it cannot read (a request
+            # that does not parse, a ledger entry torn by a racing
+            # event): no victim set for this pod, plain error path
+            logger.exception("victim table cut failed")
+            return False
+        # nominated nodes have draining victims another preemptor
+        # already claimed: masking them spreads a burst of preemptors
+        # across distinct nodes instead of serializing one grace period
+        # per pod on the argmax node. The pod's OWN nomination stays
+        # visible (exclude_uid): its draining node re-selects the
+        # identical victim set and the cooldown hold — not a second
+        # eviction elsewhere — handles it
+        nominated = pre.nominated_nodes(exclude_uid=pod.metadata.uid)
+        masked = False
+        if nominated:
+            for j, nm in enumerate(table.node_names):
+                if nm in nominated and table.cand[j]:
+                    table.cand[j] = False
+                    masked = True
+        # the search itself is not caught: the JAX loop's catch-all here
+        # would read a refused kernel launch as "no victim set". It
+        # raises to _route_unscheduled, which routes the pod to the
+        # error path with the failure
+        res = c.engine.find_victims(table)
+        if not res.feasible:
+            if masked:
+                # only the nomination mask stood between this pod and a
+                # victim set: stay hot in the FIFO (priority pop keeps
+                # the preemptor ahead of the batch backlog) instead of
+                # paying the error path's escalating backoff while the
+                # other preemptors' capacity frees
+                self._requeue(pod, "mesh", "all victim nodes nominated")
+                return True
+            return False  # no victim set helps: plain error path
+        node = table.node_names[res.pick]
+        victims = res.victim_keys(table)
+        if res.kstar <= 0 or not victims:
+            # a feasible NON-preempting node exists right now (capacity
+            # freed since the scan failed): wrongful-eviction rule 2
+            # says never evict here — plain immediate requeue
+            self._requeue(pod, node, "has free capacity; no preemption")
+            return True
+        vkey = pre.vset_key(node, victims)
+        if pre.blocked(pod, vkey):
+            # same victim set inside its cooldown window (a prior round
+            # evicted it and the terminations haven't journaled, or a
+            # delete lost a race): requeue FIFO, do NOT re-evict
+            self._requeue(pod, node, "awaiting preempted capacity")
+            return True
+        if (table.encoder_id != inc.encoder_id
+                or inc.shard_epochs() != table.shard_epochs):
+            # reshard (or encoder swap) since the table was cut: the
+            # victim set was computed against a dead shard's mapping
+            self._requeue(pod, "mesh", "re-sharded during victim search")
+            return True
+        evicted = 0
+        struck = False
+        for ns, name, uid in victims:
+            try:
+                f.client.delete("pods", name, ns,
+                                grace_period_seconds=(
+                                    pre.grace_period_seconds),
+                                uid=uid or None)
+            except (NotFound, Conflict):
+                # the victim moved under us — the remaining prefix was
+                # chosen assuming this one's release, so stop the round
+                struck = True
+                break
+            except Exception:
+                struck = True
+                break
+            evicted += 1
+            c.metrics.inc("preemption_victims_total")
+        if f.recorder is not None:
+            f.recorder.eventf(
+                pod, "Normal", "Preempting",
+                f"evicting {evicted}/{len(victims)} lower-priority "
+                f"pods on {node}")
+        pre.record(PreemptionDecision(
+            pod_key=(pod.metadata.namespace, pod.metadata.name),
+            pod_uid=pod.metadata.uid, prio=table.prio, node=node,
+            pick=res.pick, kstar=res.kstar,
+            score=int(res.node_score[res.pick]), victims=victims,
+            table=table, state_epoch=table.state_epoch,
+            shard_epochs=table.shard_epochs, evicted=evicted,
+            t=pre.now()))
+        if evicted:
+            pre.nominate(node, uid=pod.metadata.uid)
+        pre.hold(pod, vkey, escalate=struck)
+        self._requeue(pod, node,
+                      "victim moved; preemption cooling down" if struck
+                      else f"preempted {evicted} pods; will bind after "
+                           f"release is journaled")
+        return True
 
     def _fail_tile(self, pods: List[api.Pod], e: Exception) -> None:
         """Encode/device failure: the tile is already drained from the

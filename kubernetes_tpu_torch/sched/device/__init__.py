@@ -8,7 +8,11 @@
     predicate masks, integer 0..10 priority scores, masked argmax host
     selection with a deterministic tie-break — then an O(1) commit,
   - the predicate-filter kernel (filter_kernel.py, csrc/filter_kernel.cu)
-    behind the extender Filter verb.
+    behind the extender Filter verb,
+  - the dirty-row scatter kernel (scatter_kernel.py,
+    csrc/scatter_kernel.cu) that keeps the engine's device table mirror
+    current, and the preemption victim-search kernel (victim_kernel.py,
+    csrc/victim_kernel.cu) behind BatchEngine.find_victims.
 
 Bit-exactness contract: given the same snapshot, the engine's assignments
 equal the JAX engine's (and so the serial oracle's) pod for pod.

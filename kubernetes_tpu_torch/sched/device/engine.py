@@ -27,8 +27,10 @@ ops — nothing here is compiled or fused, so no FMA can change a floor.
 
 The carry is updated in place: each pod's commit costs O(1) writes
 instead of a fresh copy of every state vector. The engine only ever
-writes to tensors it made (device_args copies the encoder's arrays, and
-a caller's `state_override` is cloned once per run).
+writes to tensors it made: device_args copies the encoder's arrays, a
+caller's `state_override` is cloned once per run, and so is the State
+of the device table mirror (run_chunked's delta uploads), which only
+the dirty-row scatter writes.
 
 Ties break deterministically to the lexicographically largest node name
 (composite `total * n + tie_rank`, injective per node), as in the JAX
@@ -45,7 +47,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from . import filter_kernel
+from ..preemption import OracleResult
+from . import filter_kernel, scatter_kernel, victim_kernel
 from .tables import ClusterSnapshot, EncodeResult, encode_snapshot
 
 DEFAULT_WEIGHTS = (1, 1, 1)  # LeastRequested, Balanced, SelectorSpread
@@ -355,16 +358,25 @@ def _clone_state(state: State) -> State:
     return State(*(a.clone() for a in state))
 
 
+def _host(a) -> np.ndarray:
+    """The encoder's array as the engine carries it: contiguous, with
+    uint32 bitsets as int32 views (torch lacks NOT, comparisons and
+    scatter for uint32, and AND / OR / NOT / == 0 are bit-identical on
+    the view)."""
+    a = np.ascontiguousarray(a)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
 def _tensor(a, device: torch.device) -> torch.Tensor:
     """numpy -> a new tensor on `device` (always a copy: the engine updates
     its state in place and must not write through to the caller's
-    arrays). uint32 bitsets are carried as int32 views: torch lacks NOT,
-    comparisons and scatter for uint32, and AND / OR / NOT / == 0 are
-    bit-identical on the view."""
-    a = np.ascontiguousarray(a)
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    return torch.from_numpy(a).to(device, copy=True)
+    arrays)."""
+    return torch.from_numpy(_host(a)).to(device, copy=True)
+
+
+def _upload(tree, device: torch.device):
+    """A NamedTuple of numpy arrays -> the same NamedTuple of tensors."""
+    return type(tree)(*(_tensor(a, device) for a in tree))
 
 
 # the tensor dtype `_tensor` gives each encoder dtype: torch dtypes never
@@ -376,8 +388,56 @@ CARRY_DTYPES = {np.dtype(np.int64): torch.int64,
                 np.dtype(np.bool_): torch.bool}
 
 
-def _nbytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+def _host_nbytes(tree) -> int:
+    return sum(int(a.nbytes) for a in tree)
+
+
+class _TableCache:
+    """Device-resident mirror of one incremental encoder's node tables
+    (NodeConst + State init), as the JAX engine keeps it.
+
+    `node_gen` / `state_gen` are the encoder generations (TableDelta
+    counter values) the two mirrors are current at: a tile whose encode
+    carries generation g needs only the rows whose dirty_gen exceeds
+    the mirror's gen scattered in. `sig` pins shapes, dtypes, and
+    mem_scale — any change (capacity growth, interner widening, a
+    narrowing flip) misses and reseeds with a full upload. `src` pins
+    the encoder INSTANCE (TableDelta.encoder_id): generations count one
+    encoder's private timeline, so a same-shaped tile from a different
+    encoder must miss — its low generations would otherwise read as
+    "nothing changed" against another encoder's rows. `epochs` pins the
+    encoder's shard-epoch vector (TableDelta.shard_epochs) the mirror
+    was seeded under: a re-shard replaces the vector, and any difference
+    misses and reseeds.
+
+    The mirror's tensors are written only by the dirty-row scatter
+    (scatter_kernel), in place. A run never scans on the mirror's State:
+    the scan commits into its state in place, so each run starts from a
+    clone, or tile k + 1 would start from tile k's post-scan state."""
+
+    __slots__ = ("sig", "src", "epochs", "node", "state",
+                 "node_gen", "state_gen")
+
+    def __init__(self, sig, src, epochs, node, state, node_gen, state_gen):
+        self.sig = sig
+        self.src = src
+        self.epochs = epochs
+        self.node = node
+        self.state = state
+        self.node_gen = node_gen
+        self.state_gen = state_gen
+
+
+# Per-slot (axis-0) fields of the two device tables — the only fields
+# the dirty-row scatter touches. Everything else is either slot-axis-1
+# ([G,N]/[T,N]/[S,N]) or scalar-shaped, and is a CONSTANT for
+# delta-eligible encodes (no spread groups, no affinity terms, no
+# service groups): zeros / -1 with shapes pinned by the cache signature.
+_NODE_ROW_FIELDS = ("valid", "sched_ok", "cpu_cap", "mem_cap", "pod_cap",
+                    "labels", "tie_rank", "exceed_cpu", "exceed_mem",
+                    "zone_id", "static_mask", "static_score")
+_STATE_ROW_FIELDS = ("cpu_used", "mem_used", "nz_cpu", "nz_mem",
+                     "pod_count", "port_bits", "disk_any", "disk_rw")
 
 
 class PendingAssignment:
@@ -421,10 +481,16 @@ class BatchEngine:
         self._anti_weight = (policy.anti_affinity_weight
                              if policy is not None
                              and policy.needs_anti_affinity else 0)
-        # host->device transfer accounting, under the JAX engine's keys;
-        # table_bytes is a gauge (one full NodeConst + State upload).
-        # There is no device table mirror yet (ROADMAP K3): every run
-        # uploads the full tables and counts them as full uploads.
+        # device-resident mirror of the incremental encoder's node tables
+        # (run_chunked's delta-upload path): the dirty-row scatter kernel
+        # writes the journaled rows into it in place
+        self._table_cache: Optional[_TableCache] = None
+        self.delta_uploads = True  # A/B knob: False forces full uploads
+        # host->device transfer accounting, under the JAX engine's keys.
+        # delta_bytes counts the dirty rows and their int64 indices as
+        # they are (the JAX engine pads the row count to a power of two);
+        # table_bytes is a gauge: host nbytes of one full (NodeConst,
+        # State) pair at the last fetch
         self.upload_stats = {"full_tiles": 0, "delta_tiles": 0,
                              "reuse_tiles": 0, "full_bytes": 0,
                              "delta_bytes": 0, "pod_bytes": 0,
@@ -481,18 +547,14 @@ class BatchEngine:
                 nz_cpu=pb.nz_cpu.astype(i64),
                 nz_mem=pb.nz_mem.astype(i64) * g))
 
-    def device_args(self, enc: EncodeResult, with_state: bool = True
-                    ) -> Tuple[NodeConst, Optional[State], PodXs]:
+    def host_args(self, enc: EncodeResult
+                  ) -> Tuple[NodeConst, State, PodXs]:
         """EncodeResult (numpy arrays, from either package's encoder) ->
-        (NodeConst, State, PodXs) of tensors on the engine's device.
-        with_state=False skips the State upload (None in its place)."""
+        (NodeConst, State, PodXs) of numpy arrays as the engine carries
+        them (`_host`), not yet on any device."""
         enc = self._ensure_safe_dtypes(enc)
         nt, st, pb = enc.node_tab, enc.init_state, enc.pod_batch
-        d = self.device
-
-        def t(a):
-            return _tensor(a, d)
-
+        t = _host
         node = NodeConst(
             valid=t(nt.valid), sched_ok=t(nt.sched_ok),
             cpu_cap=t(nt.cpu_cap), mem_cap=t(nt.mem_cap),
@@ -502,16 +564,14 @@ class BatchEngine:
             offgrid_max=t(enc.offgrid_max), aff_dom=t(nt.aff_dom),
             zone_id=t(nt.zone_id), zone_scratch=t(nt.zone_scratch),
             static_mask=t(nt.static_mask), static_score=t(nt.static_score))
-        state = None
-        if with_state:
-            state = State(
-                cpu_used=t(st.cpu_used), mem_used=t(st.mem_used),
-                nz_cpu=t(st.nz_cpu), nz_mem=t(st.nz_mem),
-                pod_count=t(st.pod_count), port_bits=t(st.port_bits),
-                disk_any=t(st.disk_any), disk_rw=t(st.disk_rw),
-                spread=t(st.spread), aff_count=t(st.aff_count),
-                aff_total=t(st.aff_total), svc_count=t(st.svc_count),
-                svc_total=t(st.svc_total))
+        state = State(
+            cpu_used=t(st.cpu_used), mem_used=t(st.mem_used),
+            nz_cpu=t(st.nz_cpu), nz_mem=t(st.nz_mem),
+            pod_count=t(st.pod_count), port_bits=t(st.port_bits),
+            disk_any=t(st.disk_any), disk_rw=t(st.disk_rw),
+            spread=t(st.spread), aff_count=t(st.aff_count),
+            aff_total=t(st.aff_total), svc_count=t(st.svc_count),
+            svc_total=t(st.svc_total))
         pods = PodXs(valid=t(pb.valid), req_cpu=t(pb.req_cpu),
                      req_mem=t(pb.req_mem), zero_req=t(pb.zero_req),
                      nz_cpu=t(pb.nz_cpu), nz_mem=t(pb.nz_mem),
@@ -524,6 +584,117 @@ class BatchEngine:
                      svc_group=t(pb.svc_group),
                      svc_member=t(pb.svc_member))
         return node, state, pods
+
+    def device_args(self, enc: EncodeResult
+                    ) -> Tuple[NodeConst, State, PodXs]:
+        """EncodeResult -> (NodeConst, State, PodXs) of new tensors on
+        the engine's device (a full upload of host_args)."""
+        return tuple(_upload(tree, self.device)
+                     for tree in self.host_args(enc))
+
+    def _table_sig(self, enc: EncodeResult):
+        """Shape/dtype signature of every array feeding NodeConst + State,
+        in the encoder's numpy dtypes (a uint32 bitset and an int32
+        column are different layouts even though both travel as int32).
+        Any mismatch against the cached mirror (capacity growth, interner
+        word-count widening, an i32/i64 narrowing flip, a mem_scale
+        change) forces a full reseed — the dirty-row journal only covers
+        value changes at a fixed layout."""
+        nt, st = enc.node_tab, enc.init_state
+        arrs = (nt.valid, nt.sched_ok, nt.cpu_cap, nt.mem_cap, nt.pod_cap,
+                nt.label_words, nt.tie_rank, nt.exceed_cpu, nt.exceed_mem,
+                enc.offgrid_max, nt.aff_dom, nt.zone_id, nt.zone_scratch,
+                nt.static_mask, nt.static_score,
+                st.cpu_used, st.mem_used, st.nz_cpu, st.nz_mem,
+                st.pod_count, st.port_bits, st.disk_any, st.disk_rw,
+                st.spread, st.aff_count, st.aff_total, st.svc_count,
+                st.svc_total)
+        return (enc.mem_scale,) + tuple(
+            (np.asarray(a).shape, np.asarray(a).dtype.str) for a in arrs)
+
+    def _delta_eligible(self, enc: EncodeResult,
+                        flags: Tuple[bool, bool]) -> bool:
+        """The dirty-row scatter only rewrites per-slot (axis-0) columns,
+        so it applies exactly when every other table field is a canonical
+        constant: an incremental encode (journal present) with no
+        affinity terms, no spread groups, and no anti-affinity policy
+        (zone scratch tables). Same family as the chain-eligibility test
+        in sched/batch.py — the live pipeline's steady state."""
+        return (self.delta_uploads and enc.delta is not None
+                and flags == (False, False) and not enc.tile_groups
+                and self._anti_weight == 0)
+
+    def _scatter_table(self, dev_tab, fields, host_tab,
+                       rows: np.ndarray) -> int:
+        """Scatter the journaled dirty rows of one table into its device
+        mirror, in place: one launch of the scatter kernel for every
+        column in `fields`. No pad: the kernel takes any row count.
+        Returns the host->device bytes the rows and indices make."""
+        return scatter_kernel.scatter_rows(
+            [getattr(dev_tab, f) for f in fields], rows.astype(np.int64),
+            [getattr(host_tab, f)[rows] for f in fields])
+
+    def _fetch_tables(self, enc: EncodeResult, node: NodeConst,
+                      state: State, flags: Tuple[bool, bool],
+                      state_needed: bool
+                      ) -> Tuple[NodeConst, Optional[State]]:
+        """Resolve the (NodeConst, State-init) run arguments, given as
+        host arrays, through the device-resident mirror. Hit: scatter
+        only the rows the encoder's journal marks dirty since the
+        mirror's generation. Miss or ineligible: full host upload (and
+        reseed the mirror when eligible). The State returned is the
+        run's own (a clone of the mirror's on the delta path); None when
+        not state_needed.
+
+        A chained tile (state_needed=False) skips the State mirror: its
+        state_gen lags and the next unchained tile catches up by
+        scattering every row dirtied since."""
+        stats = self.upload_stats
+        node_b, state_b = _host_nbytes(node), _host_nbytes(state)
+        stats["table_bytes"] = node_b + state_b
+        if not self._delta_eligible(enc, flags):
+            self._table_cache = None
+            stats["full_tiles"] += 1
+            stats["full_bytes"] += node_b + (state_b if state_needed else 0)
+            return (_upload(node, self.device),
+                    _upload(state, self.device) if state_needed else None)
+        sig = self._table_sig(enc)
+        delta = enc.delta
+        cache = self._table_cache
+        if cache is not None and cache.sig == sig \
+                and cache.src == delta.encoder_id \
+                and cache.epochs == delta.shard_epochs \
+                and delta.full_gen <= min(cache.node_gen, cache.state_gen):
+            moved = 0
+            node_rows = np.nonzero(delta.node_dirty_gen > cache.node_gen)[0]
+            if node_rows.size:
+                moved += self._scatter_table(cache.node, _NODE_ROW_FIELDS,
+                                             node, node_rows)
+            cache.node_gen = delta.table_gen
+            if state_needed:
+                state_rows = np.nonzero(
+                    delta.state_dirty_gen > cache.state_gen)[0]
+                if state_rows.size:
+                    moved += self._scatter_table(
+                        cache.state, _STATE_ROW_FIELDS, state, state_rows)
+                cache.state_gen = delta.table_gen
+            if moved:
+                stats["delta_tiles"] += 1
+                stats["delta_bytes"] += moved
+            else:
+                stats["reuse_tiles"] += 1
+            return cache.node, (_clone_state(cache.state) if state_needed
+                                else None)
+        # miss: seed the mirror with one full upload
+        cache = _TableCache(sig, delta.encoder_id, delta.shard_epochs,
+                            _upload(node, self.device),
+                            _upload(state, self.device),
+                            delta.table_gen, delta.table_gen)
+        self._table_cache = cache
+        stats["full_tiles"] += 1
+        stats["full_bytes"] += node_b + state_b
+        return cache.node, (_clone_state(cache.state) if state_needed
+                            else None)
 
     def _scan(self, node: NodeConst, aux: _NodeAux, state: State,
               pods: PodXs, flags: Tuple[bool, bool]) -> torch.Tensor:
@@ -602,22 +773,22 @@ class BatchEngine:
         carry stays on the device and the assignment lands with the
         CUDA event recorded after the last chunk.
 
-        Every call uploads the full node tables (and the State init
-        unless chained): upload_stats counts it as one full tile."""
+        The node tables (and the State init unless chained) come through
+        the device table mirror (_fetch_tables): an incremental encode
+        whose journal the mirror can follow moves only its dirty rows;
+        anything else uploads in full. upload_stats counts which."""
         t0 = time.monotonic()
-        node, state, pods = self.device_args(
-            enc, with_state=state_override is None)
-        table_bytes = _nbytes(node) + _nbytes(
-            state if state is not None else state_override)
-        self.upload_stats["table_bytes"] = table_bytes
-        self.upload_stats["full_tiles"] += 1
-        self.upload_stats["full_bytes"] += _nbytes(node) + (
-            _nbytes(state) if state is not None else 0)
-        self.upload_stats["pod_bytes"] += _nbytes(pods)
+        enc = self._ensure_safe_dtypes(enc)
+        flags = self._enc_flags(enc)
+        node_h, state_h, pods_h = self.host_args(enc)
+        node, state = self._fetch_tables(
+            enc, node_h, state_h, flags,
+            state_needed=state_override is None)
+        pods = _upload(pods_h, self.device)
+        self.upload_stats["pod_bytes"] += _host_nbytes(pods_h)
         if state_override is not None:
             state = _clone_state(state_override)
         aux = _node_aux(node)
-        flags = self._enc_flags(enc)
         p = pods.valid.shape[0]
         pad = (-p) % chunk
         if pad:
@@ -634,6 +805,23 @@ class BatchEngine:
         self.scan_stats["steps"] += p + pad
         self.scan_stats["seconds"] += time.monotonic() - t0
         return out, state
+
+    def find_victims(self, table) -> OracleResult:
+        """Run the preemption victim search for one VictimTable
+        (incremental.victim_table) through the victim kernel. Returns an
+        OracleResult whose fields must be bit-equal to
+        sched.preemption.oracle_find_victims(table) at every shape. One
+        launch, one host pull after it. A refused launch raises."""
+        pick, kstar, score = victim_kernel.victim_search(
+            victim_kernel.VictimArgs.from_table(table, self.device))
+        out = torch.cat([pick.reshape(1), kstar, score]).cpu().numpy()
+        n = table.n
+        pick = int(out[0])
+        kstar, score = out[1:1 + n], out[1 + n:]
+        return OracleResult(pick=pick, kstar=int(kstar[pick]),
+                            feasible=bool(score[pick] >= 0),
+                            node_kstar=kstar.astype(np.int64),
+                            node_score=score.astype(np.int64))
 
     def schedule(self, snap: ClusterSnapshot, pod_pad_to: Optional[int] = None,
                  chunk: Optional[int] = None

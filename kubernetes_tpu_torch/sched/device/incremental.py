@@ -32,9 +32,7 @@ Shape stability: node capacity and interner word capacities grow by
 doubling, so array shapes change O(log) times over a cluster's life, not
 per tile (a device carry chains across tiles only while they agree).
 
-The port's own copy of the JAX package's encoder (numpy only). The
-preemption victim table (`victim_table`) waits for the port of
-sched/preemption.py and raises until then.
+The port's own copy of the JAX package's encoder (numpy only).
 """
 
 from __future__ import annotations
@@ -999,11 +997,94 @@ class IncrementalEncoder:
 
     def victim_table(self, pod: api.Pod):
         """One consistent cut of the preemption search inputs for `pod`
-        (the JAX package's sched/preemption.py VictimTable). Not in the
-        port yet: raises."""
-        raise NotImplementedError(
-            "the preemption victim search (sched/preemption.py) is not "
-            "ported yet: ROADMAP.md Queue 1, 'Preemption, device half'")
+        (sched/preemption.py VictimTable): per-node State columns plus
+        the per-node victim prefix arrays, gathered under the encoder
+        lock so the columns, the victim identities and the fencing
+        epochs (state_epoch / shard_epochs / encoder_id) agree.
+
+        Candidate nodes are live, schedulable, selector/host-matching
+        and NOT exceed-flagged: on a non-exceed node every counted pod
+        has misfit None, so a victim's release frees exactly its
+        recorded request — the prefix-sum search needs no misfit
+        replay. Victims are the counted pods of strictly lower
+        priority, (priority asc, insertion asc) — stable sort over the
+        node_pods insertion order. The victim axis pads to a power of
+        two, as in the JAX package (whose device program compiles once
+        per (n_cap, v_pad) rung), so both tables have one shape."""
+        from ..preemption import PMAX, VictimTable
+        sp = pod.spec
+        prio = sp.priority
+        req_cpu, req_mem = get_resource_request(pod)
+        sel = sp.node_selector
+        with self._lock:
+            if self._tie_dirty:
+                self._recompute_tie_rank()
+            n = self.n_cap
+            cand = (self.valid & self.sched_ok & self.static_mask
+                    & ~self.exceed_cpu & ~self.exceed_mem)
+            if sel:
+                for j in np.nonzero(cand)[0]:
+                    labels = self.node_labels[j]
+                    if any(labels.get(k) != v for k, v in sel.items()):
+                        cand[j] = False
+            if sp.node_name:
+                host_slot = self.node_slot.get(sp.node_name)
+                host = np.zeros(n, bool)
+                if host_slot is not None:
+                    host[host_slot] = True
+                cand &= host
+            victims: List[List[Tuple[str, str, str]]] = [
+                [] for _ in range(n)]
+            rows: List[List[Tuple[int, int, int]]] = [[] for _ in range(n)]
+            max_v = 0
+            for j in np.nonzero(cand)[0]:
+                recs = []
+                for key in self.node_pods.get(int(j), []):
+                    rec = self.pods.get(key)
+                    if (rec is None or not rec.counted_res
+                            or rec.priority >= prio):
+                        continue
+                    recs.append((key, rec))
+                # stable by priority: insertion order breaks ties
+                recs.sort(key=lambda kr: kr[1].priority)
+                for key, rec in recs:
+                    ns, _, name = key.partition("/")
+                    victims[int(j)].append((ns, name, rec.uid))
+                    rows[int(j)].append((rec.priority, rec.req_cpu,
+                                         rec.req_mem))
+                if len(recs) > max_v:
+                    max_v = len(recs)
+            v_pad = 1
+            while v_pad < max_v:
+                v_pad *= 2
+            v_prio = np.full((n, v_pad), PMAX + 1, np.int64)
+            v_cpu = np.zeros((n, v_pad), np.int64)
+            v_mem = np.zeros((n, v_pad), np.int64)
+            v_valid = np.zeros((n, v_pad), bool)
+            for j in range(n):
+                for i, (p, c, m) in enumerate(rows[j]):
+                    v_prio[j, i] = p
+                    v_cpu[j, i] = c
+                    v_mem[j, i] = m
+                    v_valid[j, i] = True
+            return VictimTable(
+                pod_key=(pod.metadata.namespace, pod.metadata.name),
+                pod_uid=pod.metadata.uid,
+                prio=prio, req_cpu=req_cpu, req_mem=req_mem,
+                zero_req=(req_cpu == 0 and req_mem == 0),
+                cand=cand,
+                cpu_cap=self.cpu_cap.astype(np.int64),
+                mem_cap=self.mem_cap.astype(np.int64),
+                pod_cap=self.pod_cap.astype(np.int64),
+                cpu_used=self.cpu_used.astype(np.int64),
+                mem_used=self.mem_used.astype(np.int64),
+                pod_count=self.pod_count.astype(np.int64),
+                tie_rank=self.tie_rank.astype(np.int64),
+                v_prio=v_prio, v_cpu=v_cpu, v_mem=v_mem, v_valid=v_valid,
+                victims=victims, node_names=list(self.node_names),
+                state_epoch=self.state_epoch,
+                shard_epochs=self._shard_epochs,
+                encoder_id=self._encoder_id)
 
     def _recompute_tie_rank(self) -> None:
         # rank over ALL known names: relative order among valid nodes is

@@ -345,12 +345,33 @@ class ConfigFactory:
                                        device=kw.get("device"))
         return BatchSchedulerConfig(self, **kw)
 
-    def create_mixed(self, policy: Optional[Policy]):
-        """Mixed-mode config (device probe + HTTP extenders). Not in the
-        port yet (its device_assist.py is still to be ported): raises."""
-        raise NotImplementedError(
-            "mixed mode (device_assist.py) is not ported yet: ROADMAP.md "
-            "Queue 1, 'Mixed mode'")
+    def create_mixed(self, policy: Optional[Policy], device=None):
+        """Mixed-mode config (device probe + HTTP extenders), or None if
+        the policy doesn't qualify: it must carry extenders (otherwise
+        create_batch is strictly better) and its predicate/priority set
+        must map onto the engine without DevicePolicy tiers (the
+        incremental encoder's domain). The middle rung of the ladder
+        batch > mixed > serial. device: where the engine's probe runs
+        (None = the CUDA device, which raises without one)."""
+        if policy is None or not policy.extenders:
+            return None
+        stripped = Policy(predicates=policy.predicates,
+                          priorities=policy.priorities, extenders=[])
+        translated = _translate_policy(stripped)
+        if translated is None:
+            return None
+        weights, device_policy = translated
+        if device_policy is not None:
+            return None
+        from .device import BatchEngine
+        from .device_assist import DeviceAssistedAlgorithm
+        engine = BatchEngine(weights, device=device)
+        serial = self.create_from_config(policy)
+        algorithm = DeviceAssistedAlgorithm(
+            self, engine, extenders=serial.algorithm.extenders,
+            serial_fallback=serial.algorithm)
+        return self._create({}, [], [], algorithm=algorithm,
+                            on_assume=algorithm.assume)
 
     def _requeue_worker(self) -> None:
         """ONE thread drains the time-ordered requeue heap — a

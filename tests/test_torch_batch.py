@@ -211,7 +211,7 @@ def test_carry_compatible_for_chained_tile():
     assert not _carry_compatible(grown, state)
 
 
-@pytest.mark.parametrize("option", ["mesh", "shard_monitor", "preemption"])
+@pytest.mark.parametrize("option", ["mesh", "shard_monitor"])
 def test_config_refuses_unported_options(option):
     factory = ConfigFactory(InProcClient(Registry()), rate_limit=False)
     with pytest.raises(NotImplementedError, match=option):

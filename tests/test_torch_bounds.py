@@ -176,3 +176,79 @@ def test_benchmark_heartbeat_is_the_jax_benchmarks(monkeypatch):
     with pytest.raises(Captured):
         port_benchmark.run_scheduling_benchmark(10, 10, device="cpu")
     assert seen["heartbeat_interval"] == jax_interval
+
+
+RATE = {"int_ops_per_s": bounds.int_ops_per_s(H100_SMS, H100_CLOCK_HZ),
+        "sms": H100_SMS, "sm_clock_mhz": 1980.0}
+
+
+@pytest.mark.parametrize("rows", [1, 137, 5000])
+def test_scatter_bound_is_bytes(rows):
+    # the State table's columns: 4 int64, 1 int32, 3 one-word bitsets
+    row_bytes = [8, 8, 8, 8, 4, 4, 4, 4]
+    b = bounds.scatter_bound(rows, row_bytes, RATE)
+    assert b["bytes"] == 8 * rows + 2 * rows * 48
+    assert b["ops"] == 0 and b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(rows * 104 / 3.35e12 * 1e3)
+    assert (b["sms"], b["sm_clock_mhz"]) == (H100_SMS, 1980.0)
+
+
+def test_scatter_bound_of_the_engines_mirror_columns():
+    """The bytes a row the engine's scatter moves are those of the
+    mirror's per-slot columns in the narrowed encoding."""
+    from kubernetes_tpu_torch.sched.device import engine as eng
+    from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
+    from kubernetes_tpu_torch.sched.device.incremental import \
+        IncrementalEncoder
+    from test_incremental import mk_node, mk_pod
+    from test_torch_encode import cross
+    inc = IncrementalEncoder()
+    for i in range(8):
+        inc.on_node_add(cross([mk_node(f"n-{i}")])[0])
+    node, state, _ = BatchEngine(device="cpu").device_args(
+        inc.encode_tile(cross([mk_pod("p", phase="Pending")]), [], []))
+    per = {name: [sk._row_bytes(getattr(tab, f)) for f in fields]
+           for name, tab, fields in (("node", node, eng._NODE_ROW_FIELDS),
+                                     ("state", state,
+                                      eng._STATE_ROW_FIELDS))}
+    # i32-narrowed resources: 1-byte flags, 4-byte ints and words
+    assert per["node"] == [1, 1, 4, 4, 4, 4, 4, 1, 1, 4, 1, 4]
+    assert per["state"] == [4] * 8
+    b = bounds.scatter_bound(5000, per["state"], RATE)
+    assert b["bytes"] == 5000 * (8 + 2 * 32) == 360_000
+
+
+def test_victim_bound_counts_the_walk():
+    # 5120 slots, 60,000 victim entries read in 65,000 steps
+    b = bounds.victim_bound(5120, 60_000, 65_000, RATE)
+    assert b["bytes"] == 5120 * 73 + 60_000 * 25 + 8
+    assert b["ops"] == 65_000 * 32 + 5120 * 16
+    assert b["bound_by"] == "bytes"
+    assert b["bytes_bound_ms"] == pytest.approx(b["bytes"] / 3.35e9)
+    assert b["ops_bound_ms"] == pytest.approx(b["ops"] / RATE[
+        "int_ops_per_s"] * 1e3)
+    # the whole 5000 x 16 table read once: ~2.3 MB, ~0.7 us
+    whole = bounds.victim_bytes(5000, 5000 * 16)
+    assert 2.2e6 < whole < 2.4e6
+    assert whole / 3.35e12 * 1e6 == pytest.approx(0.69, abs=0.02)
+
+
+def test_scatter_and_victim_blocking_match_the_sources():
+    from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
+    from kubernetes_tpu_torch.sched.device import victim_kernel as vk
+    assert _defines(sk.SOURCE)["SCATTER_BLOCK_THREADS"] == sk.BLOCK_THREADS
+    d = _defines(vk.SOURCE)
+    assert d["VICTIM_BLOCK_THREADS"] == vk.BLOCK_THREADS
+    # the descriptor the host packs is the struct the kernel reads
+    assert sk.DESCRIPTOR.itemsize == 32
+    assert sk.DESCRIPTOR.names == ("dst", "row_bytes", "src_off", "word")
+
+
+@pytest.mark.parametrize("rows,row_bytes,grid", [
+    (1, [1, 8], 1), (300, [4, 4, 8], 2), (5000, [1, 12], 59),
+    (5000, [8] * 8, 20), (200_000, [8], 782), (1_000_000, [8], 1024)])
+def test_scatter_grid_covers_the_widest_field(rows, row_bytes, grid):
+    from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
+    fields = tuple((rb, 0, sk._word(rb, 0)) for rb in row_bytes)
+    staged = sk.Staged(torch.empty(0, dtype=torch.uint8), rows, 0, fields)
+    assert sk.grid_x(staged) == grid

@@ -179,9 +179,10 @@ def test_engine_requires_explicit_device_without_cuda(monkeypatch):
 
 
 def test_upload_and_scan_stats_count_every_run_in_full():
-    """No device table mirror yet: every run_chunked uploads the node
-    tables (and the State init unless chained) and upload_stats says so
-    under the JAX engine's keys, and never reports a delta upload."""
+    """A one-shot encode carries no TableDelta journal, so the table
+    mirror never takes it: every run_chunked uploads the node tables
+    (and the State init unless chained) and upload_stats says so under
+    the JAX engine's keys, and never reports a delta upload."""
     _, enc = encodings(rand_cluster(3))
     te = BatchEngine(device="cpu")
     assert te.n_shards == 1

@@ -378,3 +378,231 @@ def test_pipeline_on_card_matches_cpu(cuda):
     cpu, _ = _tiled_pipeline("cpu")
     assert chained > 0
     assert card == cpu and all(card.values())
+
+
+# ------------------------------------------------- K3: dirty-row scatter
+
+def _scatter_columns(n, device, rng):
+    """One column of every kind the mirror holds, plus two whose rows
+    start off their word: an int32 [N, 3] column sliced one row in, and
+    an int32 [N, 2] column of 8-byte rows at a 4-byte address."""
+    def i(dtype, *shape):
+        return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape)
+                                .astype(dtype)).to(device)
+    cols = [torch.from_numpy(rng.random(n) < 0.5).to(device),
+            i(np.int32, n), i(np.int64, n), i(np.int32, n, 1),
+            i(np.int32, n, 3), i(np.int32, n + 1, 3)[1:],
+            i(np.int32, 2 * n + 1)[1:].view(n, 2)]
+    return cols
+
+
+def _scatter_rows_for(cols, r, rng):
+    rows = []
+    for t in cols:
+        shape = (r,) + tuple(t.shape[1:])
+        if t.dtype == torch.bool:
+            rows.append(rng.random(shape) < 0.5)
+        else:
+            dt = np.int64 if t.dtype == torch.int64 else np.uint32
+            rows.append(rng.integers(0, 2 ** 32, shape).astype(dt))
+    return rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,r", [(1, 1), (5000, 1), (5000, 7), (37, 13),
+                                 (5001, 5001), (5120, 5000)])
+def test_scatter_kernel_matches_plain(cuda, n, r):
+    from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
+    rng = np.random.default_rng(n * 7 + r)
+    cols = _scatter_columns(n, cuda, rng)
+    assert cols[-1].data_ptr() % 8 == 4
+    idx = rng.choice(n, r, replace=False).astype(np.int64)
+    rows = _scatter_rows_for(cols, r, rng)
+    plain = [c.clone() for c in cols]
+    library = [c.clone() for c in cols]
+    before = sk.scatter_rows.launches
+    moved = sk.scatter_rows(cols, idx, rows)
+    torch.cuda.synchronize()
+    assert sk.scatter_rows.launches == before + 1
+    assert moved == 8 * r + sum(a.nbytes for a in rows)
+    staged = sk.to_device(sk.stage(plain, idx, rows), cuda)
+    sk.scatter_staged_plain(plain, staged)
+    for t, a in zip(library, rows):
+        t.index_copy_(0, torch.from_numpy(idx).to(cuda),
+                      torch.from_numpy(sk._host_view(a)).to(cuda))
+    for got, want, lib in zip(cols, plain, library):
+        assert torch.equal(got, want) and torch.equal(got, lib)
+
+
+@pytest.mark.gpu
+def test_mirror_on_card_matches_cpu(cuda):
+    """The engine's delta path on the card: the same churn through a
+    card engine and a CPU engine, each with its mirror; the scatter
+    kernel launched, both arms' assignments and tile counts equal."""
+    from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
+    from kubernetes_tpu_torch.sched.device.incremental import \
+        IncrementalEncoder
+    rng = np.random.default_rng(4)
+    inc = IncrementalEncoder()
+    snap = mixed_snapshot(5, 300, 0, 0)
+    for node in snap.nodes:
+        inc.on_node_add(node)
+    card, cpu = BatchEngine(device=cuda), BatchEngine(device="cpu")
+    before = sk.scatter_rows.launches
+    for tick in range(4):
+        pods = mixed_snapshot(tick, 300, 40, 0).pending_pods
+        for p in pods:
+            p.metadata.name = f"t{tick}-{p.metadata.name}"
+            p.spec.node_name = ""
+            p.spec.containers[0].ports = []
+            p.spec.volumes = []
+        enc = inc.encode_tile(pods, [], [])
+        got, _ = card.run_chunked(enc, 64)
+        want, _ = cpu.run_chunked(enc, 64)
+        assert (got == want).all() and (got >= 0).any()
+        inc.assume_assigned(enc, pods, want)
+        if tick == 1:
+            node = snap.nodes[int(rng.integers(300))]
+            inc.on_node_delete(node)
+    assert sk.scatter_rows.launches > before
+    assert card.upload_stats == cpu.upload_stats
+    assert card.upload_stats["delta_tiles"] >= 1
+
+
+# ------------------------------------------------- K4: victim search
+
+def _random_victim_args(n, v, seed, device, zero_req=False, prio=None):
+    """Victim tables with every edge: capacities of 0 (unlimited), pod
+    caps at or under the count, victims unsorted and with holes in the
+    valid mask, priorities around the preemptor's."""
+    from kubernetes_tpu_torch.sched.device import victim_kernel as vk
+    rng = np.random.default_rng(seed)
+
+    def i64(lo, hi, *shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape)).to(device)
+    return vk.VictimArgs(
+        cand=torch.from_numpy(rng.random(n) < 0.8).to(device),
+        cpu_cap=i64(0, 4000, n) * (i64(0, 5, n) > 0),
+        mem_cap=i64(0, 4000, n), pod_cap=i64(0, 40, n),
+        cpu_used=i64(0, 5000, n), mem_used=i64(0, 5000, n),
+        pod_count=i64(0, 40, n),
+        tie_rank=torch.from_numpy(rng.permutation(n)).to(device),
+        v_prio=i64(-1000, 1000, n, v), v_cpu=i64(0, 900, n, v),
+        v_mem=i64(0, 900, n, v),
+        v_valid=torch.from_numpy(rng.random((n, v)) < 0.8).to(device),
+        prio=int(rng.integers(-500, 500)) if prio is None else prio,
+        req_cpu=0 if zero_req else int(rng.integers(1, 3000)),
+        req_mem=0 if zero_req else int(rng.integers(0, 3000)),
+        zero_req=zero_req)
+
+
+def _victims_equal_plain(args):
+    from kubernetes_tpu_torch.sched.device import victim_kernel as vk
+    before = vk.victim_search.launches
+    pick, kstar, score = vk.victim_search(args)
+    torch.cuda.synchronize()
+    assert vk.victim_search.launches == before + 1
+    p_pick, p_kstar, p_score = vk.victim_search_plain(args)
+    assert int(pick) == int(p_pick)
+    assert torch.equal(kstar, p_kstar) and torch.equal(score, p_score)
+    return int(pick), kstar, score
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,v", [(1, 1), (7, 1), (255, 3), (256, 16),
+                                 (257, 16), (5000, 16), (5120, 32),
+                                 (5001, 1)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_victim_kernel_matches_plain(cuda, n, v, seed):
+    _victims_equal_plain(_random_victim_args(n, v, seed, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 300, 5000])
+def test_victim_kernel_all_infeasible_picks_zero(cuda, n):
+    # nothing evictable (every victim outranks) and no room anywhere
+    args = _random_victim_args(n, 8, n, cuda, prio=-2000)
+    args = args._replace(pod_count=args.pod_cap.clone())
+    pick, kstar, score = _victims_equal_plain(args)
+    assert pick == 0 and bool((score == -1).all())
+    assert bool((kstar == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,v", [(64, 1), (5000, 16)])
+def test_victim_kernel_zero_request(cuda, n, v):
+    pick, kstar, score = _victims_equal_plain(
+        _random_victim_args(n, v, 9, cuda, zero_req=True))
+    assert bool((score >= 0).any())
+
+
+@pytest.mark.gpu
+def test_find_victims_on_card_equals_the_oracle(cuda):
+    """The engine's victim search through the kernel on an encoder's
+    tables: equal to the serial oracle, field for field."""
+    from kubernetes_tpu_torch.kubemark import fixtures as fx
+    from kubernetes_tpu_torch.sched.preemption import oracle_find_victims
+    spec = fx.preempt_spec(n_nodes=300, n_preemptors=16)
+    inc = fx.preempt_encoder(spec)
+    engine = BatchEngine(device=cuda)
+    for pod in fx.preempt_pods(spec):
+        table = inc.victim_table(pod)
+        got, want = engine.find_victims(table), oracle_find_victims(table)
+        assert (got.pick, got.kstar, got.feasible) == \
+            (want.pick, want.kstar, want.feasible)
+        assert np.array_equal(got.node_kstar, want.node_kstar)
+        assert np.array_equal(got.node_score, want.node_score)
+        assert got.victim_keys(table) == want.victim_keys(table)
+
+
+@pytest.mark.gpu
+def test_refused_victim_launch_raises_through_find_victims(cuda):
+    from kubernetes_tpu_torch.kubemark import fixtures as fx
+    from kubernetes_tpu_torch.sched.device import victim_kernel as vk
+    spec = fx.preempt_spec(n_nodes=40, n_preemptors=2)
+    table = fx.preempt_encoder(spec).victim_table(fx.preempt_pods(spec)[1])
+    engine = BatchEngine(device=cuda)
+    real = vk._launch
+    before = vk.victim_search.launches
+    try:
+        vk._launch = lambda a, k, s, p: real(a, k, s, p, threads=2048)
+        with pytest.raises(RuntimeError, match="victim kernel launch"):
+            engine.find_victims(table)
+    finally:
+        vk._launch = real
+    assert vk.victim_search.launches == before
+    assert engine.find_victims(table).pick >= 0
+
+
+@pytest.mark.gpu
+def test_refused_scatter_launch_raises_through_run_chunked(cuda):
+    """No fallback: a refused scatter launch in the real one's place
+    makes run_chunked raise on a tile off the mirror; the mirror's
+    generations move only past scatters that landed, so the same tile
+    then scatters again and binds as the CPU engine does."""
+    from kubernetes_tpu_torch.kubemark import fixtures as fx
+    from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
+    inc = fx.preempt_encoder(fx.preempt_spec(n_nodes=64, n_preemptors=0))
+    tile = [fx._preempt_pod(f"z{i}", "", 0, 0, 0) for i in range(8)]
+    engine = BatchEngine(device=cuda)
+    enc = inc.encode_tile(tile, [], [])
+    assigned, _ = engine.run_chunked(enc, 8)
+    inc.assume_assigned(enc, tile, assigned)
+    enc = inc.encode_tile(tile[:1], [], [])
+    ones = torch.ones(8, 128, device=cuda)
+    scratch = torch.empty(8, 128, dtype=torch.int32, device=cuda)
+    real = sk._launch
+    before = sk.scatter_rows.launches
+    try:
+        sk._launch = lambda staged: reject_kernel._launch(
+            ones, scratch, reject_kernel.launch_plan(
+                8, 128, 2 * reject_kernel.MAX_BLOCK_THREADS))
+        with pytest.raises(RuntimeError, match="scatter kernel launch"):
+            engine.run_chunked(enc, 8)
+    finally:
+        sk._launch = real
+    assert sk.scatter_rows.launches == before
+    got, _ = engine.run_chunked(enc, 8)
+    want, _ = BatchEngine(device="cpu").run_chunked(enc, 8)
+    assert (got == want).all()
+    assert sk.scatter_rows.launches == before + 1

@@ -206,10 +206,3 @@ def test_churn_stream_matches_jax(name):
     STREAMS[name](t)
     assert t.tiles >= 1
     assert t.port.encoder_id != 0 and t.port.shard_epochs() == (0,)
-
-
-def test_victim_table_is_not_ported_yet():
-    inc = IncrementalEncoder()
-    inc.on_node_add(cross([mk_node("n-0")])[0])
-    with pytest.raises(NotImplementedError, match="Preemption"):
-        inc.victim_table(cross([mk_pod("p", phase="Pending")])[0])

@@ -1,8 +1,9 @@
 """The port stands alone: importing and running it (scheduling a batch,
-one extender round trip, and the live pipeline under the kubemark
-benchmark and the evidence tool's e2e section, all on the CPU) loads
-neither jax nor any module of the JAX package, and its entry points refuse to run without a CUDA device
-unless a device is named. Run in a subprocess, because this test
+one extender round trip, the live pipeline under the kubemark
+benchmark and the evidence tool's e2e section, a victim search, a
+scatter through the table mirror, and a mixed-mode config, all on the
+CPU) loads neither jax nor any module of the JAX package, and its entry
+points refuse to run without a CUDA device unless a device is named. Run in a subprocess, because this test
 process has jax loaded (tests/conftest.py)."""
 
 import ast
@@ -49,11 +50,36 @@ bench = run_scheduling_benchmark(n_nodes=8, n_pods=40, wait_running=True,
                                  device="cpu")
 e2e = section_e2e(8, 40, device="cpu")
 
+# preemption: the victim search over an encoder's table
+from kubernetes_tpu_torch.kubemark import fixtures as fx
+spec = fx.preempt_spec(n_nodes=30, n_preemptors=4)
+inc = fx.preempt_encoder(spec)
+engine = BatchEngine(device="cpu")
+feasible = [engine.find_victims(inc.victim_table(p)).feasible
+            for p in fx.preempt_pods(spec)]
+# the table mirror: a second tile after an assume scatters its rows
+# (the fleet is full by CPU: pods that request nothing still fit)
+tile = [fx._preempt_pod(f"z{i}", "", 0, 0, 0) for i in range(4)]
+enc = inc.encode_tile(tile, [], [])
+assigned, _ = engine.run_chunked(enc, 8)
+inc.assume_assigned(enc, tile, assigned)
+engine.run_chunked(inc.encode_tile(tile[:1], [], []), 8)
+# mixed mode
+from kubernetes_tpu_torch.api.client import InProcClient
+from kubernetes_tpu_torch.api.registry import Registry
+from kubernetes_tpu_torch.sched.api import Policy
+from kubernetes_tpu_torch.sched.factory import ConfigFactory
+factory = ConfigFactory(InProcClient(Registry()), rate_limit=False)
+policy = Policy(extenders=[ExtenderConfig(url_prefix="http://x",
+                                          filter_verb="filter")])
+mixed = type(factory.create_mixed(policy, device="cpu").algorithm).__name__
+
 torch.cuda.is_available = lambda: False
 errors = []
 for make in (BatchEngine, DeviceBackend,
              lambda: run_scheduling_benchmark(2, 1),
-             lambda: section_e2e(2, 1)):
+             lambda: section_e2e(2, 1),
+             lambda: factory.create_mixed(policy)):
     try:
         make()
     except RuntimeError as e:
@@ -62,7 +88,9 @@ print(json.dumps({"foreign": sorted(m for m in sys.modules if is_foreign(m)),
                   "bound": sum(n is not None for n in names),
                   "fit": len(fit), "prio": len(prio), "errors": errors,
                   "bench": [bench.scheduled, bench.running],
-                  "e2e": e2e["scheduled"]}))
+                  "e2e": e2e["scheduled"], "feasible": feasible,
+                  "delta": engine.upload_stats["delta_tiles"],
+                  "mixed": mixed}))
 """
 
 
@@ -77,7 +105,9 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert res["foreign"] == []
     assert res["bound"] > 0 and 0 < res["fit"] < 20 and res["prio"] == 20
     assert res["bench"] == [40, 40] and res["e2e"] == 40
-    assert len(res["errors"]) == 4
+    assert len(res["feasible"]) == 4 and any(res["feasible"])
+    assert res["delta"] == 1 and res["mixed"] == "DeviceAssistedAlgorithm"
+    assert len(res["errors"]) == 5
     assert all("no CUDA device" in e for e in res["errors"])
 
 
