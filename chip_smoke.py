@@ -7,21 +7,38 @@ Drives the port's main device path once on the card, at the north-star
 size, through the entry points a user calls, and holds every kernel and
 every answer to a reference:
 
-  build     nvcc-builds every CUDA source (all four at once).
+  build     nvcc-builds every CUDA source (all five at once).
   filter    the predicate-filter kernel on a mixed 8192-pod x 5000-node
             snapshot: bit-equal to its plain PyTorch version on the card
             and to the engine's probe mask; a mask that is neither all
             True nor all False; kernel / plain times beside the bound
             and the launch floor, at that batch shape and at 1 x 5000
             (the extender's launch).
+  scan      the scan kernel (K1) and the probe kernel (K5) against their
+            plain versions on seeded random tables (fixtures.scan_cases)
+            at 64 pods x 5120 slots, for each tier (node-local,
+            SelectorSpread, inter-pod affinity, ServiceAntiAffinity,
+            all four with other weights) in both layouts (int32, int64),
+            and at the edges, all tiers on: P = 1, N = 1500 and 37 (not
+            multiples of the block), every pod invalid, nothing fitting,
+            three-word bitsets; every table holds cap == 0, zero requests,
+            pinned hosts, exceeded nodes and the FMA trap. The
+            assignment and the final State must be bit-equal, and K5's
+            mask and total. Then K1 on the e2e's chunk (8192 bench pods
+            x the 5000-node fleet's 5120 slots): device ms, the plain
+            version's ms for the same chunk (bit-equal), the bound and
+            the launch floor; K5 at 8192 x 5000 and 1 x 5000 (the filter
+            phase's snapshot), bit-equal, and timed likewise.
   engine    BatchEngine.run_chunked(enc, 8192) on the 5000 x 30000 plain
             and 5000 x 8192 spread fixtures; the assignment's sha256 and
-            bound count must equal SMOKE_DIGESTS, the JAX engine's answer.
+            bound count must equal SMOKE_DIGESTS, the JAX engine's answer;
+            the scan kernel launched once a chunk and no eager step.
   extender  the extender sidecar (ExtenderServer + DeviceBackend on the
             card) answers 3 Filter and 3 Prioritize requests over 5000
             nodes through the port's HTTP client; the answers must equal
-            those of a DeviceBackend on the CPU, and the filter kernel's
-            launch count must have risen.
+            those of a DeviceBackend on the CPU, and the filter kernel
+            (Filter) and the probe kernel (Prioritize) must have
+            launched.
   reject    the GPU evidence tool's `kernels` section
             (kubemark/gpu_evidence.py): the argsort kernel bit-equal to
             its plain version, a launch CUDA refuses raising, that
@@ -36,11 +53,20 @@ every answer to a reference:
             every 600 s) and the device table mirror on; every pod bound
             and the per-node counts equal to E2E_COUNTS (the JAX
             engine's answer); at least one tile off the mirror (delta
-            or reuse) and the scatter kernel launched. Chained and
-            unchained tiles and the upload bytes are reported.
+            or reuse), and the scan kernel launched for every tile at
+            least. Chained and unchained tiles, the upload bytes and the
+            scatter kernel's launches are reported (a run whose tiles all
+            chain or reuse the mirror scatters nothing: that depends on
+            the host's speed against the heartbeats, so the scatter
+            kernel's count is read in the mirror phase).
+  mirror    the table mirror's own path on the e2e fleet: two unchained
+            tiles of 8192 bench pods through run_chunked, a heartbeat of
+            one 500-node shard between them; the second tile scatters
+            its dirty rows (the scatter kernel must launch), and both
+            bind as an engine that uploads in full.
   scatter   the dirty-row scatter kernel on the 5000-node fleet's node
-            and State tables (5120 slots), at the e2e's dirty rows a
-            launch and at 5000 rows: bit-equal to its plain version and
+            and State tables (5120 slots), at the mirror phase's dirty
+            rows a launch and at 5000 rows: bit-equal to its plain version and
             to `index_copy_` per column; kernel / plain / `index_copy_`
             times beside the bound and the launch floor.
   preempt   an IncrementalEncoder over 5000 nodes, each full by CPU with
@@ -54,32 +80,38 @@ every answer to a reference:
             block than it takes), swapped in: find_victims raises and
             returns nothing; restored, the search equals the oracle.
             The same for the scatter kernel: a refused launch in its
-            place makes run_chunked raise on a tile off the mirror.
+            place makes run_chunked raise on a tile off the mirror; and
+            for the scan and probe kernels: run_chunked and probe raise,
+            and restored, equal the CPU engine.
   mixed     mixed mode (factory.create_mixed): the device probe on the
             card and one HTTP extender (the port's ExtenderServer over a
             CPU backend) place 8 pods on 5000 nodes, one at a time; the
-            bindings equal those of the same policy on device="cpu".
+            bindings equal those of the same policy on device="cpu",
+            and the probe kernel launched.
 
 Bounds (`kubernetes_tpu_torch/sched/device/bounds.py`): the larger of the
 bytes over 3.35 TB/s and the 32-bit integer operations over the card's
-integer rate (SMs x 64 INT32 lanes x maximum SM clock); every record
-with a bound names the rate (`int_ops_per_s`, `sm_clock_mhz`, `sms`).
+integer rate (SMs x 64 INT32 lanes x maximum SM clock), and for K1 and
+K5 their f64 operations over the FP64 rate (SMs x 64 FP64 lanes x the
+same clock); every record with a bound names the rates
+(`int_ops_per_s`, `fp64_ops_per_s`, `sm_clock_mhz`, `sms`).
 The launch floor is the device time of a kernel that does nothing,
 timed like every kernel (20 launches in one CUDA graph).
 
-Five paths are driven, each with the kernel launch counts set to 0 just
-before it and read just after: the engine and extender phases (the
-filter kernel), the reject phase (the argsort kernel), the e2e phase
-(the scatter kernel, through the table mirror; its scan is eager
-PyTorch until ROADMAP K1), the preempt phase's 64 searches (the victim
-kernel) and the mixed phase (no kernel: its probe is plain PyTorch
-until ROADMAP K5).
+Six paths are driven, each with the kernel launch counts set to 0 just
+before it and read just after: the engine and extender phases (the scan
+kernel a chunk, the filter kernel a Filter, the probe kernel a
+Prioritize), the reject phase (the argsort kernel), the e2e phase (the
+scan kernel a chunk), the mirror phase (the scatter kernel, and the scan
+kernel), the preempt phase's 64 searches (the victim kernel) and the
+mixed phase (the probe kernel a pod).
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero and prints no result. Every line carries the card's name
 and power limit (nvidia-smi). The last lines are the card's line, the
 kernel table, and {"ok": true, "device": {...}}. The kernel table gives
 for each kernel: route, source, the TPU kernel it replaces, its launches
-on its path and their shape (`main_path_shape`), `equal_plain`,
+on its path, the phase(s) they were counted in (`launches_path`), their
+shape (`main_path_shape`), `equal_plain`,
 `max_abs_err`, `ms` / `plain_ms` / `library_ms` / `bound_ms` at the timed
 shape (`shape`), `main_path_ms` / `main_path_bound_ms`, the launch floor
 and the integer rate. Needs one CUDA device;
@@ -113,11 +145,13 @@ def phase_build():
 
     from kubernetes_tpu_torch.sched.device import (_build, filter_kernel,
                                                    reject_kernel,
+                                                   scan_kernel,
                                                    scatter_kernel,
                                                    victim_kernel)
     t0 = time.monotonic()
     records = _build.build_all([filter_kernel.SOURCE, reject_kernel.SOURCE,
-                                scatter_kernel.SOURCE, victim_kernel.SOURCE])
+                                scatter_kernel.SOURCE, victim_kernel.SOURCE,
+                                scan_kernel.SOURCE])
     for r in records:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -146,7 +180,8 @@ def phase_filter(rate, floor_ms):
     if not fk.supports(enc):
         raise AssertionError("filter fixture is not kernel-eligible")
     engine = BatchEngine()
-    args = fk.FilterArgs.from_engine(*engine.device_args(enc))
+    tables = engine.device_args(enc)
+    args = fk.FilterArgs.from_engine(*tables)
     got = fk.filter_masks(args)
     plain = fk.filter_masks_plain(args)
     probe_mask, _ = engine.probe(enc)
@@ -181,7 +216,101 @@ def phase_filter(rate, floor_ms):
             "equal_probe": True, **batch,
             **{f"{k}_p1": p1[k] for k in ("ms", "plain_ms", "call_ms",
                                           "bound_ms", "bound_by", "bytes",
-                                          "ops")}}
+                                          "ops")}}, tables
+
+
+def _fleet_encoder():
+    """The e2e fleet's nodes (5000 hollow nodes, 5120 slots) in an
+    IncrementalEncoder, as the live pipeline holds them."""
+    from kubernetes_tpu_torch.kubemark.fixtures import E2E_COUNTS
+    from kubernetes_tpu_torch.kubemark.fleet import HollowFleet
+    from kubernetes_tpu_torch.sched.device.incremental import \
+        IncrementalEncoder
+    n = E2E_COUNTS["n_nodes"]
+    fleet = HollowFleet(None, n, cpu="4", memory="32Gi",
+                        max_pods=E2E_COUNTS["max_pods"])
+    inc = IncrementalEncoder()
+    for i in range(n):
+        inc.on_node_add(fleet._node_object(i))
+    return inc
+
+
+def phase_scan(rate, floor_ms, mixed_tables):
+    """K1 and K5 held bit-equal to their plain versions on seeded random
+    tables (each tier, both layouts, the edge shapes), then timed: K1 on
+    the e2e's chunk, K5 on the filter phase's snapshot at 8192 x 5000
+    and 1 x 5000. -> (record, {"k1", "k5", "k5_p1"} timings)."""
+    import torch
+
+    from kubernetes_tpu_torch.kubemark.benchmark import _bench_pod
+    from kubernetes_tpu_torch.kubemark.fixtures import (SCAN_DEGENERATE,
+                                                        SMOKE_CHUNK,
+                                                        scan_cases,
+                                                        scan_tables)
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import (probe_timing,
+                                                            scan_args,
+                                                            scan_parity,
+                                                            scan_timing)
+    from kubernetes_tpu_torch.sched.device import BatchEngine
+    from kubernetes_tpu_torch.sched.device import engine as eng_mod
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+
+    engine = BatchEngine()
+    dev = engine.device
+    rec = {"phase": "scan", "cases": {}, "max_abs_err": 0}
+    t0 = time.monotonic()
+    for name, case in scan_cases().items():
+        tables = scan_tables(**case["tables"])
+        a = scan_args(*(eng_mod._upload(t, dev) for t in tables))
+        got = scan_parity(a, case["weights"], case["anti_weight"],
+                          case["has_aff"], case["has_spread"])
+        if not got["equal"]:
+            bad = [f for f, ok in got["fields"].items() if not ok]
+            raise AssertionError(f"scan {name}: the kernels differ from "
+                                 f"their plain versions in {bad}")
+        degenerate = name.split("/")[0] in SCAN_DEGENERATE
+        if (got["placed"] == 0) != degenerate:
+            raise AssertionError(f"scan {name}: {got['placed']} pods "
+                                 f"placed")
+        d = a.dims()
+        rec["cases"][name] = [d["p"], d["n"], got["placed"]]
+        rec["max_abs_err"] = max(rec["max_abs_err"], got["max_abs_err"])
+    rec["parity_s"] = time.monotonic() - t0
+
+    # K1 on the e2e's chunk: 8192 bench pods against the fleet's slots
+    inc = _fleet_encoder()
+    enc = inc.encode_tile([_bench_pod(i) for i in range(SMOKE_CHUNK)], [],
+                          [])
+    a = scan_args(*engine.device_args(enc))
+    flags = engine._enc_flags(enc)
+    k1 = scan_timing(a, engine.weights, 0, *flags, rate, floor_ms)
+    if not k1["equal_plain"]:
+        raise AssertionError("K1 differs from its plain version on the "
+                             "e2e's chunk")
+    # K5 on the filter phase's snapshot, the batch and the extender's pod
+    big = scan_args(*mixed_tables)
+    one = big.pod_slice(1, 2)
+    timed = {"k1": k1}
+    for key, b in (("k5", big), ("k5_p1", one)):
+        mask, total = sk.probe(b, engine.weights, 0, False)
+        p_mask, p_total = sk.probe_plain(b, engine.weights, 0, False)
+        torch.cuda.synchronize()
+        if not (torch.equal(mask, p_mask) and torch.equal(total, p_total)):
+            raise AssertionError(f"K5 differs from its plain version at "
+                                 f"{tuple(mask.shape)}")
+        timed[key] = {**probe_timing(b, engine.weights, 0, False, rate,
+                                     floor_ms),
+                      "shape": list(mask.shape)}
+    rec.update(equal_plain=True, k1_shape=[a.dims()["p"], a.dims()["n"]],
+               k1_flags=list(flags),
+               **{f"{key}_{f}": t[f] for key, t in timed.items()
+                  for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "bytes", "ops", "f64_ops")},
+               k1_restore_ms=k1["restore_ms"],
+               k1_fitting_elements=k1["fitting_elements"],
+               k1_placed=k1["placed"], k5_call_ms=timed["k5"]["call_ms"],
+               k5_p1_call_ms=timed["k5_p1"]["call_ms"])
+    return rec, timed
 
 
 def phase_engine():
@@ -193,6 +322,7 @@ def phase_engine():
                                                         engine_snapshot,
                                                         smoke_pod_pad)
     from kubernetes_tpu_torch.sched.device import BatchEngine, encode_snapshot
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
 
     engine = BatchEngine()
     records = []
@@ -203,9 +333,16 @@ def phase_engine():
             pod_pad_to=smoke_pod_pad(want["n_pods"]))
         encode_s = time.monotonic() - t0
         torch.cuda.synchronize()
+        before = sk.scan_chunk.launches
         t0 = time.monotonic()
         assigned, _ = engine.run_chunked(enc, SMOKE_CHUNK)
         run_s = time.monotonic() - t0
+        launched = sk.scan_chunk.launches - before
+        chunks = enc.pod_batch.valid.shape[0] // SMOKE_CHUNK
+        if launched != chunks or engine.scan_stats["eager_steps"]:
+            raise AssertionError(
+                f"{name}: {launched} scan launches for {chunks} chunks, "
+                f"{engine.scan_stats['eager_steps']} eager steps")
         sha, bound = assigned_digest(assigned, enc.n_pods)
         if (sha, bound) != (want["sha256"], want["bound"]):
             raise AssertionError(
@@ -216,7 +353,9 @@ def phase_engine():
             "pods": enc.n_pods, "steps": int(enc.pod_batch.valid.shape[0]),
             "encode_s": encode_s, "run_s": run_s,
             "pods_per_s": enc.n_pods / run_s, "bound": bound,
-            "sha256": sha, "digest_ok": True})
+            "sha256": sha, "digest_ok": True, "chunks": chunks,
+            "scan_launches": launched,
+            "eager_steps": engine.scan_stats["eager_steps"]})
     return records
 
 
@@ -224,6 +363,7 @@ def phase_extender():
     from kubernetes_tpu_torch.kubemark.fixtures import mixed_snapshot
     from kubernetes_tpu_torch.sched.api import ExtenderConfig
     from kubernetes_tpu_torch.sched.device import filter_kernel as fk
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
     from kubernetes_tpu_torch.sched.extender import HTTPExtender
     from kubernetes_tpu_torch.sched.extender_server import (DeviceBackend,
                                                             ExtenderServer)
@@ -242,6 +382,7 @@ def phase_extender():
     answers = []
     seconds = []
     launches_before = fk.filter_masks.launches
+    probes_before = sk.probe.launches
     try:
         for i, server in enumerate(servers):
             server.start()
@@ -261,6 +402,7 @@ def phase_extender():
             answers.append(got)
             if i == 0:
                 launches_card = fk.filter_masks.launches - launches_before
+                probes_card = sk.probe.launches - probes_before
     finally:
         for server in servers:
             server.stop()
@@ -275,11 +417,15 @@ def phase_extender():
     if launches_card < len(pods):
         raise AssertionError(f"filter kernel launched {launches_card} "
                              f"times for {len(pods)} Filter requests")
+    if probes_card < len(pods):
+        raise AssertionError(f"probe kernel launched {probes_card} times "
+                             f"for {len(pods)} Prioritize requests")
     return {"phase": "extender", "nodes": n_nodes,
             "requests": 2 * len(pods), "filter_fit": fits, "equal_cpu": True,
             "filter_s": [f for f, _ in seconds],
             "prioritize_s": [p for _, p in seconds],
-            "filter_kernel_launches": launches_card}
+            "filter_kernel_launches": launches_card,
+            "probe_kernel_launches": probes_card}
 
 
 def phase_reject(rate, floor_ms):
@@ -341,6 +487,60 @@ def phase_e2e():
                                   "full_bytes", "delta_bytes")}}
 
 
+def phase_mirror():
+    """The table mirror's path (BatchEngine.run_chunked over the
+    encoder's tiles) on the e2e fleet: a tile of 8192 bench pods seeds
+    the mirror; a heartbeat of one 500-node shard and the tile's own
+    placements dirty node and State rows, so the next unchained tile
+    scatters them (the scatter kernel). Each tile is held equal to an
+    engine that uploads in full. -> (record, rows a scatter launch)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.kubemark.benchmark import _bench_pod
+    from kubernetes_tpu_torch.kubemark.fixtures import (E2E_COUNTS,
+                                                        SMOKE_CHUNK)
+    from kubernetes_tpu_torch.kubemark.fleet import HollowFleet
+    from kubernetes_tpu_torch.sched.device import BatchEngine
+    from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
+
+    n = E2E_COUNTS["n_nodes"]
+    fleet = HollowFleet(None, n, cpu="4", memory="32Gi",
+                        max_pods=E2E_COUNTS["max_pods"])
+    inc = _fleet_encoder()
+    delta, full = BatchEngine(), BatchEngine()
+    full.delta_uploads = False
+    rows_before = sk.scatter_rows.rows
+    launches_before = sk.scatter_rows.launches
+    bound = 0
+    for t in range(2):
+        if t:
+            # one shard of the fleet's heartbeat (PERF.md section 4)
+            for i in range(min(500, n)):
+                inc.on_node_update(fleet._node_object(i),
+                                   fleet._node_object(i))
+        pods = [_bench_pod(t * SMOKE_CHUNK + j) for j in range(SMOKE_CHUNK)]
+        enc = inc.encode_tile(pods, [], [])
+        got, _ = delta.run_chunked(enc, SMOKE_CHUNK)
+        want, _ = full.run_chunked(enc, SMOKE_CHUNK)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"mirror tile {t}: the delta upload binds "
+                                 f"differently from the full upload")
+        inc.assume_assigned(enc, pods, got)
+        bound += int((got[:enc.n_pods] >= 0).sum())
+    up = delta.upload_stats
+    launches = sk.scatter_rows.launches - launches_before
+    if up["delta_tiles"] < 1 or launches == 0:
+        raise AssertionError(f"mirror: no tile scattered its rows: {up}")
+    rows = sk.scatter_rows.rows - rows_before
+    return ({"phase": "mirror", "tiles": 2, "bound": bound,
+             "equal_full": True, "scatter_launches": launches,
+             "scatter_rows": rows,
+             **{k: up[k] for k in ("full_tiles", "delta_tiles",
+                                   "reuse_tiles", "delta_bytes",
+                                   "table_bytes")}},
+            max(1, round(rows / launches)))
+
+
 def _random_rows(column, r, rng):
     """r random rows for a mirror column, in the encoder's dtypes."""
     import numpy as np
@@ -352,30 +552,23 @@ def _random_rows(column, r, rng):
     return rng.integers(0, 2 ** 32, shape).astype(dt)
 
 
-def phase_scatter(rate, floor_ms, e2e_rows: int):
-    """The scatter kernel on the e2e fleet's tables, at the e2e's dirty
-    rows a launch and at 5000 rows, held bit-equal to its plain version
-    and to index_copy_ a column, then timed. -> (record, timings by
-    row count)."""
+def phase_scatter(rate, floor_ms, path_rows: int):
+    """The scatter kernel on the e2e fleet's tables, at the mirror
+    phase's dirty rows a launch and at 5000 rows, held bit-equal to its
+    plain version and to index_copy_ a column, then timed. -> (record,
+    timings by row count)."""
     import numpy as np
     import torch
 
     from kubernetes_tpu_torch.kubemark.benchmark import _bench_pod
     from kubernetes_tpu_torch.kubemark.fixtures import E2E_COUNTS
-    from kubernetes_tpu_torch.kubemark.fleet import HollowFleet
     from kubernetes_tpu_torch.kubemark.gpu_evidence import kernel_timing
     from kubernetes_tpu_torch.sched.device import BatchEngine, bounds
     from kubernetes_tpu_torch.sched.device import engine as eng_mod
     from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
-    from kubernetes_tpu_torch.sched.device.incremental import \
-        IncrementalEncoder
 
     n = E2E_COUNTS["n_nodes"]
-    fleet = HollowFleet(None, n, cpu="4", memory="32Gi",
-                        max_pods=E2E_COUNTS["max_pods"])
-    inc = IncrementalEncoder()
-    for i in range(n):
-        inc.on_node_add(fleet._node_object(i))
+    inc = _fleet_encoder()
     engine = BatchEngine()
     dev = engine.device
     node_h, state_h, _ = engine.host_args(
@@ -384,12 +577,12 @@ def phase_scatter(rate, floor_ms, e2e_rows: int):
     tables = {"node": [getattr(node, f) for f in eng_mod._NODE_ROW_FIELDS],
               "state": [getattr(state, f) for f in eng_mod._STATE_ROW_FIELDS]}
     rng = np.random.default_rng(SCATTER_SEED)
-    e2e_rows = min(e2e_rows, n)
+    path_rows = min(path_rows, n)
     rec = {"phase": "scatter", "slots": int(node_h.valid.shape[0]),
-           "e2e_rows": e2e_rows, "equal_plain": True,
+           "path_rows": path_rows, "equal_plain": True,
            "equal_library": True, "max_abs_err": 0, "tables": {}}
     timed = {}
-    for r in sorted({e2e_rows, n}):
+    for r in sorted({path_rows, n}):
         idx = rng.permutation(n)[:r].astype(np.int64)
         for name, cols in tables.items():
             rows = [_random_rows(c, r, rng) for c in cols]
@@ -586,6 +779,53 @@ def _scatter_refusal():
     return error
 
 
+def _scan_refusals():
+    """Launches of the scan and probe kernels that the card refuses (the
+    real launch with 2048 threads a block, past both kernels' launch
+    bounds) in place of the real ones: run_chunked and probe must raise
+    and return nothing, with no launch counted; restored, both equal
+    the CPU engine's. -> the two errors."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.kubemark.fixtures import mixed_snapshot
+    from kubernetes_tpu_torch.sched.device import BatchEngine, encode_snapshot
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+
+    enc = encode_snapshot(mixed_snapshot(FILTER_SEED, 64, 8, 10))
+    engine = BatchEngine()
+    calls = {"scan": lambda: engine.run_chunked(enc, 8),
+             "probe": lambda: engine.probe(enc)}
+    real = sk._launch
+    before = (sk.scan_chunk.launches, sk.probe.launches)
+    errors = {}
+    sk._launch = lambda plan, dims, ptrs, device: real(
+        plan._replace(threads=2048), dims, ptrs, device)
+    try:
+        for name, call in calls.items():
+            got = None
+            try:
+                got = call()
+            except RuntimeError as e:
+                errors[name] = str(e)
+            if got is not None or name not in errors:
+                raise AssertionError(f"a refused {name} launch did not "
+                                     f"raise through the engine")
+    finally:
+        sk._launch = real
+    if (sk.scan_chunk.launches, sk.probe.launches) != before:
+        raise AssertionError("a refused scan or probe launch was counted")
+    cpu = BatchEngine(device="cpu")
+    if not np.array_equal(engine.run_chunked(enc, 8)[0],
+                          cpu.run_chunked(enc, 8)[0]):
+        raise AssertionError("the scan after a refused launch differs "
+                             "from the CPU engine's")
+    if not all(np.array_equal(x, y) for x, y in zip(engine.probe(enc),
+                                                    cpu.probe(enc))):
+        raise AssertionError("the probe after a refused launch differs "
+                             "from the CPU engine's")
+    return errors
+
+
 def phase_no_fallback(table):
     """A victim-kernel launch the card refuses, in place of the real one:
     find_victims must raise and return nothing; restored, the search
@@ -617,10 +857,14 @@ def phase_no_fallback(table):
             or not np.array_equal(again.node_score, want.node_score):
         raise AssertionError("the victim search after a refused launch "
                              "differs from the oracle")
+    scan_errors = _scan_refusals()
     return {"phase": "no_fallback", "raised": True, "error": error[:200],
             "equal_after": True,
             "scatter_error": _scatter_refusal()[:200],
-            "scatter_raised": True}
+            "scatter_raised": True,
+            "scan_error": scan_errors["scan"][:200],
+            "probe_error": scan_errors["probe"][:200],
+            "scan_raised": True, "probe_raised": True}
 
 
 def _mixed_bindings(device, snap, server_url):
@@ -707,12 +951,15 @@ def phase_mixed():
 def _counts():
     from kubernetes_tpu_torch.sched.device import (filter_kernel,
                                                    reject_kernel,
+                                                   scan_kernel,
                                                    scatter_kernel,
                                                    victim_kernel)
     return {"filter_masks": filter_kernel.filter_masks,
             "argsort_rows": reject_kernel.argsort_rows,
             "scatter_rows": scatter_kernel.scatter_rows,
-            "victim_search": victim_kernel.victim_search}
+            "victim_search": victim_kernel.victim_search,
+            "scan_chunk": scan_kernel.scan_chunk,
+            "probe": scan_kernel.probe}
 
 
 def _zero_counts():
@@ -735,7 +982,6 @@ def main() -> int:
                                                             launch_floor_ms)
     from kubernetes_tpu_torch.sched.device import bounds
     from kubernetes_tpu_torch.kubemark.fixtures import E2E_COUNTS
-    from kubernetes_tpu_torch.sched.device import filter_kernel as fk
     from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
 
     card = card_line()
@@ -747,17 +993,21 @@ def main() -> int:
     rate = bounds.card_rate()
     floor_ms = launch_floor_ms()
     stamp({"phase": "floor", "launch_floor_ms": floor_ms, **rate})
-    filt = phase_filter(rate, floor_ms)
+    filt, mixed_tables = phase_filter(rate, floor_ms)
     stamp(filt)
-    fk.filter_masks.launches = 0          # the main path starts here
+    scan, scan_t = phase_scan(rate, floor_ms, mixed_tables)
+    del mixed_tables
+    stamp(scan)
+    _zero_counts()                        # the main path starts here
     for rec in phase_engine():
         stamp(rec)
     ext = phase_extender()
     stamp(ext)
-    launches = fk.filter_masks.launches   # ... and ends here
-    if launches == 0:
-        raise AssertionError("the main path never launched the filter "
-                             "kernel")
+    main_launches = _read_counts()        # ... and ends here
+    stamp({"phase": "main_path", "launches": main_launches})
+    for name in ("filter_masks", "scan_chunk", "probe"):
+        if main_launches[name] == 0:
+            raise AssertionError(f"the main path never launched {name}")
     reject, reject_launches = phase_reject(rate, floor_ms)
     stamp(reject)
     _zero_counts()                        # the e2e path starts here
@@ -765,9 +1015,17 @@ def main() -> int:
     e2e_launches = _read_counts()         # ... and ends here
     e2e_rows = sk.scatter_rows.rows
     stamp({**e2e, "launches": e2e_launches, "scatter_rows": e2e_rows})
-    if e2e_launches["scatter_rows"] == 0:
-        raise AssertionError("the e2e never launched the scatter kernel")
-    rows_a_launch = max(1, round(e2e_rows / e2e_launches["scatter_rows"]))
+    tiles = e2e["tiles_chained"] + e2e["tiles_unchained"]
+    if e2e_launches["scan_chunk"] < max(tiles, 1):
+        raise AssertionError(f"the e2e launched the scan kernel "
+                             f"{e2e_launches['scan_chunk']} times for "
+                             f"{tiles} tiles")
+    if e2e["scan_stats"]["eager_steps"]:
+        raise AssertionError(f"the e2e ran {e2e['scan_stats']} eager steps")
+    _zero_counts()                        # the mirror path starts here
+    mirror, rows_a_launch = phase_mirror()
+    mirror_launches = _read_counts()      # ... and ends here
+    stamp({**mirror, "launches": mirror_launches})
     scatter, scatter_t = phase_scatter(rate, floor_ms, rows_a_launch)
     stamp(scatter)
     preempt, preempt_launches, wide = phase_preempt(rate, floor_ms)
@@ -775,15 +1033,20 @@ def main() -> int:
     stamp(phase_no_fallback(wide))
     _zero_counts()                        # the mixed path starts here
     mixed = phase_mixed()
-    stamp({**mixed, "launches": _read_counts()})   # ... and ends here
+    mixed_launches = _read_counts()       # ... and ends here
+    stamp({**mixed, "launches": mixed_launches})
+    if mixed_launches["probe"] == 0:
+        raise AssertionError("mixed mode never launched the probe kernel")
     print(card, flush=True)
     big = scatter_t[("state", E2E_COUNTS["n_nodes"])]
-    small = scatter_t[("state", scatter["e2e_rows"])]
+    small = scatter_t[("state", scatter["path_rows"])]
+    k1, k5, k5_p1 = scan_t["k1"], scan_t["k5"], scan_t["k5_p1"]
     emit({"kernels": [{
         "name": "filter_masks", "route": "cuda",
         "source": "kubernetes_tpu_torch/sched/device/csrc/filter_kernel.cu",
         "replaces": "kubernetes_tpu/sched/device/pallas_filter.py:169",
-        "launches": launches,
+        "launches": main_launches["filter_masks"],
+        "launches_path": "engine+extender",
         "main_path_shape": [1, ext["nodes"]],
         "equal_plain": filt["equal_plain"],
         "max_abs_err": filt["max_abs_err"], "shape": filt["shape"],
@@ -795,7 +1058,8 @@ def main() -> int:
         "name": "argsort_rows", "route": "cuda",
         "source": "kubernetes_tpu_torch/sched/device/csrc/reject_kernel.cu",
         "replaces": "kubernetes_tpu/kubemark/tpu_evidence.py:369",
-        "launches": reject_launches, "main_path_shape": reject["shape"],
+        "launches": reject_launches, "launches_path": "reject",
+        "main_path_shape": reject["shape"],
         "equal_plain": reject["reject_parity"],
         "max_abs_err": reject["reject_max_abs_err"],
         "shape": reject["shape"],
@@ -807,8 +1071,10 @@ def main() -> int:
         "name": "scatter_rows", "route": "cuda",
         "source": "kubernetes_tpu_torch/sched/device/csrc/scatter_kernel.cu",
         "replaces": "kubernetes_tpu/sched/device/engine.py:669",
-        "launches": e2e_launches["scatter_rows"],
-        "main_path_shape": [scatter["e2e_rows"], small["columns"]],
+        "launches": mirror_launches["scatter_rows"],
+        "launches_path": "mirror",
+        "e2e_launches": e2e_launches["scatter_rows"],
+        "main_path_shape": [scatter["path_rows"], small["columns"]],
         "equal_plain": scatter["equal_plain"],
         "max_abs_err": scatter["max_abs_err"],
         "shape": [E2E_COUNTS["n_nodes"], big["columns"]],
@@ -820,13 +1086,41 @@ def main() -> int:
         "name": "victim_search", "route": "cuda",
         "source": "kubernetes_tpu_torch/sched/device/csrc/victim_kernel.cu",
         "replaces": "kubernetes_tpu/sched/device/engine.py:700",
-        "launches": preempt_launches, "main_path_shape": preempt["shape"],
+        "launches": preempt_launches, "launches_path": "preempt",
+        "main_path_shape": preempt["shape"],
         "equal_plain": preempt["equal_plain"],
         "max_abs_err": preempt["max_abs_err"], "shape": preempt["shape"],
         "ms": preempt["ms"], "plain_ms": preempt["plain_ms"],
         "bound_ms": preempt["bound_ms"], "bound_by": preempt["bound_by"],
         "library_ms": None, "main_path_ms": preempt["ms"],
         "main_path_bound_ms": preempt["bound_ms"],
+        "launch_floor_ms": floor_ms, **rate}, {
+        "name": "scan_chunk", "route": "cuda",
+        "source": "kubernetes_tpu_torch/sched/device/csrc/scan_kernel.cu",
+        "replaces": "kubernetes_tpu/sched/device/engine.py:313",
+        "launches": e2e_launches["scan_chunk"], "launches_path": "e2e",
+        "engine_launches": main_launches["scan_chunk"],
+        "main_path_shape": scan["k1_shape"],
+        "equal_plain": scan["equal_plain"],
+        "max_abs_err": scan["max_abs_err"], "shape": scan["k1_shape"],
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+        "library_ms": None, "main_path_ms": k1["ms"],
+        "main_path_bound_ms": k1["bound_ms"],
+        "launch_floor_ms": floor_ms, **rate}, {
+        "name": "probe", "route": "cuda",
+        "source": "kubernetes_tpu_torch/sched/device/csrc/scan_kernel.cu",
+        "replaces": "kubernetes_tpu/sched/device/engine.py:384",
+        "launches": main_launches["probe"],
+        "launches_path": "engine+extender",
+        "mixed_launches": mixed_launches["probe"],
+        "main_path_shape": k5_p1["shape"],
+        "equal_plain": scan["equal_plain"],
+        "max_abs_err": scan["max_abs_err"], "shape": k5["shape"],
+        "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": None, "main_path_ms": k5_p1["ms"],
+        "main_path_bound_ms": k5_p1["bound_ms"],
         "launch_floor_ms": floor_ms, **rate}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

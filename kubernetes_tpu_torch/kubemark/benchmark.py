@@ -79,10 +79,10 @@ def _bench_pod(i: int) -> api.Pod:
 def _warmup_batch(sched: BatchScheduler, factory: ConfigFactory) -> None:
     """Warm the engine at the benchmark's real node-table shape (the
     scheduler's own encoder path) outside the measured window. The JAX
-    engine compiles one XLA program per chunk rung here; eager PyTorch
-    compiles nothing, so one short run on the smallest rung is enough to
-    bring up the device context and its allocator's pools (a run of the
-    bigger rungs would cost ~9k steps of scan for nothing)."""
+    engine compiles one XLA program per chunk rung here; the port's scan
+    kernel is built once, at its first launch, for every shape, so one
+    short run on the smallest rung is enough to build and load it and
+    to bring up the device context and its allocator's pools."""
     c = sched.config
     inc = sched._incremental()
     if inc is not None:

@@ -32,6 +32,16 @@ feasible victim set, some requesting nothing, some with a node
 selector). `preempt_encoder` / `preempt_pods` build it in the port;
 `PREEMPT_DIGEST` pins the sha256 of the 64 victim searches
 (`preempt_digest`), which a CPU test recomputes with the JAX engine.
+
+`scan_tables` makes seeded random engine tables (NodeConst, State,
+PodXs as numpy) for holding the scan and probe kernels to their plain
+versions: every tier, either layout, and the edges of the predicates
+and scores inside the encoder's domain (cap == 0, zero requests,
+pinned hosts on and off the table, exceeded nodes, padded slots and
+pods, full nodes) and the FMA trap of Balanced (cpu_frac 0.9 against
+mem_frac 0 on its first slots and pods). `scan_cases` names the tables
+chip_smoke's scan phase and the card tests hold the kernels to: each
+tier (`SCAN_TIERS`) and each edge (`SCAN_EDGES`) in both layouts.
 """
 
 from __future__ import annotations
@@ -277,3 +287,166 @@ def mixed_snapshot(seed: int, n_nodes: int, n_pods: int,
                             rng.choice([0, 64, 200]) * MI * 1000)}))])))
     return ClusterSnapshot(nodes=nodes, existing_pods=existing,
                            services=[], pending_pods=pods)
+
+
+SCAN_SEED = 17
+SCAN_TRAP = 8      # slots and pods of the FMA trap (cpu 900 / 1000, memory 0)
+
+
+def _bits(rng, shape, density) -> np.ndarray:
+    """Random uint32 bitset words, as the engine carries them (int32)."""
+    bits = (rng.random(shape + (32,)) < density).astype(np.uint64)
+    words = (bits << np.arange(32, dtype=np.uint64)).sum(-1)
+    return words.astype(np.uint32).view(np.int32)
+
+
+def scan_tables(seed: int, p: int, n: int, wide: bool = False,
+                groups: int = 0, terms: int = 0, services: int = 0,
+                words: int = 1, pod_valid: float = 0.95, fits: bool = True):
+    """-> (NodeConst, State, PodXs) of numpy arrays in the engine's
+    layout (engine.host_args): P pods against N slots, resources int32
+    (or int64 with memory in bytes past 2^31 when `wide`), `words` words
+    a bitset, `groups` spread groups, `terms` affinity terms over 3
+    domains, `services` service groups over `zones` zones (a table of one
+    row each when 0, as the encoder pads them). The last N // 40 slots
+    are padding (invalid). `fits=False` gives every node a pod cap of 0:
+    nothing fits."""
+    from ..sched.device.engine import NodeConst, PodXs, State
+    rng = np.random.default_rng(seed)
+    dt = np.int64 if wide else np.int32
+    m = 1 << 20 if wide else 1           # memory unit
+    g, t, s, z, d = max(groups, 1), max(terms, 1), max(services, 1), 3, 3
+
+    def pick(values, size):
+        return rng.choice(np.array(values, np.int64), size=size)
+
+    def flag(prob, size):
+        return rng.random(size) < prob
+
+    cpu_cap = pick([0, 500, 1000, 2000, 4000, 64000], n)
+    mem_cap = pick([0, 256, 1024, 4096, 32768], n) * m
+    pod_cap = pick([0, 3, 8, 32, 110], n) if fits else np.zeros(n, np.int64)
+    cpu_used = (rng.random(n) * np.maximum(cpu_cap, 3000) * 1.05).astype(
+        np.int64)
+    mem_used = (rng.random(n) * np.maximum(mem_cap, 4096 * m)
+                * 1.05).astype(np.int64)
+    nz_cpu = cpu_used + pick([0, 0, 100], n)
+    nz_mem = mem_used + pick([0, 0, 200], n) * m
+    pod_count = (rng.random(n) * (pod_cap + 1)).astype(np.int64)
+    valid = np.ones(n, bool)
+    valid[n - n // 40:] = False
+    static_score = pick([0, 0, 0, 3, 6], n)
+    # the FMA trap: 900m of 1000m cpu with the pod, no memory
+    trap = slice(0, min(SCAN_TRAP, n))
+    cpu_cap[trap], nz_cpu[trap], cpu_used[trap] = 1000, 800, 800
+    mem_cap[trap], nz_mem[trap], mem_used[trap] = 4096 * m, 0, 0
+    pod_cap[trap] = 110 if fits else 0
+    pod_count[trap], valid[trap], static_score[trap] = 0, True, 0
+    node = NodeConst(
+        valid=valid, sched_ok=flag(0.97, n) | (np.arange(n) < SCAN_TRAP),
+        cpu_cap=cpu_cap.astype(dt), mem_cap=mem_cap.astype(dt),
+        pod_cap=pod_cap.astype(np.int32),
+        labels=_bits(rng, (n, words), 0.5),
+        tie_rank=rng.permutation(n).astype(np.int32),
+        exceed_cpu=flag(0.03, n), exceed_mem=flag(0.03, n),
+        offgrid_max=pick([0, 0, 2, 5], g).astype(np.int32),
+        aff_dom=rng.integers(-1, d, (t, n)).astype(np.int32),
+        zone_id=rng.integers(-1, z, n).astype(np.int32),
+        zone_scratch=np.zeros(z, np.int32),
+        static_mask=flag(0.95, n) | (np.arange(n) < SCAN_TRAP),
+        static_score=static_score.astype(dt))
+    node.exceed_cpu[trap] = node.exceed_mem[trap] = False
+    svc_count = rng.integers(0, 3, (s, n)).astype(np.int32)
+    aff_count = rng.integers(0, 3, (t, d)).astype(np.int32)
+    aff_count[rng.random(t) < 0.3] = 0
+    state = State(
+        cpu_used=cpu_used.astype(dt), mem_used=mem_used.astype(dt),
+        nz_cpu=nz_cpu.astype(dt), nz_mem=nz_mem.astype(dt),
+        pod_count=pod_count.astype(np.int32),
+        port_bits=_bits(rng, (n, words), 0.05),
+        disk_any=_bits(rng, (n, words), 0.05),
+        disk_rw=_bits(rng, (n, words), 0.02),
+        spread=rng.integers(0, 4, (g, n)).astype(np.int32),
+        aff_count=aff_count, aff_total=aff_count.sum(1).astype(np.int32),
+        svc_count=svc_count,
+        svc_total=(svc_count.sum(1) + rng.integers(0, 5, s)).astype(
+            np.int32))
+    for a in (state.port_bits, state.disk_any, state.disk_rw):
+        a[trap] = 0
+
+    req_cpu = pick([0, 100, 100, 250, 1000], p)
+    req_mem = pick([0, 64, 64, 512], p) * m
+    req_cpu[trap], req_mem[trap] = 100, 0
+    host = pick([-1] * 30 + [-2, n + 5], p)
+    host = np.where(rng.random(p) < 0.03, rng.integers(0, n, p), host)
+    host[trap] = -1
+    # past the trap, one pod of each pin: off the table, past N, a slot
+    pins = np.array([-2, n + 5, n // 2])[:max(0, p - SCAN_TRAP)]
+    host[SCAN_TRAP:SCAN_TRAP + pins.size] = pins
+    group_id = rng.integers(-1, groups, p) if groups else np.full(p, -1)
+    member = (rng.random((p, g)) < 0.3) | (
+        group_id[:, None] == np.arange(g)[None])
+    svc_group = rng.integers(-1, services, p) if services \
+        else np.full(p, -1)
+    nz_pod_mem = np.where(req_mem == 0, 200 * m, req_mem)
+    nz_pod_mem[trap] = 0
+    pods = PodXs(
+        valid=flag(pod_valid, p) | (np.arange(p) < SCAN_TRAP),
+        req_cpu=req_cpu.astype(dt), req_mem=req_mem.astype(dt),
+        zero_req=(req_cpu == 0) & (req_mem == 0),
+        nz_cpu=np.where(req_cpu == 0, 100, req_cpu).astype(dt),
+        nz_mem=nz_pod_mem.astype(dt),
+        sel=_bits(rng, (p, words), 0.02 / words),
+        ports=_bits(rng, (p, words), 0.03 / words),
+        qany=_bits(rng, (p, words), 0.03 / words),
+        qrw=_bits(rng, (p, words), 0.02 / words),
+        sany=_bits(rng, (p, words), 0.03 / words),
+        srw=_bits(rng, (p, words), 0.02 / words),
+        host_idx=host.astype(np.int32), group_id=group_id.astype(np.int32),
+        member=member.astype(np.int32),
+        aff_req=flag(0.2, (p, t)) if terms else np.zeros((p, t), bool),
+        anti_req=flag(0.1, (p, t)) if terms else np.zeros((p, t), bool),
+        aff_member=(rng.random((p, t)) < 0.3).astype(np.int32),
+        svc_group=svc_group.astype(np.int32),
+        svc_member=(rng.random((p, s)) < 0.4).astype(np.int32))
+    if not pod_valid:
+        pods.valid[:] = False
+    for a in (pods.sel, pods.ports, pods.qany, pods.qrw, pods.sany,
+              pods.srw):
+        a[trap] = 0
+    pods.zero_req[trap] = False
+    return node, state, pods
+
+
+# tier -> (spread groups, affinity terms, service groups) of scan_tables
+SCAN_TIERS = {"node_local": (0, 0, 0), "spread": (3, 0, 0),
+              "affinity": (0, 4, 0), "service_anti": (0, 0, 2),
+              "all": (2, 3, 2)}
+# edge -> scan_tables keywords, over every tier at once
+SCAN_EDGES = {"p1": {"p": 1}, "n1500": {"n": 1500}, "n37": {"n": 37},
+              "all_invalid": {"pod_valid": 0.0},
+              "nothing_fits": {"fits": False}, "words3": {"words": 3}}
+SCAN_DEGENERATE = ("all_invalid", "nothing_fits")   # edges placing no pod
+
+
+def scan_cases(p: int = 64, n: int = 5120) -> dict:
+    """-> {"<tier or edge>/<i32 or i64>": case} over every tier and edge
+    in both layouts, P pods x N slots unless the edge sets them. A case
+    holds `tables` (scan_tables' keywords, the seed among them) and the
+    kernels' `weights`, `anti_weight`, `has_aff` and `has_spread`: a
+    tier alone at weights (1, 1, 1) and 2, every tier at once at
+    (2, 3, 5) and 4."""
+    named = {**{t: (tiers, {}) for t, tiers in SCAN_TIERS.items()},
+             **{e: (SCAN_TIERS["all"], kw) for e, kw in SCAN_EDGES.items()}}
+    cases = {}
+    for name, ((groups, terms, services), kw) in named.items():
+        weights, anti = ((2, 3, 5), 4) if groups and terms and services \
+            else ((1, 1, 1), 2)
+        for wide in (False, True):
+            cases[f"{name}/{'i64' if wide else 'i32'}"] = {
+                "tables": {"seed": SCAN_SEED + len(cases), "p": p, "n": n,
+                           "wide": wide, "groups": groups, "terms": terms,
+                           "services": services, **kw},
+                "weights": weights, "anti_weight": anti if services else 0,
+                "has_aff": terms > 0, "has_spread": groups > 0}
+    return cases

@@ -50,6 +50,7 @@ import statistics
 import subprocess
 import time
 import traceback
+import types
 
 import numpy as np
 import torch
@@ -248,6 +249,118 @@ def argsort_bound(x, rate: dict) -> dict:
             "bytes": nbytes, "ops": ops, **rate}
 
 
+def scan_args(node, state, pods):
+    """The scan kernels' arguments from the engine's device tables."""
+    from ..sched.device import scan_kernel
+    return scan_kernel.ScanArgs.from_engine(
+        node, scan_kernel.reciprocals(node), state, pods)
+
+
+def scan_parity(a, weights, anti_weight: int, has_aff: bool,
+                has_spread: bool) -> dict:
+    """K1 and K5 on ScanArgs `a` (on the card) against their plain
+    versions on the same inputs: K1 from two copies of a.state (the
+    assignment and every State field must be bit-equal after the
+    chunk), K5 against the unchanged a.state. -> the fields compared,
+    whether all were equal, the largest absolute difference, and the
+    pods the kernel placed. a.state is left as it was."""
+    from ..sched.device import scan_kernel as sk
+    out = {}
+    k_state = type(a.state)(*(t.clone() for t in a.state))
+    p_state = type(a.state)(*(t.clone() for t in a.state))
+    got = sk.scan_chunk(a._replace(state=k_state), weights, anti_weight,
+                        has_aff, has_spread)
+    want = sk.scan_chunk_plain(a._replace(state=p_state), weights,
+                               anti_weight, has_aff, has_spread)
+    mask, total = sk.probe(a, weights, anti_weight, has_aff)
+    p_mask, p_total = sk.probe_plain(a, weights, anti_weight, has_aff)
+    torch.cuda.synchronize(a.device)
+    pairs = [("assigned", got, want), ("probe_mask", mask, p_mask),
+             ("probe_total", total, p_total)]
+    pairs += [(f"state.{f}", x, y) for f, x, y in zip(
+        a.state._fields, k_state, p_state)]
+    err = 0
+    for name, x, y in pairs:
+        out[name] = bool(torch.equal(x, y))
+        if x.numel():
+            err = max(err, int((x.long() - y.long()).abs().max()))
+    return {"equal": all(out.values()), "max_abs_err": err,
+            "placed": int((got >= 0).sum()), "fields": out}
+
+
+def scan_timing(a, weights, anti_weight: int, has_aff: bool,
+                has_spread: bool, rate: dict, floor_ms: float) -> dict:
+    """K1 on one chunk (ScanArgs `a` on the card), from a.state each
+    time: its device time (5 launches in one CUDA graph, each after the
+    copies that restore the State, whose own graph time is taken off);
+    the plain version's one call from the same State between CUDA
+    events (a graph of its ~150 launches a pod is too large), which
+    also counts the fitting elements the bound needs; the two held
+    bit-equal; and the bound (bounds.scan_bound). a.state ends as the
+    chunk leaves it."""
+    from ..sched.device import bounds
+    from ..sched.device import scan_kernel as sk
+    init = [t.clone() for t in a.state]
+
+    def restore():
+        for t, s in zip(a.state, init):
+            t.copy_(s)
+
+    def kernel():
+        restore()
+        sk.scan_chunk(a, weights, anti_weight, has_aff, has_spread)
+
+    restore_ms = device_ms(restore, reps=5, trials=3)
+    ms = device_ms(kernel, reps=5, trials=3) - restore_ms
+    restore()
+    got = sk.scan_chunk(a, weights, anti_weight, has_aff, has_spread)
+    plain_state = type(a.state)(*(t.clone() for t in init))
+    fits = torch.zeros(3, dtype=torch.int64, device=a.device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = sk.scan_chunk_plain(a._replace(state=plain_state), weights,
+                               anti_weight, has_aff, has_spread, fits)
+    end.record()
+    end.synchronize()
+    equal = bool(torch.equal(got, want)) and all(
+        torch.equal(x, y) for x, y in zip(a.state, plain_state))
+    d = a.dims()
+    valid = int(a.pods.valid.sum())
+    scored, spread, anti = (int(x) for x in fits.cpu())
+    state_bytes = sum(t.numel() * t.element_size() for t in init)
+    nbytes = a.nbytes() + state_bytes + 4 * d["p"]
+    ops = bounds.scan_ops(valid * d["n"], scored, a.dtype == torch.int64,
+                          d["l"], d["pw"], d["k"],
+                          d["t"] if has_aff else 0,
+                          spread if has_spread else 0, anti)
+    return {"launch_floor_ms": floor_ms, "ms": ms,
+            "restore_ms": restore_ms, "plain_ms": start.elapsed_time(end),
+            "library_ms": None, "equal_plain": equal,
+            "valid_pods": valid, "fitting_elements": scored,
+            "placed": int((got >= 0).sum()),
+            **bounds.scan_bound(nbytes, ops, rate)}
+
+
+def probe_timing(a, weights, anti_weight: int, has_aff: bool, rate: dict,
+                 floor_ms: float) -> dict:
+    """K5 on ScanArgs `a` (on the card): kernel_timing of it and its plain
+    version, and its bound (bounds.probe_bound)."""
+    from ..sched.device import bounds
+    from ..sched.device import scan_kernel as sk
+    d = a.dims()
+    pd = a.pods
+    return {**kernel_timing(
+        lambda: sk.probe(a, weights, anti_weight, has_aff),
+        lambda: sk.probe_plain(a, weights, anti_weight, has_aff), None,
+        floor_ms),
+        **bounds.probe_bound(
+            d["p"], d["n"], a.nbytes(), a.dtype == torch.int64, d["l"],
+            d["pw"], d["k"], d["t"] if has_aff else 0,
+            int((pd.group_id >= 0).sum()),
+            int((pd.svc_group >= 0).sum()) if anti_weight else 0, rate)}
+
+
 TURNS = ("other", "this", "this", "other")
 
 
@@ -270,12 +383,11 @@ def turns(fns: dict, library=None, device=None) -> dict:
 
 def load_wrappers(root: str) -> dict:
     """Another checkout's `sched/device/{_build,filter_kernel,
-    reject_kernel}.py`, loaded as a package of their own beside this
-    checkout's (its kernels build from its own sources into its own
-    `_build/`)."""
+    reject_kernel,scan_kernel}.py` (those it has), loaded as a package
+    of their own beside this checkout's (its kernels build from its own
+    sources into its own `_build/`)."""
     import importlib.util
     import sys
-    import types
     pkg_dir = os.path.join(os.path.abspath(root), "kubernetes_tpu_torch",
                            "sched", "device")
     name = "_other_device_kernels"
@@ -283,9 +395,13 @@ def load_wrappers(root: str) -> dict:
     pkg.__path__ = [pkg_dir]
     sys.modules[name] = pkg
     mods = {}
-    for mod_name in ("_build", "filter_kernel", "reject_kernel"):
+    for mod_name in ("_build", "filter_kernel", "reject_kernel",
+                     "scan_kernel"):
+        path = os.path.join(pkg_dir, f"{mod_name}.py")
+        if not os.path.exists(path):
+            continue
         spec = importlib.util.spec_from_file_location(
-            f"{name}.{mod_name}", os.path.join(pkg_dir, f"{mod_name}.py"))
+            f"{name}.{mod_name}", path)
         mods[mod_name] = importlib.util.module_from_spec(spec)
         sys.modules[spec.name] = mods[mod_name]
         spec.loader.exec_module(mods[mod_name])
@@ -298,17 +414,22 @@ def section_turns(other_root: str, device=None) -> dict:
     filter on the mixed snapshot (seed 7, 20000 existing pods) at 8192 x
     5000 and its pod 1 alone (the extender's launch), the argsort on the
     seeded [8, 128]. Each output is first held equal to the other's and
-    to the plain version. The other checkout's wrappers must take the
-    same arguments (`filter_masks(FilterArgs)`, `argsort_rows(x)`)."""
+    to the plain version. Where the other checkout has the scan kernels,
+    also K5 at both shapes and K1 on the snapshot's first 256 pods
+    (each call restoring the State first). The other checkout's wrappers must
+    take the same arguments (`filter_masks(FilterArgs)`,
+    `argsort_rows(x)`, `probe(ScanArgs, ...)`, `scan_chunk(ScanArgs,
+    ...)`)."""
     from ..sched.device import (BatchEngine, encode_snapshot, filter_kernel,
-                                reject_kernel)
+                                reject_kernel, scan_kernel)
     from .fixtures import mixed_snapshot
     d = _cuda(device)
     other = load_wrappers(other_root)
     ofk, ork = other["filter_kernel"], other["reject_kernel"]
     enc = encode_snapshot(mixed_snapshot(7, 5000, 8192, 20000))
-    args = filter_kernel.FilterArgs.from_engine(
-        *BatchEngine(device=d).device_args(enc))
+    eng = BatchEngine(device=d)
+    tables = eng.device_args(enc)
+    args = filter_kernel.FilterArgs.from_engine(*tables)
     x = reject_inputs(d)["ties"]
     cases = {f"argsort_rows {x.shape[0]}x{x.shape[1]}": (
         reject_kernel.argsort_rows, ork.argsort_rows,
@@ -319,17 +440,44 @@ def section_turns(other_root: str, device=None) -> dict:
             filter_kernel.filter_masks,
             lambda a, _f=ofk: _f.filter_masks(_f.FilterArgs(*a)),
             filter_kernel.filter_masks_plain, a, None)
+    if "scan_kernel" in other:
+        osk, w = other["scan_kernel"], eng.weights
+        sa = scan_args(*tables)
+        init = [t.clone() for t in sa.state]
+
+        def chunk(mod, a):
+            for t, s in zip(a.state, init):
+                t.copy_(s)
+            return mod.scan_chunk(mod.ScanArgs(*a), w, 0, False, False)
+
+        for shape, a in (("8192x5000", sa), ("1x5000", sa.pod_slice(1, 2))):
+            cases[f"probe {shape}"] = (
+                lambda a: scan_kernel.probe(a, w, 0, False),
+                lambda a: osk.probe(osk.ScanArgs(*a), w, 0, False),
+                lambda a: scan_kernel.probe_plain(a, w, 0, False), a, None)
+        cases["scan_chunk 256x5000"] = (
+            lambda a: chunk(scan_kernel, a), lambda a: chunk(osk, a),
+            lambda a: chunk(types.SimpleNamespace(
+                scan_chunk=scan_kernel.scan_chunk_plain,
+                ScanArgs=scan_kernel.ScanArgs), a), sa.pod_slice(0, 256),
+            None)
     out = {"card": card_line(), "kernels": {}}
     for name, (this_fn, other_fn, plain_fn, a, library) in cases.items():
         got = this_fn(a)
-        if not (torch.equal(got, other_fn(a))
-                and torch.equal(got, plain_fn(a))):
+        if not (_same(got, other_fn(a)) and _same(got, plain_fn(a))):
             raise AssertionError(f"{name}: this checkout's kernel differs "
                                  f"from the other's or the plain version")
         out["kernels"][name] = turns(
             {"this": lambda: this_fn(a), "other": lambda: other_fn(a)},
             library, d)
     return out
+
+
+def _same(x, y) -> bool:
+    """Bit-equal tensors, or tuples of them."""
+    if isinstance(x, tuple):
+        return all(torch.equal(a, b) for a, b in zip(x, y))
+    return torch.equal(x, y)
 
 
 def reject_inputs(device) -> dict:

@@ -3,10 +3,14 @@
   - host-side encoder (tables.py): api objects -> Struct-of-Arrays cluster
     state (label/port/disk-key interning into bitsets, integer resource
     vectors, initial per-node aggregates),
-  - device engine (engine.py): a sequential per-pod loop of tensor ops
-    whose carry stays on the device; each step is O(nodes) vector work —
-    predicate masks, integer 0..10 priority scores, masked argmax host
-    selection with a deterministic tie-break — then an O(1) commit,
+  - device engine (engine.py): a sequential per-pod loop whose carry
+    stays on the device; each step is O(nodes) work — predicate masks,
+    integer 0..10 priority scores, masked argmax host selection with a
+    deterministic tie-break — then an O(1) commit,
+  - the scan kernel and the probe kernel (scan_kernel.py,
+    csrc/scan_kernel.cu): a chunk of that loop in one launch, and the
+    stateless [P, N] mask and score behind the extender Prioritize verb
+    and mixed mode,
   - the predicate-filter kernel (filter_kernel.py, csrc/filter_kernel.cu)
     behind the extender Filter verb,
   - the dirty-row scatter kernel (scatter_kernel.py,

@@ -1,12 +1,13 @@
-"""Device engine: batch scheduling as a sequential per-pod loop in PyTorch.
+"""Device engine: batch scheduling as a sequential per-pod loop on the card.
 
 Replaces the reference's per-pod serial hot loop
 (plugin/pkg/scheduler/generic_scheduler.go:111 findNodesThatFit,
-:164 PrioritizeNodes, :95 selectHost) with dense tensor math per pod:
+:164 PrioritizeNodes, :95 selectHost) with dense math over the node
+slots per pod:
 
   per step (one pod)                reference equivalent
   -------------------------------   -----------------------------------
-  predicate masks over [N] vectors  for node { for predicate { ... } }
+  predicate masks over [N] slots    for node { for predicate { ... } }
   int 0..10 score vectors           for priority { for node { ... } }
   composite argmax (injective)      sort + rand tie-break (selectHost)
   O(1) scatter state update         Modeler.AssumePod (modeler.go:113)
@@ -14,16 +15,19 @@ Replaces the reference's per-pod serial hot loop
 Sequential-commit semantics (pod k consumes the capacity pod k+1 sees —
 the reference serializes scheduleOne for exactly this reason,
 scheduler.go:120) live in the carry `State`, which stays on the engine's
-device between pods and between chunks. The pod loop never syncs with
-the host: the argmax, the fit flag and the scatter index stay 0-d
-tensors and are used as indices directly.
+device between pods and between chunks. A chunk of pods is one launch
+of the scan kernel (scan_kernel.scan_chunk, K1), which walks the pods
+in order and commits each into the State before the next; the extender
+probe is one launch of the probe kernel (scan_kernel.probe, K5). On the
+CPU both compute their plain versions (scan_kernel.scan_chunk_plain:
+one pod a step of tensor ops; probe_plain).
 
 Numerics are bit-exact with the JAX engine and the serial oracle:
 resource sums in int64 (int32 when the encoder narrowed them exactly),
-score integer division via `_floordiv_exact`, and the two f64 formulas
+score integer division via `floordiv_exact`, and the two f64 formulas
 (BalancedResourceAllocation priorities.go:198, SelectorSpread
 selector_spreading.go:80-114) as separate multiply / subtract / divide
-ops — nothing here is compiled or fused, so no FMA can change a floor.
+operations, never fused into an FMA (scan_kernel.py, csrc/scan_kernel.cu).
 
 The carry is updated in place: each pod's commit costs O(1) writes
 instead of a fresh copy of every state vector. The engine only ever
@@ -48,14 +52,11 @@ import numpy as np
 import torch
 
 from ..preemption import OracleResult
-from . import filter_kernel, scatter_kernel, victim_kernel
+from . import filter_kernel, scan_kernel, scatter_kernel, victim_kernel
 from .tables import ClusterSnapshot, EncodeResult, encode_snapshot
 
 DEFAULT_WEIGHTS = (1, 1, 1)  # LeastRequested, Balanced, SelectorSpread
                              # (algorithmprovider/defaults/defaults.go:54-96)
-
-# pods per block of the stateless probe: bounds its [B, N, W] temporaries
-PROBE_BLOCK = 512
 
 
 def resolve_device(device) -> torch.device:
@@ -125,229 +126,6 @@ class State(NamedTuple):
     aff_total: torch.Tensor   # i32[T]
     svc_count: torch.Tensor   # i32[S, N]
     svc_total: torch.Tensor   # i32[S]
-
-
-class _NodeAux(NamedTuple):
-    """Loop-invariant values derived from NodeConst once per run (the
-    JAX engine leaves this hoisting to XLA)."""
-    iota: torch.Tensor        # i32[N]
-    safe_cpu: torch.Tensor    # max(cpu_cap, 1)
-    safe_mem: torch.Tensor
-    safe_cpu_f: torch.Tensor  # f64
-    safe_mem_f: torch.Tensor
-    inv_cpu: torch.Tensor     # f64 1 / safe_cpu
-    inv_mem: torch.Tensor
-    aff_has_key: torch.Tensor  # bool[T, N]
-    aff_dom_idx: torch.Tensor  # i64[T, N] max(aff_dom, 0)
-    labeled: torch.Tensor     # bool[N] zone_id >= 0
-    zidx: torch.Tensor        # i64[N] max(zone_id, 0)
-
-
-def _node_aux(node: NodeConst) -> _NodeAux:
-    n = node.valid.shape[0]
-    safe_cpu = torch.clamp(node.cpu_cap, min=1)
-    safe_mem = torch.clamp(node.mem_cap, min=1)
-    safe_cpu_f = safe_cpu.to(torch.float64)
-    safe_mem_f = safe_mem.to(torch.float64)
-    return _NodeAux(
-        iota=torch.arange(n, dtype=torch.int32, device=node.valid.device),
-        safe_cpu=safe_cpu, safe_mem=safe_mem,
-        safe_cpu_f=safe_cpu_f, safe_mem_f=safe_mem_f,
-        inv_cpu=1.0 / safe_cpu_f, inv_mem=1.0 / safe_mem_f,
-        aff_has_key=node.aff_dom >= 0,
-        aff_dom_idx=torch.clamp(node.aff_dom, min=0).long(),
-        labeled=node.zone_id >= 0,
-        zidx=torch.clamp(node.zone_id, min=0).long())
-
-
-def _floordiv_exact(num: torch.Tensor, den: torch.Tensor,
-                    inv_den: torch.Tensor) -> torch.Tensor:
-    """floor(num/den) for |num| < 2^53, den >= 1, computed without integer
-    division: a f64 reciprocal-multiply estimate is within 1 of the true
-    quotient (relative error ~2^-51 on an exact f64 product), so two
-    integer compare-corrections make it exact. Kept as the JAX engine
-    has it so both engines round through the same operations."""
-    dt = num.dtype
-    e = torch.floor(num.to(torch.float64) * inv_den).to(dt)
-    e = e + ((e + 1) * den <= num).to(dt)
-    e = e - (e * den > num).to(dt)
-    return e
-
-
-def _mask_and_score(node: NodeConst, aux: _NodeAux,
-                    weights: Tuple[int, int, int], anti_weight: int,
-                    state: State, pod: PodXs, has_aff: bool = True,
-                    has_spread: bool = True
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Predicate mask + priority totals for a block of B pods, each
-    against the same `state`: -> (bool[B, N], total[B, N]).
-
-    The pod dimension is written out (the JAX engine vmaps one pod): the
-    scan step calls it with B = 1, the probe with blocks of pods."""
-    sdt = node.cpu_cap.dtype
-
-    # ---- predicate masks (predicates.go:127,192,250,258,403) ----
-    fits_count = state.pod_count < node.pod_cap                      # [N]
-    free_cpu = (node.cpu_cap == 0) | \
-        (node.cpu_cap - state.cpu_used >= pod.req_cpu[:, None])
-    free_mem = (node.mem_cap == 0) | \
-        (node.mem_cap - state.mem_used >= pod.req_mem[:, None])
-    res_ok = torch.where(
-        pod.zero_req[:, None], fits_count,
-        fits_count & ~node.exceed_cpu & ~node.exceed_mem & free_cpu
-        & free_mem)
-    port_conflict = ((state.port_bits[None] & pod.ports[:, None])
-                     != 0).any(dim=2)
-    sel_ok = ((pod.sel[:, None] & ~node.labels[None]) == 0).all(dim=2)
-    host_ok = (pod.host_idx[:, None] == -1) | \
-        (aux.iota[None] == pod.host_idx[:, None])
-    disk_conflict = (((state.disk_any[None] & pod.qany[:, None])
-                      | (state.disk_rw[None] & pod.qrw[:, None]))
-                     != 0).any(dim=2)
-
-    mask = (node.valid & node.sched_ok & pod.valid[:, None] & res_ok
-            & ~port_conflict & sel_ok & host_ok & ~disk_conflict
-            & node.static_mask)
-
-    if has_aff:
-        # inter-pod affinity/anti-affinity: per term t the node's scope
-        # count is the placed-pod count in its topology domain; affinity
-        # needs the key present and count > 0 (or the bootstrap: the pod
-        # self-matches an empty-scope term), anti-affinity count == 0
-        counts = torch.gather(state.aff_count, 1, aux.aff_dom_idx)   # [T, N]
-        counts = torch.where(aux.aff_has_key, counts, 0)
-        boot = (pod.aff_member > 0) & (state.aff_total == 0)         # [B, T]
-        aff_ok = (~pod.aff_req[:, :, None]
-                  | (aux.aff_has_key[None]
-                     & (boot[:, :, None] | (counts > 0)[None]))).all(dim=1)
-        anti_ok = (~pod.anti_req[:, :, None]
-                   | (counts == 0)[None]).all(dim=1)
-        mask = mask & aff_ok & anti_ok
-
-    # ---- priorities (priorities.go:33,77,198; selector_spreading.go:80) ----
-    tc = state.nz_cpu + pod.nz_cpu[:, None]                          # [B, N]
-    tm = state.nz_mem + pod.nz_mem[:, None]
-    cpu_score = torch.where(
-        (node.cpu_cap == 0) | (tc > node.cpu_cap), 0,
-        _floordiv_exact((node.cpu_cap - tc) * 10, aux.safe_cpu,
-                        aux.inv_cpu))
-    mem_score = torch.where(
-        (node.mem_cap == 0) | (tm > node.mem_cap), 0,
-        _floordiv_exact((node.mem_cap - tm) * 10, aux.safe_mem,
-                        aux.inv_mem))
-    # operands are 0..20, so the halving is a shift, not a division
-    least_requested = (cpu_score + mem_score) >> 1
-
-    # true f64 division, as the oracle computes the fraction
-    cpu_frac = torch.where(node.cpu_cap == 0, 1.0,
-                           tc.to(torch.float64) / aux.safe_cpu_f)
-    mem_frac = torch.where(node.mem_cap == 0, 1.0,
-                           tm.to(torch.float64) / aux.safe_mem_f)
-    diff = torch.abs(cpu_frac - mem_frac)
-    balanced = torch.where(
-        (cpu_frac >= 1.0) | (mem_frac >= 1.0), 0,
-        torch.floor(10.0 - diff * 10.0).to(sdt))
-
-    total = (weights[0] * least_requested + weights[1] * balanced
-             + node.static_score)
-
-    if has_spread:
-        gid = torch.clamp(pod.group_id, min=0).long()                 # [B]
-        counts = state.spread.index_select(0, gid)                   # [B, N]
-        max_count = torch.maximum(counts.amax(dim=1),
-                                  node.offgrid_max.index_select(0, gid))
-        spread_f = (10.0 * (max_count[:, None] - counts).to(torch.float64)
-                    / torch.clamp(max_count, min=1).to(
-                        torch.float64)[:, None])
-        spread = torch.where(
-            ((pod.group_id < 0) | (max_count == 0))[:, None], 10,
-            torch.floor(spread_f).to(sdt))
-        total = total + weights[2] * spread
-    # has_spread=False: every pod scores the constant 10 on all nodes,
-    # which shifts all totals equally and cannot change the argmax
-
-    if anti_weight:
-        # ServiceAntiAffinity (selector_spreading.go:117-196): spread the
-        # pod's service across zone-label values, counting peers only on
-        # nodes that passed THIS pod's predicates (the zone reduction
-        # happens under `mask`)
-        g = torch.clamp(pod.svc_group, min=0).long()                 # [B]
-        row = state.svc_count.index_select(0, g)                     # [B, N]
-        contrib = torch.where(mask & aux.labeled, row, 0)
-        zc = torch.zeros((mask.shape[0], node.zone_scratch.shape[0]),
-                         dtype=contrib.dtype, device=contrib.device)
-        zc.index_add_(1, aux.zidx, contrib)                          # [B, Z]
-        count_n = zc.index_select(1, aux.zidx)                       # [B, N]
-        svc_total = torch.where(pod.svc_group >= 0,
-                                state.svc_total.index_select(0, g), 0)
-        sa_f = (10.0 * (svc_total[:, None] - count_n).to(torch.float64)
-                / torch.clamp(svc_total, min=1).to(torch.float64)[:, None])
-        sa = torch.where(
-            ~aux.labeled, 0,
-            torch.where((svc_total > 0)[:, None],
-                        torch.floor(sa_f).to(sdt), 10))
-        total = total + anti_weight * sa
-
-    return mask, total
-
-
-def _step(node: NodeConst, aux: _NodeAux, weights: Tuple[int, int, int],
-          anti_weight: int, state: State, pod: PodXs,
-          has_aff: bool, has_spread: bool) -> torch.Tensor:
-    """One pod (every PodXs field sliced to length 1): select its node and
-    commit it into `state` in place. -> i32[1] assigned index (-1 = none).
-    """
-    n = node.valid.shape[0]
-    mask, total = _mask_and_score(node, aux, weights, anti_weight, state,
-                                  pod, has_aff, has_spread)
-
-    # ---- selection (generic_scheduler.go:95 selectHost) ----
-    # one composite argmax: scores are non-negative and tie_rank is a
-    # distinct 0..n-1 per valid node, so max(total*n + tie_rank) is
-    # exactly "max score, then deterministic max tie-rank"
-    composite = torch.where(mask[0], total[0] * n + node.tie_rank, -1)
-    best, pick = composite.max(dim=0, keepdim=True)        # [1], i64[1]
-    fit_any = best >= 0                                    # bool[1]
-    assigned = torch.where(fit_any, pick, -1).to(torch.int32)
-
-    # ---- assume-pod state update (modeler.go:113) ----
-    # scatter at the picked lane: O(1) writes per pod. A no-fit step
-    # scatters a zero delta at the (arbitrary) argmax lane.
-    j = pick
-    add = fit_any.to(state.cpu_used.dtype)
-    add32 = fit_any.to(torch.int32)
-    state.cpu_used.index_add_(0, j, add * pod.req_cpu)
-    state.mem_used.index_add_(0, j, add * pod.req_mem)
-    state.nz_cpu.index_add_(0, j, add * pod.nz_cpu)
-    state.nz_mem.index_add_(0, j, add * pod.nz_mem)
-    state.pod_count.index_add_(0, j, add32)
-    # bitsets: OR the pod's words into the picked row (zero when no fit)
-    fit_col = fit_any[:, None]
-    state.port_bits.index_copy_(
-        0, j, state.port_bits.index_select(0, j)
-        | torch.where(fit_col, pod.ports, 0))
-    state.disk_any.index_copy_(
-        0, j, state.disk_any.index_select(0, j)
-        | torch.where(fit_col, pod.sany, 0))
-    state.disk_rw.index_copy_(
-        0, j, state.disk_rw.index_select(0, j)
-        | torch.where(fit_col, pod.srw, 0))
-    if has_spread:
-        state.spread.index_add_(1, j, (add32 * pod.member).T)
-    if has_aff:
-        # placed pod joins its in-scope terms' domain counts (domain of
-        # the chosen node per term)
-        dom_at = node.aff_dom.index_select(1, j)[:, 0]            # [T]
-        t_add = torch.where(fit_any & (dom_at >= 0), pod.aff_member[0], 0)
-        t = dom_at.shape[0]
-        state.aff_count.index_put_(
-            (torch.arange(t, device=dom_at.device),
-             torch.clamp(dom_at, min=0).long()), t_add, accumulate=True)
-        state.aff_total.add_(torch.where(fit_any, pod.aff_member[0], 0))
-    if anti_weight:
-        state.svc_count.index_add_(1, j, (add32 * pod.svc_member).T)
-        state.svc_total.add_(torch.where(fit_any, pod.svc_member[0], 0))
-    return assigned
 
 
 def _pod_slice(pods: PodXs, lo: int, hi: int) -> PodXs:
@@ -496,9 +274,11 @@ class BatchEngine:
                              "delta_bytes": 0, "pod_bytes": 0,
                              "table_bytes": 0}
         # run_chunked accounting: calls, scan steps (padded pods
-        # included) and host seconds spent in the call — for the eager
-        # scan, the host's dispatch of every step
-        self.scan_stats = {"runs": 0, "steps": 0, "seconds": 0.0}
+        # included), host seconds spent in the call, and the steps the
+        # plain per-pod loop ran instead of the scan kernel (the CPU's;
+        # 0 on the card)
+        self.scan_stats = {"runs": 0, "steps": 0, "seconds": 0.0,
+                           "eager_steps": 0}
 
     @property
     def n_shards(self) -> int:
@@ -696,45 +476,40 @@ class BatchEngine:
         return cache.node, (_clone_state(cache.state) if state_needed
                             else None)
 
-    def _scan(self, node: NodeConst, aux: _NodeAux, state: State,
-              pods: PodXs, flags: Tuple[bool, bool]) -> torch.Tensor:
-        """Sequential pod loop; commits into `state` in place."""
+    def _scan(self, node: NodeConst, aux: scan_kernel.Reciprocals,
+              state: State, pods: PodXs,
+              flags: Tuple[bool, bool]) -> torch.Tensor:
+        """The sequential pod loop over one chunk, committing into `state`
+        in place: one launch of the scan kernel on the card (the plain
+        per-pod loop on the CPU, counted in scan_stats' eager_steps)."""
         has_aff, has_spread = flags
-        p = pods.valid.shape[0]
-        out = torch.empty(p, dtype=torch.int32, device=self.device)
-        for k in range(p):
-            out[k:k + 1] = _step(node, aux, self.weights, self._anti_weight,
-                                 state, _pod_slice(pods, k, k + 1),
-                                 has_aff, has_spread)
+        out = scan_kernel.scan_chunk(
+            scan_kernel.ScanArgs.from_engine(node, aux, state, pods),
+            self.weights, self._anti_weight, has_aff, has_spread)
+        if not out.is_cuda:
+            self.scan_stats["eager_steps"] += out.shape[0]
         return out
 
     def probe(self, enc: EncodeResult) -> Tuple[np.ndarray, np.ndarray]:
         """-> (mask bool[P, N], total i64[P, N]) of predicate fit and
         priority score per pending pod against the pre-batch state (the
-        extender sidecar's Filter / Prioritize answer). Pods run in
-        blocks of PROBE_BLOCK, each block one written-out pod dimension,
-        which gives what the JAX engine's vmap gives."""
+        extender sidecar's Filter / Prioritize answer): one launch of the
+        probe kernel on the card, which gives what the JAX engine's vmap
+        gives."""
         mask, total = self._probe_tensors(enc)
         return mask.cpu().numpy(), total.cpu().numpy()
 
     def _probe_tensors(self, enc: EncodeResult
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         node, state, pods = self.device_args(enc)
-        aux = _node_aux(node)
         has_aff, _ = self._enc_flags(enc)
-        # has_spread stays ON: compiling the spread tier out shifts every
-        # total by a constant — fine for the scan's argmax, wrong for the
-        # absolute HostPriority scores the extender protocol returns
-        masks, totals = [], []
-        p = pods.valid.shape[0]
-        for lo in range(0, p, PROBE_BLOCK):
-            m, t = _mask_and_score(node, aux, self.weights,
-                                   self._anti_weight, state,
-                                   _pod_slice(pods, lo, lo + PROBE_BLOCK),
-                                   has_aff, has_spread=True)
-            masks.append(m)
-            totals.append(t)
-        return torch.cat(masks), torch.cat(totals)
+        # the spread tier stays ON: compiling it out shifts every total by
+        # a constant — fine for the scan's argmax, wrong for the absolute
+        # HostPriority scores the extender protocol returns
+        return scan_kernel.probe(
+            scan_kernel.ScanArgs.from_engine(
+                node, scan_kernel.reciprocals(node), state, pods),
+            self.weights, self._anti_weight, has_aff)
 
     def filter_masks(self, enc: EncodeResult) -> np.ndarray:
         """-> bool[n_pods, N] predicate-fit masks against the pre-batch
@@ -754,8 +529,8 @@ class BatchEngine:
     def run(self, enc: EncodeResult) -> Tuple[np.ndarray, State]:
         """-> (assigned node indices i32[P] (-1 = no fit), final state)."""
         node, state, pods = self.device_args(enc)
-        aux = _node_aux(node)
-        assigned = self._scan(node, aux, state, pods, self._enc_flags(enc))
+        assigned = self._scan(node, scan_kernel.reciprocals(node), state,
+                              pods, self._enc_flags(enc))
         return assigned.cpu().numpy(), state
 
     def run_chunked(self, enc: EncodeResult, chunk: int = 1024,
@@ -788,7 +563,7 @@ class BatchEngine:
         self.upload_stats["pod_bytes"] += _host_nbytes(pods_h)
         if state_override is not None:
             state = _clone_state(state_override)
-        aux = _node_aux(node)
+        aux = scan_kernel.reciprocals(node)
         p = pods.valid.shape[0]
         pad = (-p) % chunk
         if pad:

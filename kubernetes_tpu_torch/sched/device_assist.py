@@ -14,7 +14,7 @@ take a per-pod serial fallback — the provable-fallback contract at pod
 granularity instead of condemning the whole policy to the serial loop.
 
 The port's copy of the JAX package's module; the probe is the engine's
-(plain PyTorch on the engine's device, in blocks of PROBE_BLOCK pods).
+(one launch of the probe kernel on the card).
 """
 
 from __future__ import annotations

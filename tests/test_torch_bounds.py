@@ -252,3 +252,93 @@ def test_scatter_grid_covers_the_widest_field(rows, row_bytes, grid):
     fields = tuple((rb, 0, sk._word(rb, 0)) for rb in row_bytes)
     staged = sk.Staged(torch.empty(0, dtype=torch.uint8), rows, 0, fields)
     assert sk.grid_x(staged) == grid
+
+
+RATE2 = {**RATE, "fp64_ops_per_s": bounds.fp64_ops_per_s(H100_SMS,
+                                                          H100_CLOCK_HZ)}
+
+
+def test_fp64_rate_is_64_lanes_per_sm_per_clock():
+    rate = bounds.fp64_ops_per_s(H100_SMS, H100_CLOCK_HZ)
+    assert rate == H100_SMS * 64 * H100_CLOCK_HZ
+    # the data sheet's 34 TFLOP/s of FP64 counts an FMA as two
+    assert 2 * rate == pytest.approx(33.45e12, rel=0.01)
+
+
+def test_scan_ops_per_element():
+    # i32: 7 + 6 + 4 words of mask, 31 + 9 of score
+    assert bounds.scan_int_ops(False, 1, 1, 1) == (17, 40)
+    # i64: the carried adds, compares and selects twice, multiplies 3x
+    assert bounds.scan_int_ops(True, 1, 1, 1) == (7 + 12 + 4, 62 + 27)
+    assert bounds.scan_int_ops(False, 2, 3, 4) == (7 + 6 + 2 + 3 + 8, 40)
+    # two divisions of 8 in Balanced, one in each of the tenths scores
+    assert bounds.F64_DIV_OPS == 8
+    assert bounds.SCAN_F64_NODE == 8 + 11 + 16 == 35
+    assert bounds.SCAN_F64_TENTHS == 5 + 8 == 13
+    ints, f64 = bounds.scan_ops(100, 40, False, 1, 1, 1, terms=2,
+                                spread=10, anti=5)
+    assert ints == 100 * (17 + 12) + 40 * 40 + 15 * 6
+    assert f64 == 40 * 35 + 15 * 13
+
+
+def test_scan_bound_at_the_e2e_chunk():
+    """K1 on the e2e's chunk, every pod fitting: operations bound it,
+    and at one word a set the INT32 term leads the FP64 term."""
+    p, n = 8192, 5120
+    ops = bounds.scan_ops(p * n, p * n, False, 1, 1, 1)
+    b = bounds.scan_bound(1_000_000, ops, RATE2)
+    assert b["bound_by"] == "operations"
+    assert b["int_bound_ms"] == pytest.approx(p * n * 57 / 16.727e9,
+                                              rel=1e-3)
+    assert b["f64_bound_ms"] == pytest.approx(p * n * 35 / 16.727e9,
+                                              rel=1e-3)
+    assert b["ops_bound_ms"] == b["int_bound_ms"] == b["bound_ms"]
+    assert 0.1 < b["bound_ms"] < 0.15
+    assert (b["ops"], b["f64_ops"]) == ops
+    assert b["fp64_ops_per_s"] == RATE2["fp64_ops_per_s"]
+
+
+def test_scan_bound_in_the_wide_layout_counts_more():
+    narrow = bounds.scan_ops(1000, 1000, False, 1, 1, 1)
+    wide = bounds.scan_ops(1000, 1000, True, 1, 1, 1)
+    assert wide[0] > narrow[0] and wide[1] == narrow[1]
+
+
+@pytest.mark.parametrize("p", [1, 8192])
+def test_probe_bound_adds_the_mask_and_total(p):
+    n = 5000
+    b = bounds.probe_bound(p, n, 50_000, False, 1, 1, 1, 0, 0, 0, RATE2)
+    assert b["bytes"] == 50_000 + p * n * 5
+    assert (b["ops"], b["f64_ops"]) == bounds.scan_ops(
+        p * n, p * n, False, 1, 1, 1)
+    wide = bounds.probe_bound(p, n, 50_000, True, 1, 1, 1, 0, p, 0, RATE2)
+    assert wide["bytes"] == 50_000 + p * n * 9
+    assert wide["f64_ops"] == p * n * (35 + 13)
+    if p == 1:
+        assert b["bound_ms"] < 0.001
+
+
+def test_bound_without_f64_keeps_the_integer_keys():
+    b = bounds.bound(1000, 2000, 1e9)
+    assert "f64_bound_ms" not in b and b["ops_bound_ms"] == 2e-3
+    c = bounds.bound(1000, 2000, 1e9, 5000, 1e9)
+    assert c["ops_bound_ms"] == c["f64_bound_ms"] == 5e-3
+    assert c["int_bound_ms"] == 2e-3 and c["bound_by"] == "operations"
+
+
+def test_turns_load_another_checkouts_scan_kernel():
+    """The turns tool loads the other checkout's scan kernels where it
+    has them; their plain paths agree with this checkout's on the CPU."""
+    import os
+
+    from kubernetes_tpu_torch.kubemark.fixtures import scan_tables
+    from kubernetes_tpu_torch.sched.device import engine as eng
+    from kubernetes_tpu_torch.sched.device import scan_kernel
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    osk = gpu_evidence.load_wrappers(root)["scan_kernel"]
+    assert osk is not scan_kernel and osk.SOURCE == scan_kernel.SOURCE
+    a = gpu_evidence.scan_args(*(eng._upload(t, torch.device("cpu"))
+                                 for t in scan_tables(4, 12, 60)))
+    assert gpu_evidence._same(osk.probe(osk.ScanArgs(*a), (1, 1, 1), 0,
+                                        False),
+                              scan_kernel.probe(a, (1, 1, 1), 0, False))

@@ -15,7 +15,7 @@ import torch
 from kubernetes_tpu.sched.device import BatchEngine as JaxEngine
 from kubernetes_tpu.sched.device import ClusterSnapshot as JaxSnapshot
 from kubernetes_tpu_torch.sched.device import BatchEngine, schedule_batch
-from kubernetes_tpu_torch.sched.device import engine as port_engine
+from kubernetes_tpu_torch.sched.device import scan_kernel
 
 from test_affinity import with_random_affinity
 from test_device_parity import rand_cluster
@@ -138,7 +138,7 @@ def test_probe_matches_jax(tier, monkeypatch):
     je, te = engines(policy)
     want_mask, want_total = je.probe(jax_enc)
     # a block smaller than the batch exercises the blocked pod dimension
-    monkeypatch.setattr(port_engine, "PROBE_BLOCK", 16)
+    monkeypatch.setattr(scan_kernel, "PROBE_BLOCK", 16)
     mask, total = te.probe(enc)
     assert mask.dtype == np.bool_ and total.dtype == want_total.dtype
     assert np.array_equal(mask, np.asarray(want_mask))

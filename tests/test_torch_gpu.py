@@ -14,7 +14,10 @@ import torch
 
 from kubernetes_tpu_torch.core import types as api
 from kubernetes_tpu_torch.core.quantity import Quantity
-from kubernetes_tpu_torch.kubemark.fixtures import MI, mixed_snapshot
+from kubernetes_tpu_torch.kubemark.fixtures import (MI, SCAN_DEGENERATE,
+                                                    SCAN_EDGES, SCAN_TIERS,
+                                                    mixed_snapshot,
+                                                    scan_cases)
 from kubernetes_tpu_torch.sched.device import (BatchEngine, ClusterSnapshot,
                                                encode_snapshot)
 from kubernetes_tpu_torch.sched.device import filter_kernel, reject_kernel
@@ -311,7 +314,9 @@ def test_turns_against_this_checkout(cuda):
     out = section_turns(root, cuda)
     assert set(out["kernels"]) == {"argsort_rows 8x128",
                                    "filter_masks 8192x5000",
-                                   "filter_masks 1x5000"}
+                                   "filter_masks 1x5000",
+                                   "probe 8192x5000", "probe 1x5000",
+                                   "scan_chunk 256x5000"}
     for name, rec in out["kernels"].items():
         assert rec["order"] == list(TURNS)
         assert len(rec["ms"]) == len(rec["launch_floor_ms"]) == len(TURNS)
@@ -606,3 +611,105 @@ def test_refused_scatter_launch_raises_through_run_chunked(cuda):
     want, _ = BatchEngine(device="cpu").run_chunked(enc, 8)
     assert (got == want).all()
     assert sk.scatter_rows.launches == before + 1
+
+
+# the scan (K1) and probe (K5) kernels on the cases chip_smoke's scan
+# phase runs: each tier and each edge in both layouts
+SCAN_CASES = scan_cases()
+
+
+def _scan_parity(cuda, name):
+    from kubernetes_tpu_torch.kubemark.fixtures import scan_tables
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import (scan_args,
+                                                            scan_parity)
+    from kubernetes_tpu_torch.sched.device import engine as eng
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    case = SCAN_CASES[name]
+    a = scan_args(*(eng._upload(t, cuda)
+                    for t in scan_tables(**case["tables"])))
+    before = (sk.scan_chunk.launches, sk.probe.launches)
+    got = scan_parity(a, case["weights"], case["anti_weight"],
+                      case["has_aff"], case["has_spread"])
+    assert (sk.scan_chunk.launches, sk.probe.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got["equal"], [f for f, ok in got["fields"].items() if not ok]
+    assert got["max_abs_err"] == 0
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(
+    c for c in SCAN_CASES if c.split("/")[0] in SCAN_TIERS))
+def test_scan_and_probe_kernels_match_plain(cuda, name):
+    assert _scan_parity(cuda, name)["placed"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(
+    c for c in SCAN_CASES if c.split("/")[0] in SCAN_EDGES))
+def test_scan_and_probe_kernels_match_plain_at_the_edges(cuda, name):
+    got = _scan_parity(cuda, name)
+    assert (got["placed"] == 0) == (name.split("/")[0] in SCAN_DEGENERATE)
+
+
+@pytest.mark.gpu
+def test_scan_kernel_carries_across_chunks(cuda):
+    """Two launches over halves of a batch, the State carried on the
+    card, equal one plain run over the whole batch."""
+    from kubernetes_tpu_torch.kubemark.fixtures import scan_tables
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import scan_args
+    from kubernetes_tpu_torch.sched.device import engine as eng
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    tables = scan_tables(5, 96, 700, False, 2, 2, 2)
+    a = scan_args(*(eng._upload(t, cuda) for t in tables))
+    b = a._replace(state=eng._clone_state(a.state))
+    got = torch.cat([sk.scan_chunk(a.pod_slice(lo, lo + 48), (1, 1, 1), 2,
+                                   True, True) for lo in (0, 48)])
+    want = sk.scan_chunk_plain(b, (1, 1, 1), 2, True, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert all(torch.equal(x, y) for x, y in zip(a.state, b.state))
+
+
+@pytest.mark.gpu
+def test_refused_scan_and_probe_launches_raise_through_the_engine(cuda):
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    enc = encode_snapshot(mixed_snapshot(7, 64, 8, 10))
+    engine = BatchEngine(device=cuda)
+    real = sk._launch
+    before = (sk.scan_chunk.launches, sk.probe.launches)
+    try:
+        sk._launch = lambda plan, dims, ptrs, device: real(
+            plan._replace(threads=2048), dims, ptrs, device)
+        with pytest.raises(RuntimeError, match="scan kernel launch"):
+            engine.run_chunked(enc, 8)
+        with pytest.raises(RuntimeError, match="probe kernel launch"):
+            engine.probe(enc)
+    finally:
+        sk._launch = real
+    assert (sk.scan_chunk.launches, sk.probe.launches) == before
+    cpu = BatchEngine(device="cpu")
+    assert (engine.run_chunked(enc, 8)[0] == cpu.run_chunked(enc, 8)[0]).all()
+    for x, y in zip(engine.probe(enc), cpu.probe(enc)):
+        assert (x == y).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plain", [True, False])
+def test_engine_on_card_matches_cpu_on_the_smoke_fixture(cuda, plain):
+    """The smoke's engine fixture (node-local, or SelectorSpread with the
+    `web` service) at 600 nodes x 2000 pods: one kernel launch a chunk,
+    no eager step, the CPU engine's assignment and probe."""
+    from kubernetes_tpu_torch.kubemark.fixtures import engine_snapshot
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    enc = encode_snapshot(engine_snapshot(600, 2000, plain),
+                          pod_pad_to=2048)
+    card, cpu = BatchEngine(device=cuda), BatchEngine(device="cpu")
+    before = sk.scan_chunk.launches
+    got, _ = card.run_chunked(enc, 512)
+    assert sk.scan_chunk.launches == before + 4
+    assert card.scan_stats["eager_steps"] == 0
+    want, _ = cpu.run_chunked(enc, 512)
+    assert (got == want).all() and (got[:enc.n_pods] >= 0).all()
+    for x, y in zip(card.probe(enc), cpu.probe(enc)):
+        assert (x == y).all()

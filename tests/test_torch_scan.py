@@ -1,0 +1,355 @@
+"""The port's scan step (K1) and stateless probe (K5),
+`kubernetes_tpu_torch.sched.device.scan_kernel`, on the CPU: the plain
+versions the wrappers compute for CPU tensors equal the JAX engine's
+`_make_run` (assignment and final State, field for field, chunk by
+chunk) and `_make_probe` on the same seeded encodings, for the four
+tiers of test_torch_engine.TIERS in the i32-narrowed and the i64-wide
+layout. Every quantity is an integer or an f64 floor: tolerance 0.
+
+Then the wrapper around the CUDA kernels, which needs no card: the
+arguments' layout check (ScanArgs.from_engine), the launch plan, the
+order in which the addresses and sizes are packed (read from the
+kernel's source), the random tables the card tests use, and the plain
+probe's Balanced floor at the FMA trap. The kernels themselves run on
+the card (tests/test_torch_gpu.py)."""
+
+import dataclasses
+import functools
+import re
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from kubernetes_tpu.sched.device import BatchEngine as JaxEngine
+from kubernetes_tpu.sched.device.engine import _make_probe, _make_run
+from kubernetes_tpu_torch.kubemark.fixtures import (SCAN_DEGENERATE,
+                                                    SCAN_TRAP, scan_cases,
+                                                    scan_tables)
+from kubernetes_tpu_torch.sched.device import BatchEngine
+from kubernetes_tpu_torch.sched.device import engine as port_engine
+from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+
+from test_torch_encode import encodings, port_policy, wide_snapshot
+from test_torch_engine import TIERS
+
+SCAN_SEED, PROBE_SEED = 11, 3
+LAYOUTS = ("i32", "i64")
+
+
+def _widen(enc):
+    """The int64 layout of a narrowed EncodeResult of either package: the
+    engine's own re-widening (BatchEngine._ensure_safe_dtypes)."""
+    nt, st, pb, g = enc.node_tab, enc.init_state, enc.pod_batch, \
+        enc.mem_scale
+    if nt.cpu_cap.dtype == np.int64:
+        return enc
+    i64 = np.int64
+    rep = dataclasses.replace
+    return rep(
+        enc, mem_scale=1,
+        node_tab=rep(nt, cpu_cap=nt.cpu_cap.astype(i64),
+                     mem_cap=nt.mem_cap.astype(i64) * g,
+                     static_score=nt.static_score.astype(i64)),
+        init_state=rep(st, cpu_used=st.cpu_used.astype(i64),
+                       mem_used=st.mem_used.astype(i64) * g,
+                       nz_cpu=st.nz_cpu.astype(i64),
+                       nz_mem=st.nz_mem.astype(i64) * g),
+        pod_batch=rep(pb, req_cpu=pb.req_cpu.astype(i64),
+                      req_mem=pb.req_mem.astype(i64) * g,
+                      nz_cpu=pb.nz_cpu.astype(i64),
+                      nz_mem=pb.nz_mem.astype(i64) * g))
+
+
+@functools.cache
+def _case(tier: str, layout: str, seed: int):
+    """-> (JAX engine, its encode, port engine, its encode) of one tier
+    in one layout."""
+    snap, policy = TIERS[tier](seed)
+    jax_enc, enc = encodings(snap, policy=policy)
+    if layout == "i64":
+        jax_enc, enc = _widen(jax_enc), _widen(enc)
+    want = np.int64 if layout == "i64" else np.int32
+    assert enc.node_tab.cpu_cap.dtype == jax_enc.node_tab.cpu_cap.dtype \
+        == want
+    return (JaxEngine(policy=policy), jax_enc,
+            BatchEngine(policy=port_policy(policy), device="cpu"), enc)
+
+
+@functools.cache
+def _jax_run(tier: str, layout: str):
+    """The JAX engine's scan over the whole batch -> (assigned, final
+    State as numpy, int32 views of the bitsets)."""
+    je, jax_enc, _, _ = _case(tier, layout, SCAN_SEED)
+    run = jax.jit(_make_run(je.weights, je._anti_weight,
+                            *je._enc_flags(jax_enc)))
+    state, assigned = run(*je.device_args(jax_enc))
+    return np.asarray(assigned), {
+        f: port_engine._host(np.asarray(getattr(state, f)))
+        for f in state._fields}
+
+
+def _port_args(te, enc):
+    node, state, pods = te.device_args(enc)
+    return sk.ScanArgs.from_engine(node, sk.reciprocals(node), state, pods)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 40])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_scan_chunk_matches_jax_make_run(tier, layout, chunk):
+    """scan_chunk over successive chunks of the batch, the State carried
+    between them, equals one JAX scan: the assignment and every State
+    field. 7 leaves a short tail chunk; 40 is the batch in one."""
+    _, _, te, enc = _case(tier, layout, SCAN_SEED)
+    want, want_state = _jax_run(tier, layout)
+    a = _port_args(te, enc)
+    flags = te._enc_flags(enc)
+    p = a.pods.valid.shape[0]
+    got = torch.cat([sk.scan_chunk(a.pod_slice(lo, lo + chunk), te.weights,
+                                   te._anti_weight, *flags)
+                     for lo in range(0, p, chunk)])
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert (want >= 0).any()
+    for f, t in zip(a.state._fields, a.state):
+        assert np.array_equal(t.numpy(), want_state[f]), f
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_probe_matches_jax_make_probe(tier, layout, monkeypatch):
+    je, jax_enc, te, enc = _case(tier, layout, PROBE_SEED)
+    has_aff, _ = je._enc_flags(jax_enc)
+    probe = jax.jit(_make_probe(je.weights, je._anti_weight, has_aff,
+                                has_spread=True))
+    want_mask, want_total = probe(*je.device_args(jax_enc))
+    # a block smaller than the batch exercises the blocked pod dimension
+    monkeypatch.setattr(sk, "PROBE_BLOCK", 16)
+    a = _port_args(te, enc)
+    mask, total = sk.probe(a, te.weights, te._anti_weight,
+                           te._enc_flags(enc)[0])
+    assert mask.dtype == torch.bool and total.dtype == a.dtype
+    assert np.array_equal(mask.numpy(), np.asarray(want_mask))
+    assert np.array_equal(total.numpy(), np.asarray(want_total))
+
+
+def test_wide_snapshot_scan_and_probe_match_jax():
+    """A snapshot the encoder cannot narrow (a prime-byte request)."""
+    jax_enc, enc = encodings(wide_snapshot())
+    je, te = JaxEngine(), BatchEngine(device="cpu")
+    a = _port_args(te, enc)
+    assert a.dtype == torch.int64
+    state, assigned = jax.jit(_make_run(je.weights, 0, False, False))(
+        *je.device_args(jax_enc))
+    got = sk.scan_chunk(a, te.weights, 0, False, False)
+    assert np.array_equal(got.numpy(), np.asarray(assigned))
+    assert np.array_equal(a.state.mem_used.numpy(),
+                          np.asarray(state.mem_used))
+    _, want_total = jax.jit(_make_probe(je.weights, 0, False, True))(
+        *je.device_args(jax_enc))
+    a = _port_args(te, enc)
+    assert np.array_equal(sk.probe(a, te.weights, 0, False)[1].numpy(),
+                          np.asarray(want_total))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_from_engine_dtypes_and_shapes(layout):
+    _, _, te, enc = _case("service_anti", layout, SCAN_SEED)
+    a = _port_args(te, enc)
+    wide = layout == "i64"
+    assert a.dtype == (torch.int64 if wide else torch.int32)
+    assert a.device == torch.device("cpu")
+    d = a.dims()
+    nt, pb = enc.node_tab, enc.pod_batch
+    assert d == {"p": pb.valid.shape[0], "n": nt.valid.shape[0],
+                 "l": nt.label_words.shape[1],
+                 "pw": enc.init_state.port_bits.shape[1],
+                 "k": enc.init_state.disk_any.shape[1],
+                 "g": enc.init_state.spread.shape[0],
+                 "t": nt.aff_dom.shape[0],
+                 "d": enc.init_state.aff_count.shape[1],
+                 "s": enc.init_state.svc_count.shape[0],
+                 "z": nt.zone_scratch.shape[0]}
+    carried = {"cpu_cap", "mem_cap", "static_score", "cpu_used",
+               "mem_used", "nz_cpu", "nz_mem", "req_cpu", "req_mem"}
+    for tree in (a.node, a.state, a.pods):
+        for f, t in zip(tree._fields, tree):
+            assert t.is_contiguous()
+            if f in carried:
+                assert t.dtype == a.dtype, f
+            else:
+                assert t.dtype in (torch.bool, torch.int32), f
+    assert a.aux.inv_cpu.dtype == a.aux.inv_mem.dtype == torch.float64
+    # inputs read once: every table, the two reciprocals and the pods
+    assert a.nbytes() == sum(t.numel() * t.element_size() for t in (
+        *a.node, a.aux.inv_cpu, a.aux.inv_mem, *a.state, *a.pods))
+
+
+def test_from_engine_rejects_another_layout():
+    _, _, te, enc = _case("node_local", "i32", SCAN_SEED)
+    node, state, pods = te.device_args(enc)
+    aux = sk.reciprocals(node)
+    wide = state._replace(cpu_used=state.cpu_used.long())
+    with pytest.raises(ValueError, match="state.cpu_used"):
+        sk.ScanArgs.from_engine(node, aux, wide, pods)
+    strided = torch.zeros((state.port_bits.shape[0], 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="port_bits"):
+        sk.ScanArgs.from_engine(node, aux, state._replace(
+            port_bits=strided[:, :1]), pods)
+    with pytest.raises(ValueError, match="pods.req_cpu"):
+        sk.ScanArgs.from_engine(node, aux, state, pods._replace(
+            req_cpu=pods.req_cpu[:-1]))
+
+
+def test_wrappers_run_on_cpu_or_cuda_only():
+    _, _, te, enc = _case("node_local", "i32", SCAN_SEED)
+    a = _port_args(te, enc)
+    meta = sk.ScanArgs(*(type(t)(*(x.to("meta") for x in t)) for t in a))
+    with pytest.raises(ValueError, match="runs on cuda"):
+        sk.scan_chunk(meta, (1, 1, 1), 0, False, False)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        sk.probe(meta, (1, 1, 1), 0, False)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("tiers", [(False, False, False), (True, False, False),
+                                   (False, True, False), (True, True, True)])
+def test_launch_plan(wide, tiers):
+    has_spread, has_aff, anti = tiers
+    d = {"p": 8192, "n": 5120, "l": 2, "pw": 1, "k": 3, "g": 4, "t": 5,
+         "d": 3, "s": 2, "z": 7}
+    scan = sk.launch_plan(sk.SCAN, d, wide, has_spread, has_aff, anti)
+    code = 8 * wide + 4 * has_spread + 2 * has_aff + anti
+    assert scan == (sk.SCAN, code, 1, sk.SCAN_THREADS,
+                    4 * (7 + 2 + 1 + 6 + 15))
+    probe = sk.launch_plan(sk.PROBE, d, wide, has_spread, has_aff, anti)
+    # the probe always scores the spread tier, one block a pod
+    assert probe == (sk.PROBE, code | 4, 8192, sk.PROBE_THREADS, scan.smem)
+
+
+def test_launch_plan_refuses_what_the_kernel_cannot_take():
+    d = {"p": 1, "n": 5000, "l": 1, "pw": 1, "k": 1, "g": 1, "t": 1,
+         "d": 1, "s": 1, "z": 1}
+    with pytest.raises(ValueError, match="shared memory"):
+        sk.launch_plan(sk.PROBE, {**d, "z": 60000}, False, True, False, True)
+
+
+def _source_enum(name: str):
+    """The member names of one enum in the kernel's source, prefix
+    dropped and lower-cased (PTR_CPU_CAP -> cpu_cap): the order
+    scan_launch reads its arguments in."""
+    with open(sk.SOURCE) as f:
+        body = re.search(r"enum %s \{(.*?)\};" % name, f.read(), re.S)[1]
+    return tuple(n.lower() for n in re.findall(r"\b[A-Z]+_(\w+)", body)
+                 if n != "COUNT")
+
+
+def test_pack_orders_addresses_and_sizes_as_the_source():
+    assert _source_enum("ScanPtr") == sk.PTR_FIELDS
+    assert _source_enum("ScanDim") == sk.DIM_FIELDS
+    _, _, te, enc = _case("service_anti", "i32", SCAN_SEED)
+    a = _port_args(te, enc)
+    out = torch.empty(a.dims()["p"], dtype=torch.int32)
+    dims, ptrs = sk.pack(a, (3, 4, 5), 6, {"assigned": out})
+    assert dims.dtype == np.int64 and ptrs.dtype == np.uint64
+    assert list(dims) == [a.dims()[k] for k in sk.DIM_FIELDS[:10]] + \
+        [3, 4, 5, 6]
+    by_name = dict(zip(sk.PTR_FIELDS, ptrs))
+    assert by_name["cpu_cap"] == a.node.cpu_cap.data_ptr()
+    assert by_name["inv_mem"] == a.aux.inv_mem.data_ptr()
+    assert by_name["svc_total"] == a.state.svc_total.data_ptr()
+    assert by_name["pod_valid"] == a.pods.valid.data_ptr()
+    assert by_name["pod_nz_mem"] == a.pods.nz_mem.data_ptr()
+    assert by_name["nz_mem"] == a.state.nz_mem.data_ptr()
+    assert by_name["svc_member"] == a.pods.svc_member.data_ptr()
+    assert by_name["assigned"] == out.data_ptr()
+    assert by_name["mask"] == by_name["total"] == by_name["work_total"] == 0
+    # every input has an address, and no two share one
+    inputs = [v for f, v in by_name.items()
+              if f not in ("assigned", "mask", "total", "work_total",
+                           "work_mask")]
+    assert all(inputs) and len(set(inputs)) == len(inputs)
+
+
+def test_blocking_matches_the_source():
+    with open(sk.SOURCE) as f:
+        src = f.read()
+    defines = {m[1]: int(m[2]) for m in
+               re.finditer(r"^#define (\w+) (\d+)$", src, re.M)}
+    assert defines["SCAN_BLOCK_THREADS"] == sk.SCAN_THREADS
+    assert defines["PROBE_BLOCK_THREADS"] == sk.PROBE_THREADS
+    assert defines["SCAN_MAX_SHARED_BYTES"] == sk.MAX_SHARED_BYTES
+    cases = re.findall(r"case (\d+): return \(int\)launch<(\w+), (\w+), "
+                       r"(\w+), (\w+)>", src)
+    assert len(cases) == 16
+    for code, dtype, spread, aff, anti in cases:
+        assert int(code) == sk.variant(dtype == "int64_t", spread == "true",
+                                       aff == "true", anti == "true")
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_scan_tables_are_in_the_engines_layout(wide):
+    node, state, pods = scan_tables(3, 50, 400, wide, 2, 3, 2)
+    dt = np.int64 if wide else np.int32
+    assert node.cpu_cap.dtype == state.mem_used.dtype == \
+        pods.req_mem.dtype == dt
+    assert np.array_equal(np.sort(node.tie_rank), np.arange(400))
+    assert not node.valid[-10:].any() and node.valid[:SCAN_TRAP].all()
+    assert (node.cpu_cap == 0).any() and pods.zero_req.any()
+    assert ((pods.host_idx >= 0) & (pods.host_idx < 400)).any()
+    assert (pods.host_idx == -2).any() or (pods.host_idx == 405).any()
+    if wide:
+        assert node.mem_cap.max() > 2 ** 31
+    tensors = [port_engine._upload(t, torch.device("cpu"))
+               for t in (node, state, pods)]
+    a = sk.ScanArgs.from_engine(tensors[0], sk.reciprocals(tensors[0]),
+                                *tensors[1:])
+    assert a.dims()["g"] == 2 and a.dims()["t"] == 3 and a.dims()["s"] == 2
+
+
+@pytest.mark.parametrize("name", sorted(scan_cases(p=12, n=90)))
+def test_scan_cases_place_pods_unless_degenerate(name):
+    """The cases the card holds the kernels to (chip_smoke's scan phase,
+    the card tests), at a small size through the plain versions: each
+    builds tables the layout check takes, in the case's layout, and only
+    the degenerate edges place no pod."""
+    case = scan_cases(p=12, n=90)[name]
+    tensors = [port_engine._upload(t, torch.device("cpu"))
+               for t in scan_tables(**case["tables"])]
+    a = sk.ScanArgs.from_engine(tensors[0], sk.reciprocals(tensors[0]),
+                                *tensors[1:])
+    assert (a.dtype == torch.int64) == name.endswith("/i64")
+    flags = (case["has_aff"], case["has_spread"])
+    got = sk.scan_chunk(a, case["weights"], case["anti_weight"], *flags)
+    assert ((got >= 0).sum() == 0) == (name.split("/")[0] in SCAN_DEGENERATE)
+    mask, _ = sk.probe(a, case["weights"], case["anti_weight"], flags[0])
+    assert mask.shape == (a.dims()["p"], a.dims()["n"])
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_plain_probe_scores_balanced_as_the_oracle_at_the_fma_trap(wide):
+    """cpu_frac 0.9 against mem_frac 0: 10 - 0.9 * 10 rounds the product
+    to 9 and floors to 1, as the serial oracle's Python floats do; one
+    fused multiply-add would give 0.99999... and floor to 0."""
+    assert np.floor(10.0 - abs(900 / 1000 - 0.0) * 10.0) == 1
+    tensors = [port_engine._upload(t, torch.device("cpu"))
+               for t in scan_tables(2, 16, 64, wide)]
+    a = sk.ScanArgs.from_engine(tensors[0], sk.reciprocals(tensors[0]),
+                                *tensors[1:])
+    mask, total = sk.probe(a, (0, 1, 0), 0, False)
+    trap = slice(0, SCAN_TRAP)
+    assert mask[trap, trap].all()
+    assert (total[trap, trap] == 1).all()
+
+
+def test_engine_counts_the_plain_steps_on_the_cpu():
+    """On the CPU every chunk runs the plain per-pod loop, and
+    scan_stats counts its steps under eager_steps (0 on the card)."""
+    _, _, te, enc = _case("spread", "i32", SCAN_SEED)
+    te = BatchEngine(device="cpu")
+    te.run_chunked(enc, 16)
+    p = enc.pod_batch.valid.shape[0]
+    assert te.scan_stats["steps"] == p + (-p) % 16
+    assert te.scan_stats["eager_steps"] == te.scan_stats["steps"]
