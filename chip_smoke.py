@@ -15,7 +15,9 @@ every answer to a reference:
             and the launch floor, at that batch shape and at 1 x 5000
             (the extender's launch).
   scan      the scan kernel (K1) and the probe kernel (K5) against their
-            plain versions on seeded random tables (fixtures.scan_cases)
+            plain versions on seeded random tables (fixtures.scan_cases,
+            and K1 alone at fixtures.CLUSTER_EDGES: one slot, fewer
+            slots than CTAs, every slot fitting, pods pinned across CTAs)
             at 64 pods x 5120 slots, for each tier (node-local,
             SelectorSpread, inter-pod affinity, ServiceAntiAffinity,
             all four with other weights) in both layouts (int32, int64),
@@ -25,10 +27,12 @@ every answer to a reference:
             pinned hosts, exceeded nodes and the FMA trap. The
             assignment and the final State must be bit-equal, and K5's
             mask and total. Then K1 on the e2e's chunk (8192 bench pods
-            x the 5000-node fleet's 5120 slots): device ms, the plain
-            version's ms for the same chunk (bit-equal), the bound and
-            the launch floor; K5 at 8192 x 5000 and 1 x 5000 (the filter
-            phase's snapshot), bit-equal, and timed likewise.
+            x the 5000-node fleet's 5120 slots): its launch plan (one
+            cluster of C >= 8 CTAs, the slots a CTA), device ms with the
+            SM clock, power and temperature sampled while it ran, the
+            plain version's ms for the same chunk (bit-equal), the bound
+            and the launch floor; K5 at 8192 x 5000 and 1 x 5000 (the
+            filter phase's snapshot), bit-equal, and timed likewise.
   engine    BatchEngine.run_chunked(enc, 8192) on the 5000 x 30000 plain
             and 5000 x 8192 spread fixtures; the assignment's sha256 and
             bound count must equal SMOKE_DIGESTS, the JAX engine's answer;
@@ -54,11 +58,14 @@ every answer to a reference:
             and the per-node counts equal to E2E_COUNTS (the JAX
             engine's answer); at least one tile off the mirror (delta
             or reuse), and the scan kernel launched for every tile at
-            least. Chained and unchained tiles, the upload bytes and the
-            scatter kernel's launches are reported (a run whose tiles all
-            chain or reuse the mirror scatters nothing: that depends on
-            the host's speed against the heartbeats, so the scatter
-            kernel's count is read in the mirror phase).
+            least, its time on the card in situ (`k1_device_ms`, CUDA
+            events around the launches, read when each tile's
+            assignment is pulled). Chained and unchained tiles, the
+            upload bytes and the scatter kernel's launches are reported
+            (a run whose tiles all chain or reuse the mirror scatters
+            nothing: that depends on the host's speed against the
+            heartbeats, so the scatter kernel's count is read in the
+            mirror phase).
   mirror    the table mirror's own path on the e2e fleet: two unchained
             tiles of 8192 bench pods through run_chunked, a heartbeat of
             one 500-node shard between them; the second tile scatters
@@ -81,7 +88,8 @@ every answer to a reference:
             returns nothing; restored, the search equals the oracle.
             The same for the scatter kernel: a refused launch in its
             place makes run_chunked raise on a tile off the mirror; and
-            for the scan and probe kernels: run_chunked and probe raise,
+            for the scan kernel (a cluster of 32 CTAs) and the probe
+            kernel (2048 threads a block): run_chunked and probe raise,
             and restored, equal the CPU engine.
   mixed     mixed mode (factory.create_mixed): the device probe on the
             card and one HTTP extender (the port's ExtenderServer over a
@@ -114,7 +122,9 @@ on its path, the phase(s) they were counted in (`launches_path`), their
 shape (`main_path_shape`), `equal_plain`,
 `max_abs_err`, `ms` / `plain_ms` / `library_ms` / `bound_ms` at the timed
 shape (`shape`), `main_path_ms` / `main_path_bound_ms`, the launch floor
-and the integer rate. Needs one CUDA device;
+and the integer rate; K1's also its cluster (`cluster`, `ctas`,
+`slots_per_cta`, `threads_per_cta`), the SM clock while it was timed and
+its device ms in the e2e (`e2e_device_ms`). Needs one CUDA device;
 exits non-zero without one, or without the rest of the repository beside
 it.
 """
@@ -154,7 +164,7 @@ def phase_build():
                                 scan_kernel.SOURCE])
     for r in records:
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry" in line:
                 print(f"ptxas {os.path.basename(r['source'])}: "
                       f"{line.strip()}", file=sys.stderr)
     return {"phase": "build", "seconds": time.monotonic() - t0,
@@ -219,22 +229,6 @@ def phase_filter(rate, floor_ms):
                                           "ops")}}, tables
 
 
-def _fleet_encoder():
-    """The e2e fleet's nodes (5000 hollow nodes, 5120 slots) in an
-    IncrementalEncoder, as the live pipeline holds them."""
-    from kubernetes_tpu_torch.kubemark.fixtures import E2E_COUNTS
-    from kubernetes_tpu_torch.kubemark.fleet import HollowFleet
-    from kubernetes_tpu_torch.sched.device.incremental import \
-        IncrementalEncoder
-    n = E2E_COUNTS["n_nodes"]
-    fleet = HollowFleet(None, n, cpu="4", memory="32Gi",
-                        max_pods=E2E_COUNTS["max_pods"])
-    inc = IncrementalEncoder()
-    for i in range(n):
-        inc.on_node_add(fleet._node_object(i))
-    return inc
-
-
 def phase_scan(rate, floor_ms, mixed_tables):
     """K1 and K5 held bit-equal to their plain versions on seeded random
     tables (each tier, both layouts, the edge shapes), then timed: K1 on
@@ -243,8 +237,11 @@ def phase_scan(rate, floor_ms, mixed_tables):
     import torch
 
     from kubernetes_tpu_torch.kubemark.benchmark import _bench_pod
-    from kubernetes_tpu_torch.kubemark.fixtures import (SCAN_DEGENERATE,
+    from kubernetes_tpu_torch.kubemark.fixtures import (CLUSTER_EDGES,
+                                                        SCAN_DEGENERATE,
                                                         SMOKE_CHUNK,
+                                                        cluster_edge_tables,
+                                                        fleet_encoder,
                                                         scan_cases,
                                                         scan_tables)
     from kubernetes_tpu_torch.kubemark.gpu_evidence import (probe_timing,
@@ -275,14 +272,36 @@ def phase_scan(rate, floor_ms, mixed_tables):
         d = a.dims()
         rec["cases"][name] = [d["p"], d["n"], got["placed"]]
         rec["max_abs_err"] = max(rec["max_abs_err"], got["max_abs_err"])
+    # K1's cluster edges, with no tier and with every tier on
+    rec["edges"] = {}
+    for name in CLUSTER_EDGES:
+        for tiers in (False, True):
+            a = scan_args(*(eng_mod._upload(t, dev)
+                            for t in cluster_edge_tables(name)))
+            b = a._replace(state=eng_mod._clone_state(a.state))
+            flags = ((1, 1, 1), 2 if tiers else 0, tiers, tiers)
+            got = sk.scan_chunk(a, *flags)
+            want = sk.scan_chunk_plain(b, *flags)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and all(
+                    torch.equal(x, y) for x, y in zip(a.state, b.state))):
+                raise AssertionError(f"scan edge {name} (tiers {tiers}): "
+                                     f"K1 differs from its plain version")
+            rec["edges"][f"{name}/{'all' if tiers else 'none'}"] = [
+                a.dims()["p"], a.dims()["n"], int((got >= 0).sum())]
     rec["parity_s"] = time.monotonic() - t0
 
     # K1 on the e2e's chunk: 8192 bench pods against the fleet's slots
-    inc = _fleet_encoder()
+    inc = fleet_encoder()
     enc = inc.encode_tile([_bench_pod(i) for i in range(SMOKE_CHUNK)], [],
                           [])
     a = scan_args(*engine.device_args(enc))
     flags = engine._enc_flags(enc)
+    plan = sk.launch_plan(sk.SCAN, a.dims(), a.dtype == torch.int64,
+                          flags[1], flags[0], False)
+    if plan.cluster < min(sk.CLUSTERS) or plan.grid != plan.cluster:
+        raise AssertionError(f"K1's plan is not one cluster of 8 CTAs or "
+                             f"more: {plan}")
     k1 = scan_timing(a, engine.weights, 0, *flags, rate, floor_ms)
     if not k1["equal_plain"]:
         raise AssertionError("K1 differs from its plain version on the "
@@ -290,7 +309,7 @@ def phase_scan(rate, floor_ms, mixed_tables):
     # K5 on the filter phase's snapshot, the batch and the extender's pod
     big = scan_args(*mixed_tables)
     one = big.pod_slice(1, 2)
-    timed = {"k1": k1}
+    timed = {"k1": {**k1, "plan": plan}}
     for key, b in (("k5", big), ("k5_p1", one)):
         mask, total = sk.probe(b, engine.weights, 0, False)
         p_mask, p_total = sk.probe_plain(b, engine.weights, 0, False)
@@ -307,6 +326,12 @@ def phase_scan(rate, floor_ms, mixed_tables):
                   for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                             "bytes", "ops", "f64_ops")},
                k1_restore_ms=k1["restore_ms"],
+               k1_cluster=plan.cluster, k1_ctas=plan.grid,
+               k1_slots_per_cta=plan.slots, k1_threads=plan.threads,
+               k1_smem=plan.smem,
+               **{f"k1_{f}": k1[f] for f in ("sm_clock_mhz", "power_draw_w",
+                                              "temperature_c",
+                                              "smi_samples")},
                k1_fitting_elements=k1["fitting_elements"],
                k1_placed=k1["placed"], k5_call_ms=timed["k5"]["call_ms"],
                k5_p1_call_ms=timed["k5_p1"]["call_ms"])
@@ -482,6 +507,9 @@ def phase_e2e():
             f"e2e per-node counts {sec['counts_sha256']} / "
             f"{sec['counts_bound']} differ from the JAX engine's "
             f"{want['sha256']} / {want['bound']}")
+    if not sec["k1_device_ms"] or sec["k1_device_ms"] <= 0:
+        raise AssertionError(f"e2e: no K1 device time in situ: "
+                             f"{sec['scan_stats']}")
     return {"phase": "e2e", **sec, "counts_ok": True,
             **{k: up[k] for k in ("full_tiles", "delta_tiles", "reuse_tiles",
                                   "full_bytes", "delta_bytes")}}
@@ -498,7 +526,8 @@ def phase_mirror():
 
     from kubernetes_tpu_torch.kubemark.benchmark import _bench_pod
     from kubernetes_tpu_torch.kubemark.fixtures import (E2E_COUNTS,
-                                                        SMOKE_CHUNK)
+                                                        SMOKE_CHUNK,
+                                                        fleet_encoder)
     from kubernetes_tpu_torch.kubemark.fleet import HollowFleet
     from kubernetes_tpu_torch.sched.device import BatchEngine
     from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
@@ -506,7 +535,7 @@ def phase_mirror():
     n = E2E_COUNTS["n_nodes"]
     fleet = HollowFleet(None, n, cpu="4", memory="32Gi",
                         max_pods=E2E_COUNTS["max_pods"])
-    inc = _fleet_encoder()
+    inc = fleet_encoder()
     delta, full = BatchEngine(), BatchEngine()
     full.delta_uploads = False
     rows_before = sk.scatter_rows.rows
@@ -561,14 +590,15 @@ def phase_scatter(rate, floor_ms, path_rows: int):
     import torch
 
     from kubernetes_tpu_torch.kubemark.benchmark import _bench_pod
-    from kubernetes_tpu_torch.kubemark.fixtures import E2E_COUNTS
+    from kubernetes_tpu_torch.kubemark.fixtures import (E2E_COUNTS,
+                                                        fleet_encoder)
     from kubernetes_tpu_torch.kubemark.gpu_evidence import kernel_timing
     from kubernetes_tpu_torch.sched.device import BatchEngine, bounds
     from kubernetes_tpu_torch.sched.device import engine as eng_mod
     from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
 
     n = E2E_COUNTS["n_nodes"]
-    inc = _fleet_encoder()
+    inc = fleet_encoder()
     engine = BatchEngine()
     dev = engine.device
     node_h, state_h, _ = engine.host_args(
@@ -779,12 +809,22 @@ def _scatter_refusal():
     return error
 
 
+def _refused_plan(plan):
+    """A launch the card refuses: K1 on a cluster of 32 CTAs (past the
+    16 a cluster can hold), K5 with 2048 threads a block (past its
+    launch bounds)."""
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    if plan.kind == sk.SCAN:
+        return plan._replace(cluster=2 * sk.MAX_CLUSTER,
+                             grid=2 * sk.MAX_CLUSTER)
+    return plan._replace(threads=2048)
+
+
 def _scan_refusals():
-    """Launches of the scan and probe kernels that the card refuses (the
-    real launch with 2048 threads a block, past both kernels' launch
-    bounds) in place of the real ones: run_chunked and probe must raise
-    and return nothing, with no launch counted; restored, both equal
-    the CPU engine's. -> the two errors."""
+    """Launches of the scan and probe kernels that the card refuses
+    (_refused_plan) in place of the real ones: run_chunked and probe
+    must raise and return nothing, with no launch counted; restored,
+    both equal the CPU engine's. -> the two errors."""
     import numpy as np
 
     from kubernetes_tpu_torch.kubemark.fixtures import mixed_snapshot
@@ -799,7 +839,7 @@ def _scan_refusals():
     before = (sk.scan_chunk.launches, sk.probe.launches)
     errors = {}
     sk._launch = lambda plan, dims, ptrs, device: real(
-        plan._replace(threads=2048), dims, ptrs, device)
+        _refused_plan(plan), dims, ptrs, device)
     try:
         for name, call in calls.items():
             got = None
@@ -1107,6 +1147,11 @@ def main() -> int:
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None, "main_path_ms": k1["ms"],
         "main_path_bound_ms": k1["bound_ms"],
+        "e2e_device_ms": e2e["k1_device_ms"],
+        "cluster": k1["plan"].cluster, "ctas": k1["plan"].grid,
+        "slots_per_cta": k1["plan"].slots,
+        "threads_per_cta": k1["plan"].threads,
+        "sm_clock_mhz_timed": k1["sm_clock_mhz"],
         "launch_floor_ms": floor_ms, **rate}, {
         "name": "probe", "route": "cuda",
         "source": "kubernetes_tpu_torch/sched/device/csrc/scan_kernel.cu",

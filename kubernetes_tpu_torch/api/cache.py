@@ -17,6 +17,7 @@ slow handler backpressures the watch, not the store.
 
 from __future__ import annotations
 
+import heapq
 import logging
 import threading
 import time
@@ -96,12 +97,32 @@ class FIFO:
     priority — the scheduler's pending queue must hand a preempting pod
     the capacity its evictions freed before any lower-priority backlog
     can steal it (the reference's priority scheduling queue; objects
-    without the field all rank 0, which degenerates to plain FIFO)."""
+    without the field all rank 0, which degenerates to plain FIFO).
+
+    A pop costs O(log n): a heap of (-priority, seq, key) with lazy
+    deletion. The order is that of a deque of queue entries (one per
+    add() of a key not pending, numbered by `seq`) which every pop first
+    compacts of the entries of keys not pending, then takes the first
+    entry of the highest priority from:
+      - add() of a pending key replaces its object and keeps its
+        position; a priority change re-ranks it at the same seq (the
+        priority is read when the object is added);
+      - a deleted key's entries stay until the next pop compacts them,
+        so a key re-added before that pops at its old position, and one
+        re-added after it at the end.
+    `_seqs[key]` holds a key's entries in order, `_stale` the keys not
+    pending whose entries the next pop drops. A heap item is current
+    while its key is pending at that priority and its seq is the key's
+    first entry; any other item is dropped when it reaches the top."""
 
     def __init__(self) -> None:
         self._cond = threading.Condition()
         self._items: Dict[str, Any] = {}
-        self._queue: deque = deque()
+        self._prio: Dict[str, int] = {}
+        self._seqs: Dict[str, deque] = {}
+        self._stale: set = set()
+        self._heap: List[Tuple[int, int, str]] = []
+        self._seq = 0
         self._stamps: Dict[str, float] = {}
         self._closed = False
         #: queue-wait of the most recently popped object (monotonic
@@ -113,14 +134,25 @@ class FIFO:
 
     def add(self, obj: Any) -> None:
         key = meta_namespace_key(obj)
+        prio = self._priority_of(obj)
         with self._cond:
             if key not in self._items:
-                self._queue.append(key)
+                self._seqs.setdefault(key, deque()).append(self._seq)
+                self._seq += 1
+                self._stale.discard(key)
                 # first-enqueue stamp: coalesced updates keep the
                 # original arrival time (the pod has been waiting since
                 # it first showed up, not since its last update)
                 self._stamps.setdefault(key, time.monotonic())
+            elif self._prio[key] == prio:
+                self._items[key] = obj
+                self._cond.notify()
+                return
             self._items[key] = obj
+            self._prio[key] = prio
+            heapq.heappush(self._heap, (-prio, self._seqs[key][0], key))
+            if len(self._heap) > 2 * len(self._items) + 64:
+                self._rebuild()
             self._cond.notify()
 
     update = add
@@ -128,41 +160,50 @@ class FIFO:
     def delete(self, obj: Any) -> None:
         with self._cond:
             key = meta_namespace_key(obj)
-            self._items.pop(key, None)
+            if self._items.pop(key, None) is not None:
+                del self._prio[key]
+                self._stale.add(key)
             self._stamps.pop(key, None)
-            # key stays in deque; pop skips dead keys (add() may re-queue the
-            # same key later — pop's items-membership check dedupes)
 
     @staticmethod
     def _priority_of(obj: Any) -> int:
         spec = getattr(obj, "spec", None)
         return getattr(spec, "priority", 0) or 0
 
+    def _rebuild(self) -> None:
+        """Drop every heap item that is not current."""
+        self._heap = [(-self._prio[k], self._seqs[k][0], k)
+                      for k in self._items]
+        heapq.heapify(self._heap)
+
+    def _current(self, item: Tuple[int, int, str]) -> bool:
+        neg, seq, key = item
+        return (key in self._items and self._prio[key] == -neg
+                and self._seqs[key][0] == seq)
+
     def pop(self, timeout: Optional[float] = None) -> Optional[Any]:
         with self._cond:
             while True:
-                # one sweep: compact dead keys out of the deque and pick
-                # the highest-priority live key (first-seen wins a tie,
-                # so an all-default queue pops in insertion order)
-                best_key = None
-                best_prio = 0
-                live: deque = deque()
-                while self._queue:
-                    key = self._queue.popleft()
-                    if key not in self._items:
-                        continue  # deleted while queued
-                    live.append(key)
-                    prio = self._priority_of(self._items[key])
-                    if best_key is None or prio > best_prio:
-                        best_key, best_prio = key, prio
-                self._queue = live
-                if best_key is not None:
-                    self._queue.remove(best_key)
-                    stamp = self._stamps.pop(best_key, None)
+                # compact: the entries of keys not pending go
+                for key in self._stale:
+                    del self._seqs[key]
+                self._stale.clear()
+                while self._heap and not self._current(self._heap[0]):
+                    heapq.heappop(self._heap)
+                if self._heap:
+                    _, _, key = heapq.heappop(self._heap)
+                    seqs = self._seqs[key]
+                    seqs.popleft()
+                    if seqs:
+                        self._stale.add(key)
+                    else:
+                        del self._seqs[key]
+                    del self._prio[key]
+                    stamp = self._stamps.pop(key, None)
                     self.last_pop_wait = (
                         time.monotonic() - stamp
                         if stamp is not None else 0.0)
-                    return self._items.pop(best_key)
+                    return self._items.pop(key)
                 if self._closed:
                     return None
                 if not self._cond.wait(timeout):

@@ -85,6 +85,22 @@ PREEMPT_SHAPE = (5000, 16, 64)     # nodes, bound pods a node, preemptors
 PREEMPT_DIGEST = "f1a101e2193f1e457138c6866165cdd0a217a8d83b231ab02eb96dbc6db30b91"
 
 
+def fleet_encoder():
+    """The e2e fleet's nodes (E2E_COUNTS' hollow nodes, 5120 slots at
+    5000) in an IncrementalEncoder, as the live pipeline holds them: the
+    tables of K1's main-path chunk (chip_smoke's scan, mirror and
+    scatter phases, gpu_evidence.section_turns)."""
+    from ..sched.device.incremental import IncrementalEncoder
+    from .fleet import HollowFleet
+    n = E2E_COUNTS["n_nodes"]
+    fleet = HollowFleet(None, n, cpu="4", memory="32Gi",
+                        max_pods=E2E_COUNTS["max_pods"])
+    inc = IncrementalEncoder()
+    for i in range(n):
+        inc.on_node_add(fleet._node_object(i))
+    return inc
+
+
 def preempt_spec(seed: int = PREEMPT_SEED, n_nodes: int = PREEMPT_SHAPE[0],
                  per_node: int = PREEMPT_SHAPE[1],
                  n_preemptors: int = PREEMPT_SHAPE[2]):
@@ -450,3 +466,48 @@ def scan_cases(p: int = 64, n: int = 5120) -> dict:
                 "weights": weights, "anti_weight": anti if services else 0,
                 "has_aff": terms > 0, "has_spread": groups > 0}
     return cases
+
+
+# K1's cluster edges (slots -> CTAs): N below C x threads, one slot,
+# fewer slots than CTAs (empty ranges), a slot past a multiple of 16,
+# every slot fitting, pods pinned to slots of other CTAs
+CLUSTER_EDGES = {"n1": dict(n=1, p=16), "n17": dict(n=17, p=40),
+                 "n37": dict(n=37, p=64), "n5121": dict(n=5121, p=48),
+                 "every_fits": dict(n=700, p=64, every_fits=True),
+                 "pinned_across": dict(n=640, p=48,
+                                       pins=(639, 0, 320, 41, 599, 600))}
+
+
+def cluster_edge_tables(name: str):
+    """scan_tables (every tier's tables) at one of CLUSTER_EDGES, seeded
+    by the name: `every_fits` makes every valid slot take every pod (no
+    caps, pod caps, bitsets, pins or masks in the way); `pins` pins pods
+    8, 9, ... each to one slot that fits it and nothing else."""
+    kw = CLUSTER_EDGES[name]
+    n, p = kw["n"], kw["p"]
+    node, state, pods = scan_tables(SCAN_SEED + len(name), p, n, False, 2,
+                                    2, 2)
+    if kw.get("every_fits"):
+        node.valid[:] = node.sched_ok[:] = node.static_mask[:] = True
+        node.exceed_cpu[:] = node.exceed_mem[:] = False
+        node.cpu_cap[:] = node.mem_cap[:] = 0
+        node.pod_cap[:] = 1 << 20
+        node.labels[:] = -1
+        state.port_bits[:] = state.disk_any[:] = state.disk_rw[:] = 0
+        pods.host_idx[:] = -1
+        pods.valid[:] = True
+        pods.aff_req[:] = pods.anti_req[:] = False
+    for i, slot in enumerate(kw.get("pins", ())):
+        node.valid[slot] = node.sched_ok[slot] = True
+        node.static_mask[slot] = True
+        node.exceed_cpu[slot] = node.exceed_mem[slot] = False
+        node.cpu_cap[slot] = node.mem_cap[slot] = 0
+        node.pod_cap[slot] = 1 << 20
+        node.labels[slot] = -1
+        state.port_bits[slot] = state.disk_any[slot] = 0
+        state.disk_rw[slot] = 0
+        k = SCAN_TRAP + i
+        pods.host_idx[k] = slot
+        pods.valid[k] = True
+        pods.aff_req[k] = pods.anti_req[k] = False
+    return node, state, pods

@@ -11,7 +11,9 @@ completed sections into the per-section best artifact (`--best-out`).
 The second form only times this checkout's hand kernels against those of
 another checkout at DIR (for example `git archive <parent>
 kubernetes_tpu_torch | tar -x -C DIR`) in the order other, this, this,
-other on one card, and prints one JSON object (`section_turns`).
+other on one card, with the SM clock, power and temperature sampled
+while each kernel's turns run (SmiSampler), and prints one JSON object
+(`section_turns`).
 
 Sections:
 
@@ -127,6 +129,54 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+SMI_FIELDS = ("clocks.sm", "power.draw", "temperature.gpu")
+
+
+class SmiSampler:
+    """nvidia-smi's SM clock (MHz), power draw (W) and temperature (C) of
+    the first card, sampled every `period` seconds on a thread while the
+    block runs (and once before and after): what the card ran at beside
+    a timing. `summary()` -> min / median / max of each."""
+
+    def __init__(self, period: float = 0.2):
+        import threading
+        self.period = period
+        self.samples = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def read() -> list:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=" + ",".join(SMI_FIELDS),
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True).stdout
+        return [float(x) for x in out.strip().splitlines()[0].split(",")]
+
+    def _run(self):
+        while True:
+            self.samples.append(self.read())
+            if self._stop.wait(self.period):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.samples.append(self.read())
+
+    def summary(self) -> dict:
+        out = {"smi_samples": len(self.samples)}
+        for i, name in enumerate(("sm_clock_mhz", "power_draw_w",
+                                  "temperature_c")):
+            col = sorted(x[i] for x in self.samples)
+            out[name] = [col[0], statistics.median(col), col[-1]]
+        return out
 
 
 def section_platform() -> dict:
@@ -292,7 +342,9 @@ def scan_timing(a, weights, anti_weight: int, has_aff: bool,
                 has_spread: bool, rate: dict, floor_ms: float) -> dict:
     """K1 on one chunk (ScanArgs `a` on the card), from a.state each
     time: its device time (5 launches in one CUDA graph, each after the
-    copies that restore the State, whose own graph time is taken off);
+    copies that restore the State, whose own graph time is taken off),
+    with the SM clock, power and temperature sampled while it runs
+    (SmiSampler);
     the plain version's one call from the same State between CUDA
     events (a graph of its ~150 launches a pod is too large), which
     also counts the fitting elements the bound needs; the two held
@@ -311,7 +363,8 @@ def scan_timing(a, weights, anti_weight: int, has_aff: bool,
         sk.scan_chunk(a, weights, anti_weight, has_aff, has_spread)
 
     restore_ms = device_ms(restore, reps=5, trials=3)
-    ms = device_ms(kernel, reps=5, trials=3) - restore_ms
+    with SmiSampler() as smi:
+        ms = device_ms(kernel, reps=5, trials=3) - restore_ms
     restore()
     got = sk.scan_chunk(a, weights, anti_weight, has_aff, has_spread)
     plain_state = type(a.state)(*(t.clone() for t in init))
@@ -336,7 +389,7 @@ def scan_timing(a, weights, anti_weight: int, has_aff: bool,
                           spread if has_spread else 0, anti)
     return {"launch_floor_ms": floor_ms, "ms": ms,
             "restore_ms": restore_ms, "plain_ms": start.elapsed_time(end),
-            "library_ms": None, "equal_plain": equal,
+            "library_ms": None, "equal_plain": equal, **smi.summary(),
             "valid_pods": valid, "fitting_elements": scored,
             "placed": int((got >= 0).sum()),
             **bounds.scan_bound(nbytes, ops, rate)}
@@ -415,14 +468,17 @@ def section_turns(other_root: str, device=None) -> dict:
     5000 and its pod 1 alone (the extender's launch), the argsort on the
     seeded [8, 128]. Each output is first held equal to the other's and
     to the plain version. Where the other checkout has the scan kernels,
-    also K5 at both shapes and K1 on the snapshot's first 256 pods
-    (each call restoring the State first). The other checkout's wrappers must
-    take the same arguments (`filter_masks(FilterArgs)`,
-    `argsort_rows(x)`, `probe(ScanArgs, ...)`, `scan_chunk(ScanArgs,
-    ...)`)."""
+    also K5 at both shapes, K1 on the snapshot's first 256 pods and K1
+    at the e2e's chunk (8192 bench pods on the e2e fleet's 5120 slots),
+    each call restoring the State first. Each kernel's turns carry the
+    SM clock, power and temperature sampled while they ran. The other
+    checkout's wrappers must take the same arguments
+    (`filter_masks(FilterArgs)`, `argsort_rows(x)`, `probe(ScanArgs,
+    ...)`, `scan_chunk(ScanArgs, ...)`)."""
     from ..sched.device import (BatchEngine, encode_snapshot, filter_kernel,
                                 reject_kernel, scan_kernel)
-    from .fixtures import mixed_snapshot
+    from .benchmark import _bench_pod
+    from .fixtures import SMOKE_CHUNK, fleet_encoder, mixed_snapshot
     d = _cuda(device)
     other = load_wrappers(other_root)
     ofk, ork = other["filter_kernel"], other["reject_kernel"]
@@ -455,21 +511,37 @@ def section_turns(other_root: str, device=None) -> dict:
                 lambda a: scan_kernel.probe(a, w, 0, False),
                 lambda a: osk.probe(osk.ScanArgs(*a), w, 0, False),
                 lambda a: scan_kernel.probe_plain(a, w, 0, False), a, None)
+        plain = types.SimpleNamespace(scan_chunk=scan_kernel.scan_chunk_plain,
+                                      ScanArgs=scan_kernel.ScanArgs)
         cases["scan_chunk 256x5000"] = (
             lambda a: chunk(scan_kernel, a), lambda a: chunk(osk, a),
-            lambda a: chunk(types.SimpleNamespace(
-                scan_chunk=scan_kernel.scan_chunk_plain,
-                ScanArgs=scan_kernel.ScanArgs), a), sa.pod_slice(0, 256),
-            None)
+            lambda a: chunk(plain, a), sa.pod_slice(0, 256), None)
+        # K1 at the e2e's chunk: 8192 bench pods on the fleet's slots
+        fleet = scan_args(*eng.device_args(fleet_encoder().encode_tile(
+            [_bench_pod(i) for i in range(SMOKE_CHUNK)], [], [])))
+        fleet_init = [t.clone() for t in fleet.state]
+
+        def e2e_chunk(mod, a):
+            for t, s in zip(a.state, fleet_init):
+                t.copy_(s)
+            return mod.scan_chunk(mod.ScanArgs(*a), w, 0, False, False)
+
+        p, n = fleet.dims()["p"], fleet.dims()["n"]
+        cases[f"scan_chunk {p}x{n}"] = (
+            lambda a: e2e_chunk(scan_kernel, a),
+            lambda a: e2e_chunk(osk, a), lambda a: e2e_chunk(plain, a),
+            fleet, None)
     out = {"card": card_line(), "kernels": {}}
     for name, (this_fn, other_fn, plain_fn, a, library) in cases.items():
         got = this_fn(a)
         if not (_same(got, other_fn(a)) and _same(got, plain_fn(a))):
             raise AssertionError(f"{name}: this checkout's kernel differs "
                                  f"from the other's or the plain version")
-        out["kernels"][name] = turns(
-            {"this": lambda: this_fn(a), "other": lambda: other_fn(a)},
-            library, d)
+        with SmiSampler() as smi:
+            out["kernels"][name] = turns(
+                {"this": lambda: this_fn(a), "other": lambda: other_fn(a)},
+                library, d)
+        out["kernels"][name].update(smi.summary())
     return out
 
 
@@ -618,7 +690,8 @@ def section_e2e(n_nodes: int = 5000, n_pods: int = 30000,
     tests pass device="cpu" at a small size. Reports the tiles (chained
     or not), the engine's upload and scan accounting, the seconds each
     host layer of E2E_LAYERS spent, summed over the run, and the
-    per-node counts digest."""
+    per-node counts digest. `k1_device_ms` is the scan kernel's time on
+    the card in the run (scan_stats' CUDA events around the launches)."""
     from ..api.registry import Registry
     from ..utils.metrics import global_metrics
     from .benchmark import run_scheduling_benchmark
@@ -653,6 +726,7 @@ def section_e2e(n_nodes: int = 5000, n_pods: int = 30000,
             "tiles_chained": int(after["true"] - before["true"]),
             "tiles_unchained": int(after["false"] - before["false"]),
             "layers": layers, "scan_stats": r.scan_stats,
+            "k1_device_ms": (r.scan_stats or {}).get("device_ms"),
             "upload_stats": r.upload_stats,
             "counts_sha256": sha, "counts_bound": counted}
 

@@ -1,12 +1,13 @@
 """Time draining the scheduler's pending queue (api/cache.FIFO) pop by pop.
 
 The batch loop drains its tiles from this FIFO one `pop` at a time
-(sched/batch.py `_drain_tile`). `pop` is priority-then-FIFO, and each call
-sweeps and rebuilds the whole queue to find the highest priority, so one
-pop costs O(queue) and draining n pods costs O(n^2). The benchmark's
-30000 pods sit in it at once. This is host code, so it runs anywhere:
+(sched/batch.py `_drain_tile`). `pop` is priority-then-FIFO over a heap
+with lazy deletion, so one pop costs O(log queue) and draining n pods
+O(n log n) (the JAX package's copy sweeps the whole queue on every pop:
+O(n^2) a drain). The benchmark's 30000 pods sit in it at once. This is
+host code, so it runs anywhere:
 
-    python -m kubernetes_tpu_torch.kubemark.profile_fifo --pods 5000 10000
+    python -m kubernetes_tpu_torch.kubemark.profile_fifo --pods 10000 30000
 
 prints one JSON line per size: seconds to drain and microseconds per pop.
 """

@@ -26,51 +26,83 @@
 // Both run one __device__ body (fits / node_total / anti_score) that
 // repeats engine._mask_and_score's arithmetic operation for operation,
 // in the carried integer type T (int32 when the encoder narrowed the
-// resources, int64 otherwise). Integer arithmetic in T wraps as the
-// tensors' does (wadd / wsub / wmul through the unsigned type). Every
-// f64 formula is written with __dmul_rn / __dsub_rn / __ddiv_rn, which
-// nvcc never contracts into an FMA: Balanced's 10 - diff * 10 fused into
-// one DFMA drops the floor by one where diff * 10 is exactly an integer
-// (cpu_frac 0.9, mem_frac 0), the fault of the JAX probe on the CPU.
-// The exact floor division (_floordiv_exact) is repeated as it is: the
-// f64 reciprocal-multiply estimate and its two integer corrections.
+// resources, int64 otherwise); it reads a slot's fields through an
+// accessor (SharedSlots: K1's on-chip copy; GlobalSlots: the tables).
+// Integer arithmetic in T wraps as the tensors' does (wadd / wsub / wmul
+// through the unsigned type). Every f64 formula is written with
+// __dmul_rn / __dsub_rn / __ddiv_rn, which nvcc never contracts into an
+// FMA: Balanced's 10 - diff * 10 fused into one DFMA drops the floor by
+// one where diff * 10 is exactly an integer (cpu_frac 0.9, mem_frac 0),
+// the fault of the JAX probe on the CPU. The exact floor division
+// (_floordiv_exact) is repeated as it is: the f64 reciprocal-multiply
+// estimate and its two integer corrections.
 //
-// Design. K1: one persistent block (SCAN_BLOCK_THREADS threads) walks
-// the chunk's pods in order; its threads stride over the N node slots.
-// Per pod: the pod's bitset words and affinity terms staged in shared
-// memory; with a spread group, a block max of spread[gid, :]; with
-// ANTI, a shared-memory histogram of svc_count[g, :] by zone under the
-// pod's own mask (a first pass keeps mask and total in a global scratch
-// row, a second adds the zone score); a block argmax on (composite,
-// slot); the winner's commit into the State in place, spread over the
-// threads by bitset word, group, term and service; __syncthreads()
-// before the next pod. Invalid (padded) pods commit nothing. One SM does
-// the whole chunk: the chain of pods is sequential, and a grid-wide
-// barrier a pod costs more than the pod's work. Spreading the node axis
-// over a thread-block cluster (distributed shared memory, a cluster
-// barrier a pod) is the next design.
-// K5: one block (PROBE_BLOCK_THREADS threads) a pod, the same body and
-// per-pod reductions, no commit.
-//
-// Bound: operations (sched/device/bounds.py scan_ops / probe_ops): at
+// Bound: operations (sched/device/bounds.py scan_ops / probe_ops). At
 // 8192 pods x 5120 slots, ~70 INT32 and ~45 FP64 instructions an
-// element, ~0.1-0.2 ms for the whole card; K1 runs on one SM of 132, so
-// it sits two orders of magnitude above it.
+// element give 0.1406 ms for the whole card (bounds.scan_bound). The
+// pods are a chain: pod k + 1 sees pod k's commit, so a chunk cannot
+// spread over the card's 132 SMs pod by pod, and one SM walking the
+// chunk alone sits ~850x above that bound.
+//
+// Design. K1 is one launch of one thread-block cluster of C CTAs (16,
+// non-portable, where the card can schedule it at the kernel's shared
+// memory, else 8; scan_max_clusters answers, scan_kernel.launch_plan
+// picks). The node axis is split: CTA r owns the contiguous slots
+// [r * S, r * S + S), S = ceil(N / C), and its thread t < blockDim.x -
+// 32 the slots r * S + t + i * (blockDim.x - 32), for the whole chunk.
+// The fixed-width fields of its slots (node constants: flags, caps, pod
+// cap, tie rank, zone, static score, reciprocals, label words; State:
+// used and non-zero resources, pod count, port and disk words) are
+// copied into the CTA's shared memory once at the start and written
+// back once at the end, so the owning thread scores and commits from its
+// own copy and no pod needs a barrier for its own slot's commit. The
+// group-indexed State (spread and service counts by slot, the affinity
+// domain counts, the totals) stays in global memory: a slot's column is
+// only read and written by its owner; the counts shared by the cluster
+// (aff_count, aff_total, svc_total) are committed by CTA 0 and published
+// by a cluster barrier. Per pod on the node-local tier: the owners score
+// their slots; the CTA reduces its best (composite, slot) with redux.sync
+// and one __syncthreads; warp 0 writes it into every CTA's inbox with
+// st.async, which counts the bytes off that CTA's mbarrier (one of two,
+// by exchange parity); every thread waits on its own CTA's barrier and
+// reads the C records locally, so all CTAs reach the same winner by the
+// same order as beats(); the winner's owner commits. No cluster-wide
+// barrier a pod: a CTA cannot write an inbox record again before its
+// owner has read it, since that needs the owner's own next record. The
+// spread tier adds the group max of spread[gid, :] as a cluster
+// reduction (cluster barrier, distributed shared memory);
+// ServiceAntiAffinity one for the zone histogram (partials summed over
+// the cluster) and, like the affinity tier, one that publishes CTA 0's
+// commit of the shared counts. The CTA's last warp owns no slot: it
+// stages pod k + 1's row (scalars, bitset words, terms, group and
+// service members) into a ring of three in shared memory while the
+// others score pod k, so the row's load is off the chain. Invalid
+// (padded) pods commit nothing and write -1.
+// Ceiling: C SMs of the card's 132, so the whole-card bound stays out of
+// reach (~8x at C = 16); the speculative engine (K6, queued) is the
+// card-wide route.
+// K5: one block (PROBE_BLOCK_THREADS threads) a pod, the same body read
+// from the tables, a block max for the group and a shared-memory zone
+// histogram, no commit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-// -Xcompiler -fPIC; scan_launch is the plain-C entry point that
-// kubernetes_tpu_torch/sched/device/scan_kernel.py calls through ctypes,
-// with the tensors' addresses in the order of enum ScanPtr and the sizes
-// and weights in the order of enum ScanDim.
+// -Xcompiler -fPIC; scan_launch and scan_max_clusters are the plain-C
+// entry points that kubernetes_tpu_torch/sched/device/scan_kernel.py
+// calls through ctypes, with the tensors' addresses in the order of enum
+// ScanPtr and the sizes and weights in the order of enum ScanDim.
 
 #include <climits>
 #include <cstdint>
 #include <type_traits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#define SCAN_BLOCK_THREADS 1024
+namespace cg = cooperative_groups;
+
+#define SCAN_BLOCK_THREADS 384
 #define PROBE_BLOCK_THREADS 512
 #define SCAN_MAX_SHARED_BYTES 232448
+#define SCAN_MAX_CLUSTER 16
 
 // the addresses the wrapper packs (scan_kernel.PTR_FIELDS, same order)
 enum ScanPtr {
@@ -176,91 +208,256 @@ __device__ __forceinline__ T wmul(T a, T b) {
   return (T)((U)a * (U)b);
 }
 
-// One pod's scalars, read by every thread, and its staged rows.
+// The pod row as 32-bit words, as K1's ring and K5's stage hold it:
+// valid, zero_req, host_idx, group_id, svc_group; req_cpu, req_mem,
+// nz_cpu, nz_mem (one or two words each); sel [L], ports [PW], qany,
+// qrw, sany, srw [K]; with HAS_AFF aff_req, anti_req, aff_member [NT];
+// with HAS_SPREAD member [G]; with ANTI svc_member [S].
+template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
+__device__ __forceinline__ int pod_words(const Params<T>& a) {
+  constexpr int W = sizeof(T) / 4;
+  return 5 + 4 * W + a.L + a.PW + 4 * a.K + (HAS_AFF ? 3 * a.NT : 0)
+         + (HAS_SPREAD ? a.G : 0) + (ANTI ? a.S : 0);
+}
+
+// the address of word e of pod k's row; *byte: a one-byte flag
+template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
+__device__ const void* pod_src(const Params<T>& a, int k, int e, bool* byte) {
+  constexpr int W = sizeof(T) / 4;
+  *byte = false;
+  switch (e) {
+    case 0: *byte = true; return a.pod_valid + k;
+    case 1: *byte = true; return a.zero_req + k;
+    case 2: return a.host_idx + k;
+    case 3: return a.group_id + k;
+    case 4: return a.svc_group + k;
+    default: break;
+  }
+  e -= 5;
+  if (e < 4 * W) {
+    const int f = e / W;
+    const T* src = f == 0 ? a.req_cpu : f == 1 ? a.req_mem
+                 : f == 2 ? a.pod_nz_cpu : a.pod_nz_mem;
+    return (const uint32_t*)(src + k) + e % W;
+  }
+  e -= 4 * W;
+  if (e < a.L) return a.sel + (size_t)k * a.L + e;
+  e -= a.L;
+  if (e < a.PW) return a.ports + (size_t)k * a.PW + e;
+  e -= a.PW;
+  if (e < 4 * a.K) {
+    const int f = e / a.K;
+    const uint32_t* src = f == 0 ? a.qany : f == 1 ? a.qrw
+                        : f == 2 ? a.sany : a.srw;
+    return src + (size_t)k * a.K + e % a.K;
+  }
+  e -= 4 * a.K;
+  if (HAS_AFF) {
+    *byte = e < 2 * a.NT;
+    if (e < a.NT) return a.aff_req + (size_t)k * a.NT + e;
+    if (e < 2 * a.NT) return a.anti_req + (size_t)k * a.NT + e - a.NT;
+    if (e < 3 * a.NT) return a.aff_member + (size_t)k * a.NT + e - 2 * a.NT;
+    e -= 3 * a.NT;
+  }
+  if (HAS_SPREAD) {
+    if (e < a.G) return a.member + (size_t)k * a.G + e;
+    e -= a.G;
+  }
+  return a.svc_member + (size_t)k * a.S + e;
+}
+
+// one 32-bit word (a byte zero-extended where `byte`) from global
+// memory, by two predicated loads into one register: the lanes of the
+// loader warp take different fields, and a value merged from divergent
+// branches would cost a wait a branch; this costs one a word
+__device__ __forceinline__ uint32_t load_word(const void* p, bool byte) {
+  uint32_t v;
+  asm volatile(
+      "{\n.reg .pred b;\nsetp.ne.u32 b, %2, 0;\n"
+      "@b ld.global.u8 %0, [%1];\n@!b ld.global.u32 %0, [%1];\n}"
+      : "=r"(v) : "l"(__cvta_generic_to_global(p)), "r"((uint32_t)byte));
+  return v;
+}
+
+template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
+__device__ __forceinline__ uint32_t pod_word(const Params<T>& a, int k,
+                                             int e) {
+  bool byte;
+  const void* p = pod_src<T, HAS_SPREAD, HAS_AFF, ANTI>(a, k, e, &byte);
+  return load_word(p, byte);
+}
+
+template <typename T>
+__device__ __forceinline__ T word_t(const uint32_t* w) {
+  if (sizeof(T) == 4) return (T)w[0];
+  return (T)(((uint64_t)w[1] << 32) | w[0]);
+}
+
+// One pod, read by every thread from its staged row.
 template <typename T>
 struct Pod {
-  int k;
   bool valid, zero_req;
   T req_cpu, req_mem, nz_cpu, nz_mem;
   int host_idx, group_id, gid, svc_group, svc_tot, maxc;
-  const uint32_t* words;   // shared: sel [L], ports [PW], qany [K], qrw [K]
-  const int* terms;        // shared: aff_req, anti_req, aff_member [NT]
-  int* zones;              // shared: zone histogram [Z] (ANTI)
+  const uint32_t* words;   // sel [L], ports [PW], qany, qrw, sany, srw [K]
+  const int* terms;        // aff_req, anti_req, aff_member [NT]
+  const int* member;       // [G]
+  const int* svc_member;   // [S]
+  const int* zones;        // zone histogram [Z] (ANTI)
 };
 
-// Stage pod k: its scalars into registers, its bitset words and terms
-// into shared memory, the zone histogram zeroed; ends with a barrier.
-template <typename T, bool HAS_AFF, bool ANTI>
-__device__ Pod<T> stage_pod(const Params<T>& a, int k, int* smem) {
+template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
+__device__ __forceinline__ Pod<T> read_pod(const Params<T>& a,
+                                           const uint32_t* row) {
+  constexpr int W = sizeof(T) / 4;
   Pod<T> p;
-  p.k = k;
-  p.valid = a.pod_valid[k] != 0;
-  p.zero_req = a.zero_req[k] != 0;
-  p.req_cpu = a.req_cpu[k];
-  p.req_mem = a.req_mem[k];
-  p.nz_cpu = a.pod_nz_cpu[k];
-  p.nz_mem = a.pod_nz_mem[k];
-  p.host_idx = a.host_idx[k];
-  p.group_id = a.group_id[k];
+  p.valid = row[0] != 0;
+  p.zero_req = row[1] != 0;
+  p.host_idx = (int)row[2];
+  p.group_id = (int)row[3];
   p.gid = p.group_id > 0 ? p.group_id : 0;
-  p.svc_group = a.svc_group[k];
+  p.svc_group = (int)row[4];
+  p.req_cpu = word_t<T>(row + 5);
+  p.req_mem = word_t<T>(row + 5 + W);
+  p.nz_cpu = word_t<T>(row + 5 + 2 * W);
+  p.nz_mem = word_t<T>(row + 5 + 3 * W);
+  p.words = row + 5 + 4 * W;
+  const int* rest = (const int*)(p.words + a.L + a.PW + 4 * a.K);
+  p.terms = rest;
+  if (HAS_AFF) rest += 3 * a.NT;
+  p.member = rest;
+  if (HAS_SPREAD) rest += a.G;
+  p.svc_member = rest;
   p.svc_tot = 0;
   if (ANTI && p.svc_group >= 0) p.svc_tot = a.svc_total[p.svc_group];
   p.maxc = 0;
-  int* zones = smem;
-  uint32_t* words = (uint32_t*)(smem + a.Z);
-  int* terms = smem + a.Z + a.L + a.PW + 2 * a.K;
-  const int nw = a.L + a.PW + 2 * a.K;
-  for (int i = threadIdx.x; i < nw; i += blockDim.x) {
-    uint32_t w;
-    if (i < a.L) w = a.sel[(size_t)k * a.L + i];
-    else if (i < a.L + a.PW) w = a.ports[(size_t)k * a.PW + i - a.L];
-    else if (i < a.L + a.PW + a.K)
-      w = a.qany[(size_t)k * a.K + i - a.L - a.PW];
-    else w = a.qrw[(size_t)k * a.K + i - a.L - a.PW - a.K];
-    words[i] = w;
-  }
-  if (HAS_AFF) {
-    for (int i = threadIdx.x; i < a.NT; i += blockDim.x) {
-      const size_t r = (size_t)k * a.NT + i;
-      terms[i] = a.aff_req[r];
-      terms[a.NT + i] = a.anti_req[r];
-      terms[2 * a.NT + i] = a.aff_member[r];
-    }
-  }
-  if (ANTI)
-    for (int i = threadIdx.x; i < a.Z; i += blockDim.x) zones[i] = 0;
-  p.words = words;
-  p.terms = terms;
-  p.zones = zones;
-  __syncthreads();
+  p.zones = nullptr;
   return p;
 }
 
-// the predicate mask of pod p on slot n
-template <typename T, bool HAS_AFF>
+// A slot's fields straight from the tables (K5), index i = slot n.
+template <typename T>
+struct GlobalSlots {
+  const Params<T>& a;
+  __device__ bool ok(int n) const {
+    return a.valid[n] && a.sched_ok[n] && a.static_mask[n];
+  }
+  __device__ bool exceed(int n) const {
+    return a.exceed_cpu[n] || a.exceed_mem[n];
+  }
+  __device__ T cpu_cap(int n) const { return a.cpu_cap[n]; }
+  __device__ T mem_cap(int n) const { return a.mem_cap[n]; }
+  __device__ int pod_cap(int n) const { return a.pod_cap[n]; }
+  __device__ int tie_rank(int n) const { return a.tie_rank[n]; }
+  __device__ int zone_id(int n) const { return a.zone_id[n]; }
+  __device__ T static_score(int n) const { return a.static_score[n]; }
+  __device__ double inv_cpu(int n) const { return a.inv_cpu[n]; }
+  __device__ double inv_mem(int n) const { return a.inv_mem[n]; }
+  __device__ uint32_t label(int n, int w) const {
+    return a.labels[(size_t)n * a.L + w];
+  }
+  __device__ T cpu_used(int n) const { return a.cpu_used[n]; }
+  __device__ T mem_used(int n) const { return a.mem_used[n]; }
+  __device__ T nz_cpu(int n) const { return a.nz_cpu[n]; }
+  __device__ T nz_mem(int n) const { return a.nz_mem[n]; }
+  __device__ int pod_count(int n) const { return a.pod_count[n]; }
+  __device__ uint32_t port(int n, int w) const {
+    return a.port_bits[(size_t)n * a.PW + w];
+  }
+  __device__ uint32_t disk_any(int n, int w) const {
+    return a.disk_any[(size_t)n * a.K + w];
+  }
+  __device__ uint32_t disk_rw(int n, int w) const {
+    return a.disk_rw[(size_t)n * a.K + w];
+  }
+};
+
+// A CTA's copy of its S slots in shared memory (K1), index i = the
+// slot's place in the CTA's range. Carved f64 first, then T, then
+// 32-bit, then bytes, so every array is aligned; 8 bytes a slot of
+// flags: bit 0 valid & sched_ok & static_mask, bit 1 an exceeded node.
+template <typename T>
+struct SharedSlots {
+  double *inv_cpu_, *inv_mem_;
+  T *cpu_cap_, *mem_cap_, *static_score_;
+  T *cpu_used_, *mem_used_, *nz_cpu_, *nz_mem_;
+  int *pod_cap_, *pod_count_, *tie_rank_, *zone_id_;
+  uint32_t *labels_, *ports_, *dany_, *drw_;
+  uint8_t* flags_;
+  int L, PW, K;
+
+  __device__ bool ok(int i) const { return flags_[i] & 1; }
+  __device__ bool exceed(int i) const { return flags_[i] & 2; }
+  __device__ T cpu_cap(int i) const { return cpu_cap_[i]; }
+  __device__ T mem_cap(int i) const { return mem_cap_[i]; }
+  __device__ int pod_cap(int i) const { return pod_cap_[i]; }
+  __device__ int tie_rank(int i) const { return tie_rank_[i]; }
+  __device__ int zone_id(int i) const { return zone_id_[i]; }
+  __device__ T static_score(int i) const { return static_score_[i]; }
+  __device__ double inv_cpu(int i) const { return inv_cpu_[i]; }
+  __device__ double inv_mem(int i) const { return inv_mem_[i]; }
+  __device__ uint32_t label(int i, int w) const { return labels_[i * L + w]; }
+  __device__ T cpu_used(int i) const { return cpu_used_[i]; }
+  __device__ T mem_used(int i) const { return mem_used_[i]; }
+  __device__ T nz_cpu(int i) const { return nz_cpu_[i]; }
+  __device__ T nz_mem(int i) const { return nz_mem_[i]; }
+  __device__ int pod_count(int i) const { return pod_count_[i]; }
+  __device__ uint32_t port(int i, int w) const { return ports_[i * PW + w]; }
+  __device__ uint32_t disk_any(int i, int w) const {
+    return dany_[i * K + w];
+  }
+  __device__ uint32_t disk_rw(int i, int w) const { return drw_[i * K + w]; }
+};
+
+// bytes of shared memory a slot takes in SharedSlots (scan_kernel.py
+// slot_bytes)
+template <typename T>
+__host__ __device__ constexpr long long slot_bytes(long long L, long long PW,
+                                                   long long K) {
+  return 16 + 7 * (long long)sizeof(T) + 16 + 4 * (L + PW + 2 * K) + 1;
+}
+
+// carve S slots from `base`; -> the first byte after them
+template <typename T>
+__device__ uint8_t* carve(SharedSlots<T>& s, uint8_t* base, int S, int L,
+                          int PW, int K) {
+  s.L = L; s.PW = PW; s.K = K;
+  double* d = (double*)base;
+  s.inv_cpu_ = d; s.inv_mem_ = d + S;
+  T* t = (T*)(d + 2 * S);
+  s.cpu_cap_ = t; s.mem_cap_ = t + S; s.static_score_ = t + 2 * S;
+  s.cpu_used_ = t + 3 * S; s.mem_used_ = t + 4 * S;
+  s.nz_cpu_ = t + 5 * S; s.nz_mem_ = t + 6 * S;
+  int* w = (int*)(t + 7 * S);
+  s.pod_cap_ = w; s.pod_count_ = w + S; s.tie_rank_ = w + 2 * S;
+  s.zone_id_ = w + 3 * S;
+  uint32_t* u = (uint32_t*)(w + 4 * S);
+  s.labels_ = u; u += S * L;
+  s.ports_ = u; u += S * PW;
+  s.dany_ = u; u += S * K;
+  s.drw_ = u; u += S * K;
+  return (uint8_t*)u;   // the flags go last, after the ring and zones
+}
+
+// the predicate mask of pod p on slot n (its fields at index i of s)
+template <typename T, bool HAS_AFF, typename Slots>
 __device__ __forceinline__ bool fits(const Params<T>& a, const Pod<T>& p,
-                                     int n) {
-  if (!(p.valid && a.valid[n] && a.sched_ok[n] && a.static_mask[n]))
-    return false;
+                                     const Slots& s, int i, int n) {
+  if (!(p.valid && s.ok(i))) return false;
   if (p.host_idx != -1 && p.host_idx != n) return false;
-  if (!(a.pod_count[n] < a.pod_cap[n])) return false;
+  if (!(s.pod_count(i) < s.pod_cap(i))) return false;
   if (!p.zero_req) {
-    if (a.exceed_cpu[n] || a.exceed_mem[n]) return false;
-    const T ccap = a.cpu_cap[n], mcap = a.mem_cap[n];
-    if (ccap != 0 && !(wsub(ccap, a.cpu_used[n]) >= p.req_cpu)) return false;
-    if (mcap != 0 && !(wsub(mcap, a.mem_used[n]) >= p.req_mem)) return false;
+    if (s.exceed(i)) return false;
+    const T ccap = s.cpu_cap(i), mcap = s.mem_cap(i);
+    if (ccap != 0 && !(wsub(ccap, s.cpu_used(i)) >= p.req_cpu)) return false;
+    if (mcap != 0 && !(wsub(mcap, s.mem_used(i)) >= p.req_mem)) return false;
   }
   uint32_t clash = 0;
-  for (int w = 0; w < a.L; ++w)
-    clash |= p.words[w] & ~a.labels[(size_t)n * a.L + w];
-  for (int w = 0; w < a.PW; ++w)
-    clash |= a.port_bits[(size_t)n * a.PW + w] & p.words[a.L + w];
-  for (int w = 0; w < a.K; ++w) {
-    const size_t i = (size_t)n * a.K + w;
-    clash |= (a.disk_any[i] & p.words[a.L + a.PW + w])
-             | (a.disk_rw[i] & p.words[a.L + a.PW + a.K + w]);
-  }
+  for (int w = 0; w < a.L; ++w) clash |= p.words[w] & ~s.label(i, w);
+  for (int w = 0; w < a.PW; ++w) clash |= s.port(i, w) & p.words[a.L + w];
+  for (int w = 0; w < a.K; ++w)
+    clash |= (s.disk_any(i, w) & p.words[a.L + a.PW + w])
+             | (s.disk_rw(i, w) & p.words[a.L + a.PW + a.K + w]);
   if (clash != 0) return false;
   if (HAS_AFF) {
     for (int t = 0; t < a.NT; ++t) {
@@ -297,24 +494,25 @@ __device__ __forceinline__ T tenths_below(int top, int x) {
 }
 
 // the priority total of pod p on slot n, ServiceAntiAffinity aside
-template <typename T, bool HAS_SPREAD>
+template <typename T, bool HAS_SPREAD, typename Slots>
 __device__ __forceinline__ T node_total(const Params<T>& a,
-                                        const Pod<T>& p, int n) {
-  const T ccap = a.cpu_cap[n], mcap = a.mem_cap[n];
-  const T tc = wadd(a.nz_cpu[n], p.nz_cpu);
-  const T tm = wadd(a.nz_mem[n], p.nz_mem);
+                                        const Pod<T>& p, const Slots& s,
+                                        int i, int n) {
+  const T ccap = s.cpu_cap(i), mcap = s.mem_cap(i);
+  const T tc = wadd(s.nz_cpu(i), p.nz_cpu);
+  const T tm = wadd(s.nz_mem(i), p.nz_mem);
   const T safe_cpu = ccap > (T)1 ? ccap : (T)1;
   const T safe_mem = mcap > (T)1 ? mcap : (T)1;
   const T cpu_score =
       (ccap == 0 || tc > ccap)
           ? (T)0
           : floordiv_exact(wmul(wsub(ccap, tc), (T)10), safe_cpu,
-                           a.inv_cpu[n]);
+                           s.inv_cpu(i));
   const T mem_score =
       (mcap == 0 || tm > mcap)
           ? (T)0
           : floordiv_exact(wmul(wsub(mcap, tm), (T)10), safe_mem,
-                           a.inv_mem[n]);
+                           s.inv_mem(i));
   const T least_requested = wadd(cpu_score, mem_score) >> 1;
   const double cpu_frac =
       ccap == 0 ? 1.0 : __ddiv_rn((double)tc, (double)safe_cpu);
@@ -327,7 +525,7 @@ __device__ __forceinline__ T node_total(const Params<T>& a,
           : (T)floor(__dsub_rn(10.0, __dmul_rn(diff, 10.0)));
   T total = wadd(wadd(wmul(a.w_lr, least_requested),
                       wmul(a.w_bal, balanced)),
-                 a.static_score[n]);
+                 s.static_score(i));
   if (HAS_SPREAD) {
     T spread = (T)10;
     if (p.group_id >= 0 && p.maxc != 0)
@@ -338,53 +536,44 @@ __device__ __forceinline__ T node_total(const Params<T>& a,
 }
 
 // ServiceAntiAffinity's score on slot n, from the pod's zone histogram
-template <typename T>
-__device__ __forceinline__ T anti_score(const Params<T>& a, const Pod<T>& p,
-                                        int n) {
-  const int zone = a.zone_id[n];
+template <typename T, typename Slots>
+__device__ __forceinline__ T anti_score(const Pod<T>& p, const Slots& s,
+                                        int i) {
+  const int zone = s.zone_id(i);
   if (zone < 0) return (T)0;
   if (p.svc_tot <= 0) return (T)10;
   return tenths_below<T>(p.svc_tot, p.zones[zone]);
 }
 
-// slot n's contribution to the pod's zone histogram: its service count
-// where it fits and carries the zone label
-template <typename T>
+// slot n's contribution to the pod's zone histogram `zones`: its service
+// count where it fits and carries the zone label
+template <typename T, typename Slots>
 __device__ __forceinline__ void add_zone(const Params<T>& a,
-                                         const Pod<T>& p, int n) {
-  const int zone = a.zone_id[n];
+                                         const Pod<T>& p, const Slots& s,
+                                         int i, int n, int* zones) {
+  const int zone = s.zone_id(i);
   if (zone >= 0) {
     const int g = p.svc_group > 0 ? p.svc_group : 0;
-    atomicAdd(p.zones + zone, a.svc_count[(size_t)g * a.N + n]);
+    atomicAdd(zones + zone, a.svc_count[(size_t)g * a.N + n]);
   }
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+  return __reduce_max_sync(~0u, v);
 }
 
 // the block's largest value, returned to every thread
 __device__ int block_max(int v, int* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v = max(v, __shfl_xor_sync(~0u, v, m));
+  v = warp_max(v);
   if (lane == 0) red[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? red[lane] : INT_MIN;
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1) v = max(v, __shfl_xor_sync(~0u, v, m));
+    v = warp_max(lane < (int)(blockDim.x >> 5) ? red[lane] : INT_MIN);
     if (lane == 0) red[32] = v;
   }
   __syncthreads();
   return red[32];
-}
-
-// the largest count of the pod's spread group over every slot, with the
-// group's count on nodes off the table
-template <typename T>
-__device__ int spread_max(const Params<T>& a, const Pod<T>& p, int* red) {
-  const int* row = a.spread + (size_t)p.gid * a.N;
-  int m = INT_MIN;
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) m = max(m, row[n]);
-  m = block_max(m, red);
-  return max(m, a.offgrid_max[p.gid]);
 }
 
 // (c, j) beats (d, i): the larger composite, then the smaller slot
@@ -393,137 +582,352 @@ __device__ __forceinline__ bool beats(T c, int j, T d, int i) {
   return c > d || (c == d && j < i);
 }
 
-// the block's best (composite, slot), returned to every thread
+// the warp's best (composite, slot) in every lane, as beats() orders
+// them: the largest composite, then the smallest slot holding it (a
+// 64-bit composite compared by its signed high and unsigned low words)
 template <typename T>
-__device__ void block_best(T& c, int& j, long long* red_c, int* red_j) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) {
-    const T d = __shfl_xor_sync(~0u, c, m);
-    const int i = __shfl_xor_sync(~0u, j, m);
-    if (beats(d, i, c, j)) { c = d; j = i; }
+__device__ __forceinline__ void warp_best(T& c, int& j) {
+  long long m;
+  if (sizeof(T) == 4) {
+    m = __reduce_max_sync(~0u, (int)c);
+  } else {
+    const long long v = (long long)c;
+    const int hi = __reduce_max_sync(~0u, (int)(v >> 32));
+    const unsigned lo = __reduce_max_sync(
+        ~0u, (int)(v >> 32) == hi ? (unsigned)v : 0u);
+    m = (long long)(((unsigned long long)(unsigned)hi << 32) | lo);
   }
-  if (lane == 0) { red_c[warp] = (long long)c; red_j[warp] = j; }
-  __syncthreads();
-  if (warp == 0) {
-    const bool live = lane < (int)(blockDim.x >> 5);
-    c = live ? (T)red_c[lane] : (T)-1;
-    j = live ? red_j[lane] : INT_MAX;
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1) {
-      const T d = __shfl_xor_sync(~0u, c, m);
-      const int i = __shfl_xor_sync(~0u, j, m);
-      if (beats(d, i, c, j)) { c = d; j = i; }
-    }
-    if (lane == 0) { red_c[32] = (long long)c; red_j[32] = j; }
-  }
-  __syncthreads();
-  c = (T)red_c[32];
-  j = red_j[32];
+  j = __reduce_min_sync(~0u, (long long)c == m ? j : INT_MAX);
+  c = (T)m;
 }
 
 // offer slot n to this thread's running best: only fitting slots with a
 // non-negative composite can be picked (engine: fit_any = best >= 0)
 template <typename T>
-__device__ __forceinline__ void offer(const Params<T>& a, T total, int n,
-                                      T& best, int& best_j) {
-  const T c = wadd(wmul(total, (T)a.N), (T)a.tie_rank[n]);
+__device__ __forceinline__ void offer(const Params<T>& a, T total, int tie,
+                                      int n, T& best, int& best_j) {
+  const T c = wadd(wmul(total, (T)a.N), (T)tie);
   if (c >= 0 && beats(c, n, best, best_j)) { best = c; best_j = n; }
+}
+
+struct __align__(16) Cand {
+  long long c;
+  int j;
+};
+
+// K1's candidate exchange. Each CTA holds an inbox of C records and two
+// barriers (by exchange parity). A CTA's warp 0 writes its best into
+// every CTA's inbox with st.async, which counts the record's bytes off
+// that CTA's barrier when they land (complete_tx, release at cluster
+// scope); a barrier's phase completes when its CTA has armed it with
+// the C records' bytes (one arrival) and they have all landed. Every
+// thread waits on its own CTA's barrier (acquire) and reads the C
+// records locally; thread 0 then arms the barrier for its next phase.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// arm `bar` for its current phase: the one arrival, `bytes` to land
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// record (c, j) into `slot` of CTA `dst`, counted off its `bar`
+__device__ __forceinline__ void push_best(Cand* slot, uint64_t* bar, int dst,
+                                          long long c, int j) {
+  uint32_t rs, rb;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rs) : "r"(smem_addr(slot)), "r"(dst));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rb) : "r"(smem_addr(bar)), "r"(dst));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.s32 "
+      "[%0], {%1, %2, %3, %4}, [%5];"
+      :: "r"(rs), "r"((int)c), "r"((int)(c >> 32)), "r"(j), "r"(0),
+         "r"(rb) : "memory");
+}
+
+// wait until the phase of `bar` with parity `phase` has completed
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t phase) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(phase) : "memory");
 }
 
 template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
 __global__ void __launch_bounds__(SCAN_BLOCK_THREADS, 1)
 scan_kernel(const Params<T> a) {
-  extern __shared__ int smem[];
-  __shared__ int red_max[33];
-  __shared__ long long red_c[33];
-  __shared__ int red_j[33];
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ Cand inbox[2][SCAN_MAX_CLUSTER];  // the CTAs' best, by parity
+  __shared__ __align__(8) uint64_t inbox_bar[2];
+  __shared__ int gmax[2];           // its group max, by exchange parity
+  __shared__ long long red_c[32];
+  __shared__ int red_j[32];
+  __shared__ int red_m[33];
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  // warps 0 .. nwarps - 2 own the slots; the last stages the pod rows
+  const int nscore = nthreads - 32;
+  const int first = (int)threadIdx.x < nscore ? (int)threadIdx.x : INT_MAX;
+  const bool loader = warp == nwarps - 1;
+  const int S = (a.N + C - 1) / C;
+  const int lo = rank * S;
+  const int ns = max(0, min(a.N - lo, S));
+  const int E = pod_words<T, HAS_SPREAD, HAS_AFF, ANTI>(a);
+
+  SharedSlots<T> s;
+  uint32_t* ring = (uint32_t*)carve(s, smem, S, a.L, a.PW, a.K);
+  int* zloc = (int*)(ring + 3 * E);   // [2][Z] this CTA's zone partials
+  int* ztot = zloc + 2 * a.Z;         // [Z] the cluster's sums
+  s.flags_ = (uint8_t*)(ztot + a.Z);
+
+  // the owner of each slot copies it in
+  for (int i = first; i < ns; i += nscore) {
+    const int n = lo + i;
+    s.flags_[i] = (a.valid[n] && a.sched_ok[n] && a.static_mask[n])
+                  | ((a.exceed_cpu[n] || a.exceed_mem[n]) << 1);
+    s.inv_cpu_[i] = a.inv_cpu[n];
+    s.inv_mem_[i] = a.inv_mem[n];
+    s.cpu_cap_[i] = a.cpu_cap[n];
+    s.mem_cap_[i] = a.mem_cap[n];
+    s.static_score_[i] = a.static_score[n];
+    s.cpu_used_[i] = a.cpu_used[n];
+    s.mem_used_[i] = a.mem_used[n];
+    s.nz_cpu_[i] = a.nz_cpu[n];
+    s.nz_mem_[i] = a.nz_mem[n];
+    s.pod_cap_[i] = a.pod_cap[n];
+    s.pod_count_[i] = a.pod_count[n];
+    s.tie_rank_[i] = a.tie_rank[n];
+    s.zone_id_[i] = a.zone_id[n];
+    for (int w = 0; w < a.L; ++w)
+      s.labels_[i * a.L + w] = a.labels[(size_t)n * a.L + w];
+    for (int w = 0; w < a.PW; ++w)
+      s.ports_[i * a.PW + w] = a.port_bits[(size_t)n * a.PW + w];
+    for (int w = 0; w < a.K; ++w) {
+      s.dany_[i * a.K + w] = a.disk_any[(size_t)n * a.K + w];
+      s.drw_[i * a.K + w] = a.disk_rw[(size_t)n * a.K + w];
+    }
+  }
+  if (ANTI)
+    for (int z = threadIdx.x; z < 2 * a.Z; z += nthreads) zloc[z] = 0;
+  for (int e = threadIdx.x; e < E; e += nthreads)
+    ring[e] = pod_word<T, HAS_SPREAD, HAS_AFF, ANTI>(a, 0, e);
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < 2; ++q) {
+      bar_init(&inbox_bar[q], 1);
+      bar_expect(&inbox_bar[q], C * sizeof(Cand));
+    }
+    bar_fence_init();
+  }
+  cl.sync();                        // every CTA has started and staged
+
+  int n_cand = 0, n_max = 0, n_zone = 0;   // exchanges so far, by kind
   for (int k = 0; k < a.P; ++k) {
-    if (!a.pod_valid[k]) {          // padded pods commit nothing
-      if (threadIdx.x == 0) a.assigned[k] = -1;
+    uint32_t* next = ring + ((k + 1) % 3) * E;
+    Pod<T> p = read_pod<T, HAS_SPREAD, HAS_AFF, ANTI>(a, ring + (k % 3) * E);
+    // the loader warp stages pod k + 1's row while the others score pod
+    // k; the barrier that ends pod k publishes it
+    if (loader && k + 1 < a.P)
+      for (int e = lane; e < E; e += 32)
+        next[e] = pod_word<T, HAS_SPREAD, HAS_AFF, ANTI>(a, k + 1, e);
+    if (!p.valid) {                 // padded pods commit nothing
+      if (rank == 0 && threadIdx.x == 0) a.assigned[k] = -1;
+      __syncthreads();
       continue;
     }
-    Pod<T> p = stage_pod<T, HAS_AFF, ANTI>(a, k, smem);
-    if (HAS_SPREAD && p.group_id >= 0) p.maxc = spread_max(a, p, red_max);
+
+    // SelectorSpread: the largest count of the pod's group over every
+    // slot, with the group's count on nodes off the table
+    if (HAS_SPREAD && p.group_id >= 0) {
+      const int* row = a.spread + (size_t)p.gid * a.N + lo;
+      int m = INT_MIN;
+      for (int i = first; i < ns; i += nscore) m = max(m, row[i]);
+      m = block_max(m, red_m);
+      if (threadIdx.x == 0) gmax[n_max & 1] = m;
+      cl.sync();
+      m = lane < C ? *cl.map_shared_rank(&gmax[n_max & 1], lane) : INT_MIN;
+      p.maxc = max(warp_max(m), a.offgrid_max[p.gid]);
+      ++n_max;
+    }
+
     T best = (T)-1;
     int best_j = INT_MAX;
     if (!ANTI) {
-      for (int n = threadIdx.x; n < a.N; n += blockDim.x)
-        if (fits<T, HAS_AFF>(a, p, n))
-          offer(a, node_total<T, HAS_SPREAD>(a, p, n), n, best, best_j);
+      for (int i = first; i < ns; i += nscore) {
+        const int n = lo + i;
+        // the total first: its f64 chain runs while the mask resolves
+        const T total = node_total<T, HAS_SPREAD>(a, p, s, i, n);
+        if (fits<T, HAS_AFF>(a, p, s, i, n))
+          offer(a, total, s.tie_rank(i), n, best, best_j);
+      }
     } else {
-      for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-        const bool m = fits<T, HAS_AFF>(a, p, n);
+      // ServiceAntiAffinity needs the whole mask first: the zone
+      // histogram of this CTA's fitting slots, summed over the cluster
+      int* zl = zloc + (n_zone & 1) * a.Z;
+      for (int i = first; i < ns; i += nscore) {
+        const int n = lo + i;
+        const bool m = fits<T, HAS_AFF>(a, p, s, i, n);
         a.work_mask[n] = m;
         if (m) {
-          a.work_total[n] = node_total<T, HAS_SPREAD>(a, p, n);
-          add_zone(a, p, n);
+          a.work_total[n] = node_total<T, HAS_SPREAD>(a, p, s, i, n);
+          add_zone(a, p, s, i, n, zl);
         }
+      }
+      cl.sync();
+      for (int z = threadIdx.x; z < a.Z; z += nthreads) {
+        int sum = 0;
+        for (int r = 0; r < C; ++r) sum += cl.map_shared_rank(zl, r)[z];
+        ztot[z] = sum;
       }
       __syncthreads();
-      for (int n = threadIdx.x; n < a.N; n += blockDim.x)
+      p.zones = ztot;
+      for (int i = first; i < ns; i += nscore) {
+        const int n = lo + i;
         if (a.work_mask[n])
-          offer(a, wadd(a.work_total[n], wmul(a.w_anti, anti_score(a, p, n))),
-                n, best, best_j);
+          offer(a, wadd(a.work_total[n], wmul(a.w_anti, anti_score(p, s, i))),
+                s.tie_rank(i), n, best, best_j);
+      }
     }
-    block_best(best, best_j, red_c, red_j);
+
+    // the CTA's best into every CTA's inbox, then the cluster's
+    warp_best(best, best_j);
+    if (lane == 0) { red_c[warp] = (long long)best; red_j[warp] = best_j; }
+    __syncthreads();
+    const int b = n_cand & 1;
+    if (warp == 0) {
+      T c = lane < nwarps ? (T)red_c[lane] : (T)-1;
+      int j = lane < nwarps ? red_j[lane] : INT_MAX;
+      warp_best(c, j);
+      if (lane < C) push_best(&inbox[b][rank], &inbox_bar[b], lane, c, j);
+    }
+    bar_wait(&inbox_bar[b], (n_cand >> 1) & 1);
+    if (threadIdx.x == 0) bar_expect(&inbox_bar[b], C * sizeof(Cand));
+    {
+      T c = (T)-1;
+      int j = INT_MAX;
+      if (lane < C) {
+        c = (T)inbox[b][lane].c;
+        j = inbox[b][lane].j;
+      }
+      warp_best(c, j);
+      best = c;
+      best_j = j;
+    }
+    ++n_cand;
+    if (ANTI)   // every CTA read this use's partials before it pushed
+      for (int z = threadIdx.x; z < a.Z; z += nthreads)
+        zloc[(n_zone & 1) * a.Z + z] = 0;
+    if (ANTI) ++n_zone;
+
     if (best >= 0) {
-      const int j = best_j;
-      if (threadIdx.x == 0) {
-        a.cpu_used[j] = wadd(a.cpu_used[j], p.req_cpu);
-        a.mem_used[j] = wadd(a.mem_used[j], p.req_mem);
-        a.nz_cpu[j] = wadd(a.nz_cpu[j], p.nz_cpu);
-        a.nz_mem[j] = wadd(a.nz_mem[j], p.nz_mem);
-        a.pod_count[j] += 1;
-      }
-      for (int i = threadIdx.x; i < a.PW; i += blockDim.x)
-        a.port_bits[(size_t)j * a.PW + i] |= p.words[a.L + i];
-      for (int i = threadIdx.x; i < a.K; i += blockDim.x) {
-        a.disk_any[(size_t)j * a.K + i] |= a.sany[(size_t)k * a.K + i];
-        a.disk_rw[(size_t)j * a.K + i] |= a.srw[(size_t)k * a.K + i];
-      }
-      if (HAS_SPREAD)
-        for (int i = threadIdx.x; i < a.G; i += blockDim.x)
-          a.spread[(size_t)i * a.N + j] += a.member[(size_t)k * a.G + i];
-      if (HAS_AFF)
-        for (int i = threadIdx.x; i < a.NT; i += blockDim.x) {
-          const int add = p.terms[2 * a.NT + i];
-          const int dom = a.aff_dom[(size_t)i * a.N + j];
-          if (dom >= 0) a.aff_count[(size_t)i * a.D + dom] += add;
-          a.aff_total[i] += add;
+      const int j = best_j, i = j - lo;
+      if (i >= 0 && i < ns && (int)threadIdx.x == i % nscore) {
+        // the owner commits into its copy and its slot's columns
+        s.cpu_used_[i] = wadd(s.cpu_used_[i], p.req_cpu);
+        s.mem_used_[i] = wadd(s.mem_used_[i], p.req_mem);
+        s.nz_cpu_[i] = wadd(s.nz_cpu_[i], p.nz_cpu);
+        s.nz_mem_[i] = wadd(s.nz_mem_[i], p.nz_mem);
+        s.pod_count_[i] += 1;
+        for (int w = 0; w < a.PW; ++w)
+          s.ports_[i * a.PW + w] |= p.words[a.L + w];
+        for (int w = 0; w < a.K; ++w) {
+          s.dany_[i * a.K + w] |= p.words[a.L + a.PW + 2 * a.K + w];
+          s.drw_[i * a.K + w] |= p.words[a.L + a.PW + 3 * a.K + w];
         }
-      if (ANTI)
-        for (int i = threadIdx.x; i < a.S; i += blockDim.x) {
-          const int add = a.svc_member[(size_t)k * a.S + i];
-          a.svc_count[(size_t)i * a.N + j] += add;
-          a.svc_total[i] += add;
-        }
+        if (HAS_SPREAD)
+          for (int g = 0; g < a.G; ++g)
+            a.spread[(size_t)g * a.N + j] += p.member[g];
+        if (ANTI)
+          for (int g = 0; g < a.S; ++g)
+            a.svc_count[(size_t)g * a.N + j] += p.svc_member[g];
+      }
+      if ((HAS_AFF || ANTI) && rank == 0) {
+        // the counts every CTA reads: CTA 0 commits them
+        if (HAS_AFF)
+          for (int t = threadIdx.x; t < a.NT; t += nthreads) {
+            const int add = p.terms[2 * a.NT + t];
+            const int dom = a.aff_dom[(size_t)t * a.N + j];
+            if (dom >= 0) a.aff_count[(size_t)t * a.D + dom] += add;
+            a.aff_total[t] += add;
+          }
+        if (ANTI)
+          for (int g = threadIdx.x; g < a.S; g += nthreads)
+            a.svc_total[g] += p.svc_member[g];
+      }
     }
-    if (threadIdx.x == 0) a.assigned[k] = best >= 0 ? best_j : -1;
-    __syncthreads();                // the next pod sees this commit
+    if (rank == 0 && threadIdx.x == 0) a.assigned[k] = best >= 0 ? best_j : -1;
+    if ((HAS_AFF || ANTI) && best >= 0) cl.sync();   // publish CTA 0's
   }
+
+  // the State back, once
+  for (int i = first; i < ns; i += nscore) {
+    const int n = lo + i;
+    a.cpu_used[n] = s.cpu_used_[i];
+    a.mem_used[n] = s.mem_used_[i];
+    a.nz_cpu[n] = s.nz_cpu_[i];
+    a.nz_mem[n] = s.nz_mem_[i];
+    a.pod_count[n] = s.pod_count_[i];
+    for (int w = 0; w < a.PW; ++w)
+      a.port_bits[(size_t)n * a.PW + w] = s.ports_[i * a.PW + w];
+    for (int w = 0; w < a.K; ++w) {
+      a.disk_any[(size_t)n * a.K + w] = s.dany_[i * a.K + w];
+      a.disk_rw[(size_t)n * a.K + w] = s.drw_[i * a.K + w];
+    }
+  }
+  cl.sync();                        // no CTA leaves while read remotely
 }
 
 template <typename T, bool HAS_AFF, bool ANTI>
 __global__ void __launch_bounds__(PROBE_BLOCK_THREADS)
 probe_kernel(const Params<T> a) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int red_max[33];
   const int k = blockIdx.x;
-  Pod<T> p = stage_pod<T, HAS_AFF, ANTI>(a, k, smem);
-  if (p.group_id >= 0) p.maxc = spread_max(a, p, red_max);
+  const int E = pod_words<T, true, HAS_AFF, ANTI>(a);
+  uint32_t* row = (uint32_t*)smem;
+  int* zones = (int*)(row + E);
+  for (int e = threadIdx.x; e < E; e += blockDim.x)
+    row[e] = pod_word<T, true, HAS_AFF, ANTI>(a, k, e);
+  if (ANTI)
+    for (int z = threadIdx.x; z < a.Z; z += blockDim.x) zones[z] = 0;
+  __syncthreads();
+  Pod<T> p = read_pod<T, true, HAS_AFF, ANTI>(a, row);
+  p.zones = zones;
+  if (p.group_id >= 0) {
+    const int* srow = a.spread + (size_t)p.gid * a.N;
+    int m = INT_MIN;
+    for (int n = threadIdx.x; n < a.N; n += blockDim.x) m = max(m, srow[n]);
+    p.maxc = max(block_max(m, red_max), a.offgrid_max[p.gid]);
+  }
+  const GlobalSlots<T> s{a};
   uint8_t* mask = a.mask + (size_t)k * a.N;
   T* total = a.total + (size_t)k * a.N;
   for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    const bool m = fits<T, HAS_AFF>(a, p, n);
+    const bool m = fits<T, HAS_AFF>(a, p, s, n, n);
     mask[n] = m;
-    total[n] = node_total<T, true>(a, p, n);
-    if (ANTI && m) add_zone(a, p, n);
+    total[n] = node_total<T, true>(a, p, s, n, n);
+    if (ANTI && m) add_zone(a, p, s, n, n, zones);
   }
   if (ANTI) {
     __syncthreads();
     for (int n = threadIdx.x; n < a.N; n += blockDim.x)
-      total[n] = wadd(total[n], wmul(a.w_anti, anti_score(a, p, n)));
+      total[n] = wadd(total[n], wmul(a.w_anti, anti_score(p, s, n)));
   }
 }
 
@@ -595,69 +999,140 @@ static Params<T> unpack(const long long* d, const unsigned long long* q) {
   return a;
 }
 
-template <typename K>
-static cudaError_t shared_bytes(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+// bytes of dynamic shared memory each kernel needs (scan_kernel.py
+// shared_bytes): K1 its slots, the ring of three pod rows and the zone
+// partials and sums; K5 one pod row and the zone histogram
+template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
+static long long need_bytes(int kind, const long long* d, int cluster) {
+  const long long W = sizeof(T) / 4;
+  const long long E = 5 + 4 * W + d[DIM_L] + d[DIM_PW] + 4 * d[DIM_K]
+                      + (HAS_AFF ? 3 * d[DIM_T] : 0)
+                      + (HAS_SPREAD ? d[DIM_G] : 0) + (ANTI ? d[DIM_S] : 0);
+  if (kind == 1) return 4 * (E + d[DIM_Z]);
+  const long long S = (d[DIM_N] + cluster - 1) / cluster;
+  return S * slot_bytes<T>(d[DIM_L], d[DIM_PW], d[DIM_K])
+         + 4 * (3 * E + 3 * d[DIM_Z]);
 }
 
+// a kernel's attributes, set when a launch first needs them (`*set`:
+// the largest dynamic shared memory set so far, -1 before the first
+// call), so that a launch captured into a CUDA graph sets nothing
+template <typename K>
+static cudaError_t set_attributes(K kernel, size_t smem, bool cluster,
+                                  long long* set) {
+  cudaError_t err = cudaSuccess;
+  if (*set < 0 && cluster)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && smem > 48 * 1024 && (long long)smem > *set)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && (long long)smem > *set) *set = (long long)smem;
+  return err;
+}
+
+static cudaLaunchConfig_t cluster_config(int cluster, int threads,
+                                         size_t smem, cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// op 0: launch K1 (one cluster of `cluster` CTAs); op 1: launch K5 (one
+// block a pod); op 2: the number of K1 clusters of that shape the card
+// can hold at once, into *count (no launch)
 template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
-static cudaError_t launch(int kind, int threads, size_t smem,
-                          const long long* dims,
-                          const unsigned long long* ptrs,
-                          cudaStream_t stream) {
-  const Params<T> a = unpack<T>(dims, ptrs);
+static cudaError_t dispatch(int op, int cluster, int threads, size_t smem,
+                            const long long* dims,
+                            const unsigned long long* ptrs,
+                            cudaStream_t stream, int* count) {
+  const int kind = op == 1 ? 1 : 0;
+  if (op != 2 && (long long)smem < need_bytes<T, HAS_SPREAD, HAS_AFF, ANTI>(
+                                       kind, dims, cluster))
+    return cudaErrorInvalidValue;
+  static long long set[2] = {-1, -1};   // K1's, K5's attributes
   cudaError_t err;
-  if (kind == 0) {
-    err = shared_bytes(scan_kernel<T, HAS_SPREAD, HAS_AFF, ANTI>, smem);
-    if (err != cudaSuccess) return err;
-    scan_kernel<T, HAS_SPREAD, HAS_AFF, ANTI>
-        <<<1, threads, smem, stream>>>(a);
-  } else {
+  if (op == 1) {
     if (!HAS_SPREAD) return cudaErrorInvalidValue;   // probes score spread
-    err = shared_bytes(probe_kernel<T, HAS_AFF, ANTI>, smem);
+    err = set_attributes(probe_kernel<T, HAS_AFF, ANTI>, smem, false,
+                         &set[1]);
     if (err != cudaSuccess) return err;
+    const Params<T> a = unpack<T>(dims, ptrs);
     probe_kernel<T, HAS_AFF, ANTI><<<a.P, threads, smem, stream>>>(a);
+    return cudaGetLastError();
   }
+  auto kernel = scan_kernel<T, HAS_SPREAD, HAS_AFF, ANTI>;
+  err = set_attributes(kernel, smem, true, &set[0]);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(cluster, threads, smem, stream,
+                                          &attr);
+  if (op == 2) return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+  const Params<T> a = unpack<T>(dims, ptrs);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// kind 0: K1 over a chunk (one block); kind 1: K5 (one block a pod).
-// variant: bit 3 the int64 layout, bit 2 the spread tier, bit 1 the
-// affinity tier, bit 0 ServiceAntiAffinity (scan_kernel.launch_plan).
-extern "C" int scan_launch(int kind, int variant, int threads,
-                           long long smem, const long long* dims,
-                           const unsigned long long* ptrs, void* stream) {
-  if (kind < 0 || kind > 1 || dims[DIM_P] <= 0 || dims[DIM_N] <= 0)
-    return (int)cudaErrorInvalidValue;
-  const long long need =
-      4 * (dims[DIM_Z] + dims[DIM_L] + dims[DIM_PW] + 2 * dims[DIM_K]
-           + 3 * dims[DIM_T]);
-  if (smem < need || smem > SCAN_MAX_SHARED_BYTES)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t b = (size_t)smem;
+static int by_variant(int op, int variant, int cluster, int threads,
+                      size_t b, const long long* d,
+                      const unsigned long long* q, cudaStream_t s, int* n) {
   switch (variant) {
-    case 0: return (int)launch<int32_t, false, false, false>(kind, threads, b, dims, ptrs, s);
-    case 1: return (int)launch<int32_t, false, false, true>(kind, threads, b, dims, ptrs, s);
-    case 2: return (int)launch<int32_t, false, true, false>(kind, threads, b, dims, ptrs, s);
-    case 3: return (int)launch<int32_t, false, true, true>(kind, threads, b, dims, ptrs, s);
-    case 4: return (int)launch<int32_t, true, false, false>(kind, threads, b, dims, ptrs, s);
-    case 5: return (int)launch<int32_t, true, false, true>(kind, threads, b, dims, ptrs, s);
-    case 6: return (int)launch<int32_t, true, true, false>(kind, threads, b, dims, ptrs, s);
-    case 7: return (int)launch<int32_t, true, true, true>(kind, threads, b, dims, ptrs, s);
-    case 8: return (int)launch<int64_t, false, false, false>(kind, threads, b, dims, ptrs, s);
-    case 9: return (int)launch<int64_t, false, false, true>(kind, threads, b, dims, ptrs, s);
-    case 10: return (int)launch<int64_t, false, true, false>(kind, threads, b, dims, ptrs, s);
-    case 11: return (int)launch<int64_t, false, true, true>(kind, threads, b, dims, ptrs, s);
-    case 12: return (int)launch<int64_t, true, false, false>(kind, threads, b, dims, ptrs, s);
-    case 13: return (int)launch<int64_t, true, false, true>(kind, threads, b, dims, ptrs, s);
-    case 14: return (int)launch<int64_t, true, true, false>(kind, threads, b, dims, ptrs, s);
-    case 15: return (int)launch<int64_t, true, true, true>(kind, threads, b, dims, ptrs, s);
+    case 0: return (int)dispatch<int32_t, false, false, false>(op, cluster, threads, b, d, q, s, n);
+    case 1: return (int)dispatch<int32_t, false, false, true>(op, cluster, threads, b, d, q, s, n);
+    case 2: return (int)dispatch<int32_t, false, true, false>(op, cluster, threads, b, d, q, s, n);
+    case 3: return (int)dispatch<int32_t, false, true, true>(op, cluster, threads, b, d, q, s, n);
+    case 4: return (int)dispatch<int32_t, true, false, false>(op, cluster, threads, b, d, q, s, n);
+    case 5: return (int)dispatch<int32_t, true, false, true>(op, cluster, threads, b, d, q, s, n);
+    case 6: return (int)dispatch<int32_t, true, true, false>(op, cluster, threads, b, d, q, s, n);
+    case 7: return (int)dispatch<int32_t, true, true, true>(op, cluster, threads, b, d, q, s, n);
+    case 8: return (int)dispatch<int64_t, false, false, false>(op, cluster, threads, b, d, q, s, n);
+    case 9: return (int)dispatch<int64_t, false, false, true>(op, cluster, threads, b, d, q, s, n);
+    case 10: return (int)dispatch<int64_t, false, true, false>(op, cluster, threads, b, d, q, s, n);
+    case 11: return (int)dispatch<int64_t, false, true, true>(op, cluster, threads, b, d, q, s, n);
+    case 12: return (int)dispatch<int64_t, true, false, false>(op, cluster, threads, b, d, q, s, n);
+    case 13: return (int)dispatch<int64_t, true, false, true>(op, cluster, threads, b, d, q, s, n);
+    case 14: return (int)dispatch<int64_t, true, true, false>(op, cluster, threads, b, d, q, s, n);
+    case 15: return (int)dispatch<int64_t, true, true, true>(op, cluster, threads, b, d, q, s, n);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// kind 0: K1 over a chunk (one cluster of `cluster` CTAs); kind 1: K5
+// (one block a pod; `cluster` unused). variant: bit 3 the int64 layout,
+// bit 2 the spread tier, bit 1 the affinity tier, bit 0
+// ServiceAntiAffinity (scan_kernel.launch_plan).
+extern "C" int scan_launch(int kind, int variant, int cluster, int threads,
+                           long long smem, const long long* dims,
+                           const unsigned long long* ptrs, void* stream) {
+  if (kind < 0 || kind > 1 || dims[DIM_P] <= 0 || dims[DIM_N] <= 0
+      || cluster < 1 || smem < 0 || smem > SCAN_MAX_SHARED_BYTES)
+    return (int)cudaErrorInvalidValue;
+  return by_variant(kind, variant, cluster, threads, (size_t)smem, dims,
+                    ptrs, (cudaStream_t)stream, nullptr);
+}
+
+// how many clusters of `cluster` CTAs of `threads` threads and `smem`
+// bytes of dynamic shared memory each the card can run at once for K1's
+// instantiation `variant` (cudaOccupancyMaxActiveClusters): 0 when it
+// cannot schedule one. -> the CUDA error code.
+extern "C" int scan_max_clusters(int variant, int cluster, int threads,
+                                 long long smem, int* count) {
+  *count = 0;
+  if (cluster < 1 || smem < 0 || smem > SCAN_MAX_SHARED_BYTES)
+    return (int)cudaErrorInvalidValue;
+  return by_variant(2, variant, cluster, threads, (size_t)smem, nullptr,
+                    nullptr, nullptr, count);
 }
 
 extern "C" const char* scan_error_name(int err) {

@@ -226,10 +226,13 @@ class PendingAssignment:
     alone (no device-wide synchronize, nothing queued after it) and
     reads the host copy."""
 
-    def __init__(self, tensor: torch.Tensor):
+    def __init__(self, tensor: torch.Tensor, on_ready=None):
         self.tensor = tensor
         self.event = None
         self._host = tensor
+        # called once when the result is first read (run_chunked: adds
+        # the run's K1 device time to scan_stats)
+        self._on_ready = on_ready
         if tensor.is_cuda:
             self._host = torch.empty(tensor.shape, dtype=tensor.dtype,
                                      pin_memory=True)
@@ -244,6 +247,9 @@ class PendingAssignment:
         """Wait for the run (this event only) -> i32[P] numpy."""
         if self.event is not None:
             self.event.synchronize()
+        if self._on_ready is not None:
+            self._on_ready()
+            self._on_ready = None
         return self._host.numpy()
 
 
@@ -274,11 +280,14 @@ class BatchEngine:
                              "delta_bytes": 0, "pod_bytes": 0,
                              "table_bytes": 0}
         # run_chunked accounting: calls, scan steps (padded pods
-        # included), host seconds spent in the call, and the steps the
-        # plain per-pod loop ran instead of the scan kernel (the CPU's;
-        # 0 on the card)
+        # included), host seconds spent in the call, the steps the plain
+        # per-pod loop ran instead of the scan kernel (the CPU's; 0 on
+        # the card), and the card's ms between CUDA events recorded around
+        # each K1 launch (read when the assignment is pulled, never by a
+        # synchronize of its own; 0 on the CPU). A pair also counts the
+        # launch's own host time where the device waits on it
         self.scan_stats = {"runs": 0, "steps": 0, "seconds": 0.0,
-                           "eager_steps": 0}
+                           "eager_steps": 0, "device_ms": 0.0}
 
     @property
     def n_shards(self) -> int:
@@ -477,15 +486,23 @@ class BatchEngine:
                             else None)
 
     def _scan(self, node: NodeConst, aux: scan_kernel.Reciprocals,
-              state: State, pods: PodXs,
-              flags: Tuple[bool, bool]) -> torch.Tensor:
+              state: State, pods: PodXs, flags: Tuple[bool, bool],
+              events: Optional[list] = None) -> torch.Tensor:
         """The sequential pod loop over one chunk, committing into `state`
         in place: one launch of the scan kernel on the card (the plain
-        per-pod loop on the CPU, counted in scan_stats' eager_steps)."""
+        per-pod loop on the CPU, counted in scan_stats' eager_steps).
+        `events` (on the card) gains a pair of CUDA events recorded
+        around the launch, after the arguments are checked."""
         has_aff, has_spread = flags
-        out = scan_kernel.scan_chunk(
-            scan_kernel.ScanArgs.from_engine(node, aux, state, pods),
-            self.weights, self._anti_weight, has_aff, has_spread)
+        args = scan_kernel.ScanArgs.from_engine(node, aux, state, pods)
+        if events is not None:
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            pair[0].record()
+        out = scan_kernel.scan_chunk(args, self.weights, self._anti_weight,
+                                     has_aff, has_spread)
+        if events is not None:
+            pair[1].record()
+            events.append(pair)
         if not out.is_cuda:
             self.scan_stats["eager_steps"] += out.shape[0]
         return out
@@ -546,7 +563,9 @@ class BatchEngine:
         copied, never mutated, and the encoded init is not uploaded).
         block=False returns a PendingAssignment instead of waiting: the
         carry stays on the device and the assignment lands with the
-        CUDA event recorded after the last chunk.
+        CUDA event recorded after the last chunk. On the card, CUDA
+        events around each chunk's launch give scan_stats["device_ms"]
+        when the assignment is pulled.
 
         The node tables (and the State init unless chained) come through
         the device table mirror (_fetch_tables): an incremental encode
@@ -570,12 +589,23 @@ class BatchEngine:
             pods = PodXs(*(torch.cat([a, torch.zeros(
                 (pad,) + tuple(a.shape[1:]), dtype=a.dtype,
                 device=a.device)]) for a in pods))
+        events = [] if self.device.type == "cuda" else None
         outs = [self._scan(node, aux, state, _pod_slice(pods, lo, lo + chunk),
-                           flags)
+                           flags, events)
                 for lo in range(0, p + pad, chunk)]
+        on_ready = None
+        if events:
+            def on_ready():
+                self.scan_stats["device_ms"] += sum(
+                    start.elapsed_time(end) for start, end in events)
         flat = (torch.cat(outs)[:p] if outs
                 else torch.zeros(0, dtype=torch.int32, device=self.device))
-        out = (flat.cpu().numpy() if block else PendingAssignment(flat))
+        if block:
+            out = flat.cpu().numpy()
+            if on_ready is not None:
+                on_ready()
+        else:
+            out = PendingAssignment(flat, on_ready)
         self.scan_stats["runs"] += 1
         self.scan_stats["steps"] += p + pad
         self.scan_stats["seconds"] += time.monotonic() - t0

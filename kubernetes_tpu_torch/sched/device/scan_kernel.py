@@ -18,19 +18,23 @@ T[P, N], the spread tier always on.
     mask, total = probe(a, weights, anti_weight, has_aff)
 
 Source: `csrc/scan_kernel.cu`, one `__device__` body for both: K1 is
-one persistent block that walks the chunk's pods (its threads stride
-over the slots; a block max for the spread group, a shared-memory zone
-histogram for ServiceAntiAffinity, a block argmax, the commit spread
-over the threads, a barrier a pod); K5 is one block a pod. Templated on
-the carried integer type (int32 when the encoder narrowed, int64
-otherwise) and the tiers (spread, inter-pod affinity,
-ServiceAntiAffinity): the launch plan picks the instantiation.
+one launch of one thread-block cluster of C CTAs (16 where the card
+schedules it at the kernel's shared memory, else 8) that walks the
+chunk's pods in order with the node axis split over the CTAs; each CTA
+keeps its slots' fixed-width fields in shared memory for the whole
+chunk, and a pod costs no cluster-wide barrier on the node-local tier
+(each CTA pushes its best (composite, slot) into every CTA's shared
+memory with st.async, counted off an mbarrier there); the CTA's last
+warp stages the next pod's row. K5 is one block a pod. Templated on the
+carried integer type (int32 when the encoder narrowed, int64 otherwise)
+and the tiers (spread, inter-pod affinity, ServiceAntiAffinity): the
+launch plan picks the instantiation, the cluster size, the slots a CTA
+and its shared memory.
 
 Bound: operations (`bounds.scan_ops` / `probe_ops`, INT32 and FP64
-instructions an element). K1 runs on one SM of the card's 132, so it is
+instructions an element). K1 runs on C SMs of the card's 132, so it is
 read against that bound and the launch floor as it is: the pods are a
-chain, and the next design spreads the node axis over a thread-block
-cluster.
+chain.
 
 On CPU tensors the wrappers compute the plain versions,
 `scan_chunk_plain` (the per-pod loop of tensor ops the port ran before
@@ -44,7 +48,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,9 +56,12 @@ import torch
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "scan_kernel.cu")
 # the kernel's blocking; each must match its #define in the source
-SCAN_THREADS = 1024        # SCAN_BLOCK_THREADS: K1's one block
+SCAN_THREADS = 384         # SCAN_BLOCK_THREADS: the most threads a K1 CTA
 PROBE_THREADS = 512        # PROBE_BLOCK_THREADS: K5's block a pod
 MAX_SHARED_BYTES = 232448  # SCAN_MAX_SHARED_BYTES
+MAX_CLUSTER = 16           # SCAN_MAX_CLUSTER
+# K1's cluster sizes, the largest first: 16 is non-portable, 8 portable
+CLUSTERS = (MAX_CLUSTER, 8)
 # pods per block of the plain probe: bounds its [B, N, W] temporaries
 PROBE_BLOCK = 512
 
@@ -452,12 +459,16 @@ class LaunchPlan(NamedTuple):
     """What scan_launch is given besides the addresses and sizes: the
     kernel (SCAN or PROBE), the instantiation (bit 3 int64, bit 2 the
     spread tier, bit 1 the affinity tier, bit 0 ServiceAntiAffinity),
-    the grid, the threads a block and the dynamic shared memory."""
+    the grid, the threads a block, the dynamic shared memory, and for K1
+    the CTAs of its one cluster (the grid) and the slots each owns (1
+    and 0 for K5)."""
     kind: int
     variant: int
     grid: int
     threads: int
     smem: int
+    cluster: int
+    slots: int
 
 
 def variant(wide: bool, has_spread: bool, has_aff: bool,
@@ -465,26 +476,83 @@ def variant(wide: bool, has_spread: bool, has_aff: bool,
     return 8 * wide + 4 * has_spread + 2 * has_aff + anti
 
 
-def shared_bytes(d: dict) -> int:
-    """Dynamic shared memory of a block: the zone histogram, the pod's
-    bitset words and its affinity terms (flag, flag, count), int32 each."""
-    return 4 * (d["z"] + d["l"] + d["pw"] + 2 * d["k"] + 3 * d["t"])
+def slot_bytes(d: dict, wide: bool) -> int:
+    """Shared memory a K1 CTA holds for one slot (SharedSlots in the
+    source): two f64 reciprocals; caps, static score and the four used
+    and non-zero resources in the carried type; pod cap, pod count, tie
+    rank and zone; the label, port and two disk word rows; a flag byte."""
+    return 16 + 7 * (8 if wide else 4) + 16 \
+        + 4 * (d["l"] + d["pw"] + 2 * d["k"]) + 1
+
+
+def pod_words(d: dict, wide: bool, has_spread: bool, has_aff: bool,
+              anti: bool) -> int:
+    """32-bit words of one staged pod row: five scalars, the four
+    resources (two words each when wide), the bitset words (sel, ports,
+    qany, qrw, sany, srw), and the terms, group and service members of
+    the tiers on."""
+    return (5 + 4 * (2 if wide else 1) + d["l"] + d["pw"] + 4 * d["k"]
+            + 3 * d["t"] * has_aff + d["g"] * has_spread + d["s"] * anti)
+
+
+def shared_bytes(kind: int, d: dict, wide: bool, has_spread: bool,
+                 has_aff: bool, anti: bool, cluster: int = 1) -> int:
+    """Dynamic shared memory of a block: for K1 a CTA's slots, a ring of
+    three pod rows and the zone partials (two) and sums; for K5 one pod
+    row and the zone histogram."""
+    e = pod_words(d, wide, has_spread, has_aff, anti)
+    if kind == PROBE:
+        return 4 * (e + d["z"])
+    slots = -(-d["n"] // cluster)
+    return slots * slot_bytes(d, wide) + 4 * (3 * e + 3 * d["z"])
+
+
+def cta_threads(slots: int) -> int:
+    """Threads of a K1 CTA: one a slot in whole warps (a warp at least;
+    above SCAN_THREADS - 32 a thread owns several), and the loader warp
+    that stages the pod rows."""
+    return min(SCAN_THREADS, max(32, -(-slots // 32) * 32) + 32)
 
 
 def launch_plan(kind: int, d: dict, wide: bool, has_spread: bool,
-                has_aff: bool, anti: bool) -> LaunchPlan:
-    """The plan for K1 (one block of SCAN_THREADS for the chunk) or K5 (a
+                has_aff: bool, anti: bool,
+                max_clusters: Optional[Callable[[int, int, int, int], int]]
+                = None) -> LaunchPlan:
+    """The plan for K1 (one cluster over the chunk's slots) or K5 (a
     block of PROBE_THREADS a pod, the spread tier always on) over sizes
-    `d` (ScanArgs.dims)."""
+    `d` (ScanArgs.dims). K1 takes the largest cluster size of CLUSTERS
+    whose CTAs fit their slots in shared memory and of which the card
+    can run a cluster: `max_clusters(variant, cluster, threads, smem)`
+    (default: the card's own answer, `max_active_clusters`). Raises
+    ValueError when no size fits."""
     if kind == PROBE:
         has_spread = True
-    threads = SCAN_THREADS if kind == SCAN else PROBE_THREADS
-    smem = shared_bytes(d)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"scan: {smem} bytes of shared memory a block "
-                         f"exceed {MAX_SHARED_BYTES}")
-    return LaunchPlan(kind, variant(wide, has_spread, has_aff, anti),
-                      1 if kind == SCAN else d["p"], threads, smem)
+    code = variant(wide, has_spread, has_aff, anti)
+    if kind == PROBE:
+        smem = shared_bytes(PROBE, d, wide, True, has_aff, anti)
+        if smem > MAX_SHARED_BYTES:
+            raise ValueError(f"scan: {smem} bytes of shared memory a block "
+                             f"exceed {MAX_SHARED_BYTES}")
+        return LaunchPlan(PROBE, code, d["p"], PROBE_THREADS, smem, 1, 0)
+    if max_clusters is None:
+        max_clusters = max_active_clusters
+    refused = []
+    for cluster in CLUSTERS:
+        slots = -(-d["n"] // cluster)
+        threads = cta_threads(slots)
+        smem = shared_bytes(SCAN, d, wide, has_spread, has_aff, anti,
+                            cluster)
+        if smem > MAX_SHARED_BYTES:
+            refused.append(f"{cluster} CTAs: {smem} bytes of shared memory "
+                           f"a CTA exceed {MAX_SHARED_BYTES}")
+            continue
+        if max_clusters(code, cluster, threads, smem) < 1:
+            refused.append(f"{cluster} CTAs of {threads} threads and {smem} "
+                           f"bytes: the card cannot schedule the cluster")
+            continue
+        return LaunchPlan(SCAN, code, cluster, threads, smem, cluster, slots)
+    raise ValueError(f"scan: no cluster fits {d['n']} slots: "
+                     + "; ".join(refused))
 
 
 def pack(a: ScanArgs, weights: Tuple[int, int, int], anti_weight: int,
@@ -514,11 +582,18 @@ def pack(a: ScanArgs, weights: Tuple[int, int, int], anti_weight: int,
 def _library() -> ctypes.CDLL:
     from ._build import load_library
     lib = load_library(SOURCE)
-    # kind, variant, threads, shared bytes, sizes, addresses, stream
+    # kind, variant, cluster, threads, shared bytes, sizes, addresses,
+    # stream
     lib.scan_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_longlong, ctypes.c_void_p,
-                                ctypes.c_void_p, ctypes.c_void_p]
+                                ctypes.c_int, ctypes.c_longlong,
+                                ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_void_p]
     lib.scan_launch.restype = ctypes.c_int
+    # variant, cluster, threads, shared bytes, the count out
+    lib.scan_max_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_longlong,
+                                      ctypes.POINTER(ctypes.c_int)]
+    lib.scan_max_clusters.restype = ctypes.c_int
     lib.scan_error_name.argtypes = [ctypes.c_int]
     lib.scan_error_name.restype = ctypes.c_char_p
     return lib
@@ -528,16 +603,37 @@ def error_name(err: int) -> str:
     return _library().scan_error_name(err).decode()
 
 
+@functools.cache
+def _max_active_clusters(device: int, code: int, cluster: int,
+                         threads: int, smem: int) -> int:
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _library().scan_max_clusters(code, cluster, threads, smem,
+                                           ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"scan: cluster occupancy query failed: CUDA "
+                           f"error {err} ({error_name(err)})")
+    return count.value
+
+
+def max_active_clusters(code: int, cluster: int, threads: int,
+                        smem: int) -> int:
+    """How many K1 clusters of that shape the current card can run at
+    once (cudaOccupancyMaxActiveClusters; 0: none), asked once a shape."""
+    return _max_active_clusters(torch.cuda.current_device(), code, cluster,
+                                threads, smem)
+
+
 def _launch(plan: LaunchPlan, dims: np.ndarray, ptrs: np.ndarray,
             device: torch.device) -> int:
     """Queue one kernel on the current stream -> the CUDA error code of
     the launch (0 = launched). Module-level so that a check can swap in
-    a launch the card refuses (chip_smoke: more threads a block than
-    the kernel takes) and show that the engine raises."""
+    a launch the card refuses (chip_smoke: a cluster larger than the
+    card takes) and show that the engine raises."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         return _library().scan_launch(
-            plan.kind, plan.variant, plan.threads, plan.smem,
+            plan.kind, plan.variant, plan.cluster, plan.threads, plan.smem,
             dims.ctypes.data, ptrs.ctypes.data, stream)
 
 
@@ -567,8 +663,9 @@ def scan_chunk(a: ScanArgs, weights: Tuple[int, int, int],
                                             device=a.device)
         outputs["work_mask"] = torch.empty(d["n"], dtype=torch.uint8,
                                            device=a.device)
-    plan = launch_plan(SCAN, d, a.dtype == torch.int64, has_spread,
-                       has_aff, bool(anti_weight))
+    with torch.cuda.device(a.device):
+        plan = launch_plan(SCAN, d, a.dtype == torch.int64, has_spread,
+                           has_aff, bool(anti_weight))
     dims, ptrs = pack(a, weights, anti_weight, outputs)
     err = _launch(plan, dims, ptrs, a.device)
     if err != 0:

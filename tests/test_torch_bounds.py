@@ -342,3 +342,21 @@ def test_turns_load_another_checkouts_scan_kernel():
     assert gpu_evidence._same(osk.probe(osk.ScanArgs(*a), (1, 1, 1), 0,
                                         False),
                               scan_kernel.probe(a, (1, 1, 1), 0, False))
+
+
+def test_smi_sampler_summarises_each_field(monkeypatch):
+    """The SM clock, power and temperature beside K1's timings: min,
+    median and max of what nvidia-smi read, before, during and after."""
+    from kubernetes_tpu_torch.kubemark import gpu_evidence
+    reads = iter([[1980.0, 120.5, 35.0], [1755.0, 690.0, 61.0],
+                  [1980.0, 300.0, 40.0]] + [[1980.0, 130.0, 36.0]] * 100)
+    monkeypatch.setattr(gpu_evidence.SmiSampler, "read",
+                        staticmethod(lambda: next(reads)))
+    with gpu_evidence.SmiSampler(period=0.01) as smi:
+        pass
+    out = smi.summary()
+    assert out["smi_samples"] == len(smi.samples) >= 2
+    assert out["sm_clock_mhz"][0] <= out["sm_clock_mhz"][1] \
+        <= out["sm_clock_mhz"][2] == 1980.0
+    assert set(out) == {"smi_samples", "sm_clock_mhz", "power_draw_w",
+                        "temperature_c"}

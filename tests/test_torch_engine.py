@@ -16,6 +16,7 @@ from kubernetes_tpu.sched.device import BatchEngine as JaxEngine
 from kubernetes_tpu.sched.device import ClusterSnapshot as JaxSnapshot
 from kubernetes_tpu_torch.sched.device import BatchEngine, schedule_batch
 from kubernetes_tpu_torch.sched.device import scan_kernel
+from kubernetes_tpu_torch.sched.device.engine import PendingAssignment
 
 from test_affinity import with_random_affinity
 from test_device_parity import rand_cluster
@@ -129,6 +130,23 @@ def test_block_false_returns_device_tensor():
     assert flat.device == te.device and pending.event is None
     assert pending.is_ready()
     assert np.array_equal(pending.result(), te.run_chunked(enc, 16)[0])
+
+
+def test_pending_assignment_runs_its_callback_once_on_the_first_read():
+    """run_chunked on the card hands PendingAssignment the callback that
+    adds the run's K1 device time to scan_stats: it runs when the
+    result is first read, once. On the CPU there is no device time."""
+    calls = []
+    pending = PendingAssignment(torch.arange(4, dtype=torch.int32),
+                                lambda: calls.append(1))
+    assert calls == []
+    assert np.array_equal(pending.result(), np.arange(4))
+    pending.result()
+    assert calls == [1]
+    _, enc = encodings(rand_cluster(2))
+    te = BatchEngine(device="cpu")
+    te.run_chunked(enc, 16, block=False)[0].result()
+    assert te.scan_stats["device_ms"] == 0.0
 
 
 @pytest.mark.parametrize("tier", sorted(TIERS))

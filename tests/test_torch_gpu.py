@@ -14,7 +14,8 @@ import torch
 
 from kubernetes_tpu_torch.core import types as api
 from kubernetes_tpu_torch.core.quantity import Quantity
-from kubernetes_tpu_torch.kubemark.fixtures import (MI, SCAN_DEGENERATE,
+from kubernetes_tpu_torch.kubemark.fixtures import (CLUSTER_EDGES, MI,
+                                                    SCAN_DEGENERATE,
                                                     SCAN_EDGES, SCAN_TIERS,
                                                     mixed_snapshot,
                                                     scan_cases)
@@ -316,12 +317,16 @@ def test_turns_against_this_checkout(cuda):
                                    "filter_masks 8192x5000",
                                    "filter_masks 1x5000",
                                    "probe 8192x5000", "probe 1x5000",
-                                   "scan_chunk 256x5000"}
+                                   "scan_chunk 256x5000",
+                                   "scan_chunk 8192x5120"}
     for name, rec in out["kernels"].items():
         assert rec["order"] == list(TURNS)
         assert len(rec["ms"]) == len(rec["launch_floor_ms"]) == len(TURNS)
-        assert all(0.0 < t < 10.0 for t in rec["ms"]), (name, rec)
+        # K1 at the e2e chunk takes tens of ms; the rest under 10
+        top = 1000.0 if name.endswith("8192x5120") else 10.0
+        assert all(0.0 < t < top for t in rec["ms"]), (name, rec)
         assert ("library_ms" in rec) == name.startswith("argsort")
+        assert rec["smi_samples"] >= 2 and rec["sm_clock_mhz"][2] > 0
 
 
 def _wait(cond, timeout=120.0):
@@ -671,6 +676,16 @@ def test_scan_kernel_carries_across_chunks(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a.state, b.state))
 
 
+def refused_plan(plan):
+    """A launch the card refuses: K1 on a cluster of 32 CTAs (past the
+    16 it takes), K5 with 2048 threads a block."""
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    if plan.kind == sk.SCAN:
+        return plan._replace(cluster=2 * sk.MAX_CLUSTER,
+                             grid=2 * sk.MAX_CLUSTER)
+    return plan._replace(threads=2048)
+
+
 @pytest.mark.gpu
 def test_refused_scan_and_probe_launches_raise_through_the_engine(cuda):
     from kubernetes_tpu_torch.sched.device import scan_kernel as sk
@@ -680,7 +695,7 @@ def test_refused_scan_and_probe_launches_raise_through_the_engine(cuda):
     before = (sk.scan_chunk.launches, sk.probe.launches)
     try:
         sk._launch = lambda plan, dims, ptrs, device: real(
-            plan._replace(threads=2048), dims, ptrs, device)
+            refused_plan(plan), dims, ptrs, device)
         with pytest.raises(RuntimeError, match="scan kernel launch"):
             engine.run_chunked(enc, 8)
         with pytest.raises(RuntimeError, match="probe kernel launch"):
@@ -713,3 +728,81 @@ def test_engine_on_card_matches_cpu_on_the_smoke_fixture(cuda, plain):
     assert (got == want).all() and (got[:enc.n_pods] >= 0).all()
     for x, y in zip(card.probe(enc), cpu.probe(enc)):
         assert (x == y).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CLUSTER_EDGES))
+@pytest.mark.parametrize("tiers", [(0, 0, 0), (1, 1, 1)])
+def test_scan_kernel_matches_plain_at_the_cluster_edges(cuda, name, tiers):
+    """N below C x threads, one slot, fewer slots than CTAs (empty
+    ranges), every slot fitting, pods pinned to slots of other CTAs."""
+    from kubernetes_tpu_torch.kubemark.fixtures import cluster_edge_tables
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import scan_args
+    from kubernetes_tpu_torch.sched.device import engine as eng
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    kw = CLUSTER_EDGES[name]
+    tables = cluster_edge_tables(name)
+    a = scan_args(*(eng._upload(t, cuda) for t in tables))
+    b = a._replace(state=eng._clone_state(a.state))
+    spread, aff, anti = tiers
+    flags = ((1, 1, 1), 2 * anti, bool(aff), bool(spread))
+    got = sk.scan_chunk(a, *flags)
+    want = sk.scan_chunk_plain(b, *flags)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert all(torch.equal(x, y) for x, y in zip(a.state, b.state))
+    if name == "every_fits":
+        assert (got >= 0).all()
+    if name == "pinned_across":
+        pins = kw["pins"]
+        assert got[8:8 + len(pins)].cpu().tolist() == list(pins)
+
+
+@pytest.mark.gpu
+def test_run_chunked_by_1024_equals_one_long_run(cuda):
+    """Eight launches of 1024 pods, the State carried on the card,
+    equal one launch of the whole batch and the CPU engine."""
+    from kubernetes_tpu_torch.kubemark.fixtures import engine_snapshot
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    enc = encode_snapshot(engine_snapshot(1000, 8192, False),
+                          pod_pad_to=8192)
+    card = BatchEngine(device=cuda)
+    before = sk.scan_chunk.launches
+    chunked, state_a = card.run_chunked(enc, 1024)
+    assert sk.scan_chunk.launches == before + 8
+    assert card.scan_stats["device_ms"] > 0
+    long, state_b = card.run_chunked(enc, 8192)
+    assert (chunked == long).all() and (chunked >= 0).any()
+    assert all(torch.equal(x, y) for x, y in zip(state_a, state_b))
+    want, _ = BatchEngine(device="cpu").run_chunked(enc, 8192)
+    assert (chunked == want).all()
+
+
+@pytest.mark.gpu
+def test_scan_plan_runs_16_ctas_on_the_card(cuda):
+    """The card schedules K1's 16-CTA cluster at the e2e chunk's and at
+    the 20480-slot fleet's shared memory, in both layouts."""
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    d = {"p": 8192, "n": 5120, "l": 1, "pw": 1, "k": 1, "g": 1, "t": 1,
+         "d": 1, "s": 1, "z": 1}
+    for n in (5120, 20480):
+        for wide in (False, True):
+            plan = sk.launch_plan(sk.SCAN, {**d, "n": n}, wide, False,
+                                  False, False)
+            assert plan.cluster == 16 and plan.grid == 16, plan
+
+
+@pytest.mark.gpu
+def test_probe_kernel_matches_plain_at_the_main_path_shapes(cuda):
+    """K5 at 8192 x 5000 (the mixed snapshot) and 1 x 5000 (the
+    extender's pod), bit-equal to its plain version."""
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import scan_args
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    enc = encode_snapshot(mixed_snapshot(7, 5000, 8192, 20000))
+    engine = BatchEngine(device=cuda)
+    big = scan_args(*engine.device_args(enc))
+    for a in (big, big.pod_slice(1, 2)):
+        mask, total = sk.probe(a, engine.weights, 0, False)
+        p_mask, p_total = sk.probe_plain(a, engine.weights, 0, False)
+        torch.cuda.synchronize()
+        assert torch.equal(mask, p_mask) and torch.equal(total, p_total)

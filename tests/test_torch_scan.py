@@ -24,9 +24,11 @@ import torch
 
 from kubernetes_tpu.sched.device import BatchEngine as JaxEngine
 from kubernetes_tpu.sched.device.engine import _make_probe, _make_run
-from kubernetes_tpu_torch.kubemark.fixtures import (SCAN_DEGENERATE,
-                                                    SCAN_TRAP, scan_cases,
-                                                    scan_tables)
+from kubernetes_tpu_torch.kubemark.fixtures import (CLUSTER_EDGES,
+                                                    SCAN_DEGENERATE,
+                                                    SCAN_TRAP,
+                                                    cluster_edge_tables,
+                                                    scan_cases, scan_tables)
 from kubernetes_tpu_torch.sched.device import BatchEngine
 from kubernetes_tpu_torch.sched.device import engine as port_engine
 from kubernetes_tpu_torch.sched.device import scan_kernel as sk
@@ -213,6 +215,16 @@ def test_wrappers_run_on_cpu_or_cuda_only():
         sk.probe(meta, (1, 1, 1), 0, False)
 
 
+def _schedules(*largest):
+    """A card that can run one cluster of each size in `largest` (the
+    answer of max_active_clusters), whatever its shared memory."""
+    return lambda code, cluster, threads, smem: int(cluster in largest)
+
+
+E2E_DIMS = {"p": 8192, "n": 5120, "l": 1, "pw": 1, "k": 1, "g": 1, "t": 1,
+            "d": 1, "s": 1, "z": 1}
+
+
 @pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("tiers", [(False, False, False), (True, False, False),
                                    (False, True, False), (True, True, True)])
@@ -220,13 +232,122 @@ def test_launch_plan(wide, tiers):
     has_spread, has_aff, anti = tiers
     d = {"p": 8192, "n": 5120, "l": 2, "pw": 1, "k": 3, "g": 4, "t": 5,
          "d": 3, "s": 2, "z": 7}
-    scan = sk.launch_plan(sk.SCAN, d, wide, has_spread, has_aff, anti)
     code = 8 * wide + 4 * has_spread + 2 * has_aff + anti
-    assert scan == (sk.SCAN, code, 1, sk.SCAN_THREADS,
-                    4 * (7 + 2 + 1 + 6 + 15))
+    scan = sk.launch_plan(sk.SCAN, d, wide, has_spread, has_aff, anti,
+                          _schedules(16, 8))
+    # one cluster of 16 CTAs, 320 slots and as many threads each, and the
+    # loader warp
+    slot = 16 + 7 * (8 if wide else 4) + 16 + 4 * (2 + 1 + 6) + 1
+    words = (5 + 4 * (2 if wide else 1) + 2 + 1 + 12 + 15 * has_aff
+             + 4 * has_spread + 2 * anti)
+    assert scan == (sk.SCAN, code, 16, 352, 320 * slot + 4 * (3 * words + 21),
+                    16, 320)
     probe = sk.launch_plan(sk.PROBE, d, wide, has_spread, has_aff, anti)
     # the probe always scores the spread tier, one block a pod
-    assert probe == (sk.PROBE, code | 4, 8192, sk.PROBE_THREADS, scan.smem)
+    probe_words = words - 4 * has_spread + 4
+    assert probe == (sk.PROBE, code | 4, 8192, sk.PROBE_THREADS,
+                     4 * (probe_words + 7), 1, 0)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("n,slots,threads", [(5120, 320, 352), (1, 1, 64),
+                                             (37, 3, 64), (1500, 94, 128),
+                                             (20480, 1280, 384)])
+def test_launch_plan_splits_the_slots_over_16_ctas(wide, n, slots, threads):
+    """The e2e chunk, the edges and the JAX package's largest fleet
+    (DENSITY_20K.json, 20480 slots) at the e2e's widths."""
+    plan = sk.launch_plan(sk.SCAN, {**E2E_DIMS, "n": n}, wide, False, False,
+                          False, _schedules(16, 8))
+    assert (plan.cluster, plan.grid, plan.slots, plan.threads) == \
+        (16, 16, slots, threads)
+    assert plan.smem == sk.shared_bytes(sk.SCAN, {**E2E_DIMS, "n": n}, wide,
+                                        False, False, False, 16)
+    assert plan.smem <= sk.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_launch_plan_takes_8_ctas_where_16_cannot_run(wide):
+    plan = sk.launch_plan(sk.SCAN, E2E_DIMS, wide, False, False, False,
+                          _schedules(8))
+    assert (plan.cluster, plan.slots, plan.threads) == (8, 640, 384)
+    # 20480 slots at 8 CTAs hold 2560 a CTA: the int64 layout's 105
+    # bytes a slot do not fit in a CTA's shared memory, the int32's 77 do
+    big = {**E2E_DIMS, "n": 20480}
+    if wide:
+        with pytest.raises(ValueError, match="shared memory"):
+            sk.launch_plan(sk.SCAN, big, wide, False, False, False,
+                           _schedules(8))
+    else:
+        assert sk.launch_plan(sk.SCAN, big, wide, False, False, False,
+                              _schedules(8)).cluster == 8
+
+
+def test_launch_plan_asks_the_card_for_each_size_largest_first():
+    asked = []
+
+    def card(code, cluster, threads, smem):
+        asked.append((code, cluster, threads, smem))
+        return 0
+    with pytest.raises(ValueError, match="cannot schedule"):
+        sk.launch_plan(sk.SCAN, E2E_DIMS, True, True, False, False, card)
+    assert [(c, k) for c, k, _, _ in asked] == [(12, 16), (12, 8)]
+    assert [t for _, _, t, _ in asked] == [352, 384]
+
+
+def partition(n: int, cluster: int, threads: int) -> list:
+    """The slots each thread of K1 owns, [rank][thread] -> list, as the
+    kernel walks them (csrc/scan_kernel.cu, `first` / `nscore`): CTA r
+    the range [r * S, min(n, r * S + S)), S = ceil(n / C), thread t <
+    threads - 32 of it every (threads - 32)-th slot from its start + t;
+    the last warp (the loader) none."""
+    slots, owners = -(-n // cluster), threads - 32
+    return [[list(range(r * slots + t, min(n, r * slots + slots), owners))
+             if t < owners else [] for t in range(threads)]
+            for r in range(cluster)]
+
+
+@pytest.mark.parametrize("name", sorted(scan_cases()))
+def test_launch_plan_at_the_scan_cases(name):
+    """Every case the card holds the kernels to gets a 16-CTA plan whose
+    slots cover the case's slots once."""
+    case = scan_cases()[name]
+    t = case["tables"]
+    wide = t["wide"]
+    d = {"p": t.get("p", 64), "n": t.get("n", 5120), "l": t.get("words", 1),
+         "pw": t.get("words", 1), "k": t.get("words", 1),
+         "g": max(t["groups"], 1), "t": max(t["terms"], 1), "d": 3,
+         "s": max(t["services"], 1), "z": 3}
+    plan = sk.launch_plan(sk.SCAN, d, wide, case["has_spread"],
+                          case["has_aff"], bool(case["anti_weight"]),
+                          _schedules(16, 8))
+    assert plan.cluster == 16 and plan.slots == -(-d["n"] // 16)
+    assert plan.threads % 32 == 0 and plan.smem <= sk.MAX_SHARED_BYTES
+    owned = sorted(n for cta in partition(d["n"], plan.cluster,
+                                             plan.threads)
+                   for slots in cta for n in slots)
+    assert owned == list(range(d["n"]))
+
+
+@pytest.mark.parametrize("n,cluster,threads", [(1, 16, 64), (37, 16, 64),
+                                               (5120, 16, 352),
+                                               (5120, 8, 384),
+                                               (20480, 16, 384),
+                                               (1000, 16, 64), (17, 8, 64)])
+def test_partition_covers_every_slot_once(n, cluster, threads):
+    """The kernel's ownership, modelled: CTA r the contiguous range of
+    ceil(n / C) slots from r * ceil(n / C), thread t < threads - 32 every
+    (threads - 32)-th slot of it from t, the loader warp none; some CTAs
+    may own nothing."""
+    parts = partition(n, cluster, threads)
+    assert len(parts) == cluster and all(len(c) == threads for c in parts)
+    flat = [s for cta in parts for slots in cta for s in slots]
+    assert sorted(flat) == list(range(n))
+    per, owners = -(-n // cluster), threads - 32
+    for r, cta in enumerate(parts):
+        for t, slots in enumerate(cta):
+            assert all(r * per <= s < r * per + per and (s - r * per) %
+                       owners == t for s in slots)
+            assert t < owners or not slots
 
 
 def test_launch_plan_refuses_what_the_kernel_cannot_take():
@@ -234,6 +355,10 @@ def test_launch_plan_refuses_what_the_kernel_cannot_take():
          "d": 1, "s": 1, "z": 1}
     with pytest.raises(ValueError, match="shared memory"):
         sk.launch_plan(sk.PROBE, {**d, "z": 60000}, False, True, False, True)
+    # more slots than 16 CTAs hold in shared memory
+    with pytest.raises(ValueError, match="no cluster fits"):
+        sk.launch_plan(sk.SCAN, {**d, "n": 40000}, True, False, False,
+                       False, _schedules(16, 8))
 
 
 def _source_enum(name: str):
@@ -281,7 +406,16 @@ def test_blocking_matches_the_source():
     assert defines["SCAN_BLOCK_THREADS"] == sk.SCAN_THREADS
     assert defines["PROBE_BLOCK_THREADS"] == sk.PROBE_THREADS
     assert defines["SCAN_MAX_SHARED_BYTES"] == sk.MAX_SHARED_BYTES
-    cases = re.findall(r"case (\d+): return \(int\)launch<(\w+), (\w+), "
+    assert defines["SCAN_MAX_CLUSTER"] == sk.MAX_CLUSTER == \
+        max(sk.CLUSTERS)
+    # the shared memory a slot takes, as the source counts it
+    counted = re.search(r"return 16 \+ 7 \* \(long long\)sizeof\(T\) \+ 16 "
+                        r"\+ 4 \* \(L \+ PW \+ 2 \* K\) \+ 1;", src)
+    assert counted is not None
+    d = {"l": 2, "pw": 3, "k": 4}
+    assert sk.slot_bytes(d, True) == 16 + 56 + 16 + 4 * 13 + 1
+    assert sk.slot_bytes(d, False) == 16 + 28 + 16 + 4 * 13 + 1
+    cases = re.findall(r"case (\d+): return \(int\)dispatch<(\w+), (\w+), "
                        r"(\w+), (\w+)>", src)
     assert len(cases) == 16
     for code, dtype, spread, aff, anti in cases:
@@ -353,3 +487,26 @@ def test_engine_counts_the_plain_steps_on_the_cpu():
     p = enc.pod_batch.valid.shape[0]
     assert te.scan_stats["steps"] == p + (-p) % 16
     assert te.scan_stats["eager_steps"] == te.scan_stats["steps"]
+
+
+@pytest.mark.parametrize("name", sorted(CLUSTER_EDGES))
+def test_cluster_edge_tables(name):
+    """The tables K1's cluster edges run on (chip_smoke's scan phase, the
+    card tests), through the plain version on the CPU: every slot takes
+    every pod where every_fits says so, and each pinned pod lands on its
+    slot, whichever CTA owns it."""
+    kw = CLUSTER_EDGES[name]
+    tensors = [port_engine._upload(t, torch.device("cpu"))
+               for t in cluster_edge_tables(name)]
+    a = sk.ScanArgs.from_engine(tensors[0], sk.reciprocals(tensors[0]),
+                                *tensors[1:])
+    assert (a.dims()["p"], a.dims()["n"]) == (kw["p"], kw["n"])
+    got = sk.scan_chunk(a, (1, 1, 1), 2, True, True)
+    assert (got >= 0).any()
+    if kw.get("every_fits"):
+        assert (got >= 0).all()
+    pins = list(kw.get("pins", ()))
+    if pins:
+        assert got[SCAN_TRAP:SCAN_TRAP + len(pins)].tolist() == pins
+        per = -(-kw["n"] // 16)
+        assert len({s // per for s in pins}) > 3   # several CTAs' slots
