@@ -7,7 +7,9 @@ Drives the port's main device path once on the card, at the north-star
 size, through the entry points a user calls, and holds every kernel and
 every answer to a reference:
 
-  build     nvcc-builds every CUDA source (all five at once).
+  build     nvcc-builds every CUDA source (all five at once); no
+            instantiation of the victim or probe kernels may spill
+            (`-Xptxas -v`, printed to stderr and summarised).
   filter    the predicate-filter kernel on a mixed 8192-pod x 5000-node
             snapshot: bit-equal to its plain PyTorch version on the card
             and to the engine's probe mask; a mask that is neither all
@@ -26,7 +28,10 @@ every answer to a reference:
             three-word bitsets; every table holds cap == 0, zero requests,
             pinned hosts, exceeded nodes and the FMA trap. The
             assignment and the final State must be bit-equal, and K5's
-            mask and total. Then K1 on the e2e's chunk (8192 bench pods
+            mask and total on both of its routes (a cluster a pod: the
+            case's 64 pods and its first pod alone; a block a pod), each
+            route in all eight instantiations, and at the cluster
+            edges. Then K1 on the e2e's chunk (8192 bench pods
             x the 5000-node fleet's 5120 slots): its launch plan (one
             cluster of C >= 8 CTAs, the slots a CTA), device ms with the
             SM clock, power and temperature sampled while it ran, the
@@ -82,15 +87,18 @@ every answer to a reference:
             on the card for each, equal to oracle_find_victims field for
             field and to the plain version; the sha256 over the 64
             results equal to PREEMPT_DIGEST (the JAX engine's answer);
-            the victim kernel timed at 5120 x 16.
+            the victim kernel timed at 5120 x 16 and at the one-victim
+            table (5120 x 1); the 64 searches' time split into the
+            host's packing, launch and pull and the device's upload and
+            kernel (BatchEngine.victim_stats).
   no_fallback  a victim-kernel launch the card refuses (more threads a
             block than it takes), swapped in: find_victims raises and
             returns nothing; restored, the search equals the oracle.
             The same for the scatter kernel: a refused launch in its
             place makes run_chunked raise on a tile off the mirror; and
             for the scan kernel (a cluster of 32 CTAs) and the probe
-            kernel (2048 threads a block): run_chunked and probe raise,
-            and restored, equal the CPU engine.
+            kernel on both routes (2048 threads a block): run_chunked
+            and probe raise, and restored, equal the CPU engine.
   mixed     mixed mode (factory.create_mixed): the device probe on the
             card and one HTTP extender (the port's ExtenderServer over a
             CPU backend) place 8 pods on 5000 nodes, one at a time; the
@@ -162,15 +170,49 @@ def phase_build():
     records = _build.build_all([filter_kernel.SOURCE, reject_kernel.SOURCE,
                                 scatter_kernel.SOURCE, victim_kernel.SOURCE,
                                 scan_kernel.SOURCE])
+    entries = {}
     for r in records:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 print(f"ptxas {os.path.basename(r['source'])}: "
                       f"{line.strip()}", file=sys.stderr)
+        entries.update(ptxas_entries(r["log"]))
+    # the victim search and the probe (each instantiation) must not spill
+    spilled = {k: v for k, v in entries.items()
+               if ("victim" in k or "probe" in k) and v["spill_stores"]}
+    if spilled:
+        raise AssertionError(f"kernels that spill: {spilled}")
     return {"phase": "build", "seconds": time.monotonic() - t0,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "libraries": [os.path.relpath(r["library"], ROOT)
-                          for r in records]}
+                          for r in records],
+            "ptxas": {k: [v["registers"], v["spill_stores"]]
+                      for k, v in entries.items()
+                      if "victim" in k or "probe" in k}}
+
+
+def ptxas_entries(log: str) -> dict:
+    """`-Xptxas -v` output -> {kernel (mangled name): registers, spill
+    stores and spill loads in bytes}."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m[1]
+            out[name] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m[1])
+            out[name]["spill_loads"] = int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m[1])
+    return out
 
 
 def phase_filter(rate, floor_ms):
@@ -255,6 +297,7 @@ def phase_scan(rate, floor_ms, mixed_tables):
     engine = BatchEngine()
     dev = engine.device
     rec = {"phase": "scan", "cases": {}, "max_abs_err": 0}
+    k5_codes = {}                  # K5's route -> instantiations held
     t0 = time.monotonic()
     for name, case in scan_cases().items():
         tables = scan_tables(**case["tables"])
@@ -270,7 +313,13 @@ def phase_scan(rate, floor_ms, mixed_tables):
             raise AssertionError(f"scan {name}: {got['placed']} pods "
                                  f"placed")
         d = a.dims()
-        rec["cases"][name] = [d["p"], d["n"], got["placed"]]
+        code = sk.variant(case["tables"]["wide"], True, case["has_aff"],
+                          bool(case["anti_weight"]))
+        for route, c in got["probe_clusters"].items():
+            k5_codes.setdefault(
+                "cluster" if c > 1 else "block", set()).add(code)
+        rec["cases"][name] = [d["p"], d["n"], got["placed"],
+                              got["probe_clusters"]]
         rec["max_abs_err"] = max(rec["max_abs_err"], got["max_abs_err"])
     # K1's cluster edges, with no tier and with every tier on
     rec["edges"] = {}
@@ -287,9 +336,30 @@ def phase_scan(rate, floor_ms, mixed_tables):
                     torch.equal(x, y) for x, y in zip(a.state, b.state))):
                 raise AssertionError(f"scan edge {name} (tiers {tiers}): "
                                      f"K1 differs from its plain version")
+            # K5 there too, on its cluster route (the edge's pods and its
+            # first pod alone) and a block a pod
+            pflags = flags[:3]
+            p_mask, p_total = sk.probe_plain(a, *pflags)
+            for b, sms, rows in ((a, None, slice(None)), (a, 1, slice(None)),
+                                 (a.pod_slice(0, 1), None, slice(0, 1))):
+                mask, total = sk.probe(b, *pflags, sms=sms)
+                torch.cuda.synchronize()
+                if not (torch.equal(mask, p_mask[rows])
+                        and torch.equal(total, p_total[rows])):
+                    raise AssertionError(f"probe edge {name} (tiers "
+                                         f"{tiers}, sms {sms}): K5 differs "
+                                         f"from its plain version")
             rec["edges"][f"{name}/{'all' if tiers else 'none'}"] = [
                 a.dims()["p"], a.dims()["n"], int((got >= 0).sum())]
     rec["parity_s"] = time.monotonic() - t0
+    every = {sk.variant(wide, True, aff, anti) for wide in (False, True)
+             for aff in (False, True) for anti in (False, True)}
+    for route in ("cluster", "block"):
+        if k5_codes.get(route) != every:
+            raise AssertionError(f"K5's {route} route was held to its plain "
+                                 f"version in {k5_codes.get(route)}, not "
+                                 f"in all of {sorted(every)}")
+    rec["k5_instantiations"] = {r: sorted(c) for r, c in k5_codes.items()}
 
     # K1 on the e2e's chunk: 8192 bench pods against the fleet's slots
     inc = fleet_encoder()
@@ -317,9 +387,12 @@ def phase_scan(rate, floor_ms, mixed_tables):
         if not (torch.equal(mask, p_mask) and torch.equal(total, p_total)):
             raise AssertionError(f"K5 differs from its plain version at "
                                  f"{tuple(mask.shape)}")
+        plan = sk.launch_plan(sk.PROBE, b.dims(), b.dtype == torch.int64,
+                              True, False, False, sms=sk.card_sms())
         timed[key] = {**probe_timing(b, engine.weights, 0, False, rate,
                                      floor_ms),
-                      "shape": list(mask.shape)}
+                      "shape": list(mask.shape), "cluster": plan.cluster,
+                      "threads": plan.threads}
     rec.update(equal_plain=True, k1_shape=[a.dims()["p"], a.dims()["n"]],
                k1_flags=list(flags),
                **{f"{key}_{f}": t[f] for key, t in timed.items()
@@ -334,7 +407,10 @@ def phase_scan(rate, floor_ms, mixed_tables):
                                               "smi_samples")},
                k1_fitting_elements=k1["fitting_elements"],
                k1_placed=k1["placed"], k5_call_ms=timed["k5"]["call_ms"],
-               k5_p1_call_ms=timed["k5_p1"]["call_ms"])
+               k5_p1_call_ms=timed["k5_p1"]["call_ms"],
+               k5_cluster=timed["k5"]["cluster"],
+               k5_p1_cluster=timed["k5_p1"]["cluster"],
+               k5_p1_threads=timed["k5_p1"]["threads"])
     return rec, timed
 
 
@@ -592,7 +668,8 @@ def phase_scatter(rate, floor_ms, path_rows: int):
     from kubernetes_tpu_torch.kubemark.benchmark import _bench_pod
     from kubernetes_tpu_torch.kubemark.fixtures import (E2E_COUNTS,
                                                         fleet_encoder)
-    from kubernetes_tpu_torch.kubemark.gpu_evidence import kernel_timing
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import (device_ms,
+                                                            kernel_timing)
     from kubernetes_tpu_torch.sched.device import BatchEngine, bounds
     from kubernetes_tpu_torch.sched.device import engine as eng_mod
     from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
@@ -682,7 +759,8 @@ def phase_preempt(rate, floor_ms):
     import numpy as np
 
     from kubernetes_tpu_torch.kubemark import fixtures as fx
-    from kubernetes_tpu_torch.kubemark.gpu_evidence import kernel_timing
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import (device_ms,
+                                                            kernel_timing)
     from kubernetes_tpu_torch.sched.device import BatchEngine, bounds
     from kubernetes_tpu_torch.sched.device import victim_kernel as vk
     from kubernetes_tpu_torch.sched.preemption import oracle_find_victims
@@ -739,8 +817,8 @@ def phase_preempt(rate, floor_ms):
         raise AssertionError(f"degenerate preempt fixture: {feasible} of "
                              f"{len(results)} feasible")
     # the main path's widest table, timed (the search with the most
-    # victims walked among the widest ones)
-    wide = max(tables, key=lambda t: (t.v, int(t.v_valid.sum())))
+    # victims walked among the widest ones); a one-victim table likewise
+    wide = fx.widest_table(tables)
     args = vk.VictimArgs.from_table(wide, dev)
     read, steps = vk.walk(args)
     n, v = args.shape
@@ -748,7 +826,16 @@ def phase_preempt(rate, floor_ms):
                               lambda: vk.victim_search_plain(args), None,
                               floor_ms),
               **bounds.victim_bound(n, read, steps, rate),
-              "walk_read": read, "walk_steps": steps}
+              "walk_read": read, "walk_steps": steps,
+              "plan": list(vk.launch_plan(n, v, vk.card_sms()))}
+    one = min(tables, key=lambda t: (t.v, -int(t.v_valid.sum())))
+    one_args = vk.VictimArgs.from_table(one, dev)
+    timing["one"] = {
+        "shape": list(one_args.shape),
+        "plan": list(vk.launch_plan(*one_args.shape, vk.card_sms())),
+        "ms": device_ms(lambda: vk.victim_search(one_args))}
+    split = {k: engine.victim_stats[k] for k in
+             ("pack_s", "launch_s", "pull_s", "upload_ms", "kernel_ms")}
     rec = {"phase": "preempt", "nodes": wide.n, "bound_pods": len(spec[1]),
            "preemptors": len(pods), "shape": [n, v],
            "victim_axes": sorted({t.v for t in tables}),
@@ -756,6 +843,9 @@ def phase_preempt(rate, floor_ms):
            "evicting": sum(r.kstar > 0 for r, _ in results),
            "zero_request": sum(t.zero_req for t in tables),
            "build_s": build_s, **{f"{k}_s": x for k, x in seconds.items()},
+           "search_split": split,
+           "plans": sorted({tuple(vk.launch_plan(t.n, t.v, vk.card_sms()))
+                            for t in tables}),
            "digest": digest, "digest_ok": True, "equal_oracle": True,
            "equal_plain": True, "max_abs_err": 0, **timing}
     return rec, launches, wide
@@ -811,8 +901,8 @@ def _scatter_refusal():
 
 def _refused_plan(plan):
     """A launch the card refuses: K1 on a cluster of 32 CTAs (past the
-    16 a cluster can hold), K5 with 2048 threads a block (past its
-    launch bounds)."""
+    16 a cluster can hold), K5 (either route) with 2048 threads a block
+    (past its launch bounds)."""
     from kubernetes_tpu_torch.sched.device import scan_kernel as sk
     if plan.kind == sk.SCAN:
         return plan._replace(cluster=2 * sk.MAX_CLUSTER,
@@ -824,7 +914,7 @@ def _scan_refusals():
     """Launches of the scan and probe kernels that the card refuses
     (_refused_plan) in place of the real ones: run_chunked and probe
     must raise and return nothing, with no launch counted; restored,
-    both equal the CPU engine's. -> the two errors."""
+    both equal the CPU engine's. -> the errors, by call."""
     import numpy as np
 
     from kubernetes_tpu_torch.kubemark.fixtures import mixed_snapshot
@@ -832,9 +922,12 @@ def _scan_refusals():
     from kubernetes_tpu_torch.sched.device import scan_kernel as sk
 
     enc = encode_snapshot(mixed_snapshot(FILTER_SEED, 64, 8, 10))
+    # 160 pods: K5 a block a pod (8 pods take a cluster of 16 CTAs each)
+    batch = encode_snapshot(mixed_snapshot(FILTER_SEED, 64, 160, 10))
     engine = BatchEngine()
     calls = {"scan": lambda: engine.run_chunked(enc, 8),
-             "probe": lambda: engine.probe(enc)}
+             "probe": lambda: engine.probe(enc),
+             "probe_block": lambda: engine.probe(batch)}
     real = sk._launch
     before = (sk.scan_chunk.launches, sk.probe.launches)
     errors = {}
@@ -859,10 +952,11 @@ def _scan_refusals():
                           cpu.run_chunked(enc, 8)[0]):
         raise AssertionError("the scan after a refused launch differs "
                              "from the CPU engine's")
-    if not all(np.array_equal(x, y) for x, y in zip(engine.probe(enc),
-                                                    cpu.probe(enc))):
-        raise AssertionError("the probe after a refused launch differs "
-                             "from the CPU engine's")
+    for e in (enc, batch):
+        if not all(np.array_equal(x, y) for x, y in zip(engine.probe(e),
+                                                        cpu.probe(e))):
+            raise AssertionError("the probe after a refused launch differs "
+                                 "from the CPU engine's")
     return errors
 
 
@@ -870,7 +964,8 @@ def phase_no_fallback(table):
     """A victim-kernel launch the card refuses, in place of the real one:
     find_victims must raise and return nothing; restored, the search
     equals the oracle again (the context survived). Then the same for
-    the scatter kernel through run_chunked."""
+    the scatter kernel through run_chunked, and the scan and probe
+    kernels (both probe routes)."""
     import numpy as np
 
     from kubernetes_tpu_torch.sched.device import BatchEngine
@@ -881,7 +976,8 @@ def phase_no_fallback(table):
     real = vk._launch
     before = vk.victim_search.launches
     got, error = None, None
-    vk._launch = lambda a, k, s, p: real(a, k, s, p, threads=2048)
+    vk._launch = lambda a, out, plan: real(a, out,
+                                           plan._replace(threads=2048))
     try:
         got = engine.find_victims(table)
     except RuntimeError as e:
@@ -904,6 +1000,7 @@ def phase_no_fallback(table):
             "scatter_raised": True,
             "scan_error": scan_errors["scan"][:200],
             "probe_error": scan_errors["probe"][:200],
+            "probe_block_error": scan_errors["probe_block"][:200],
             "scan_raised": True, "probe_raised": True}
 
 
@@ -1134,6 +1231,8 @@ def main() -> int:
         "bound_ms": preempt["bound_ms"], "bound_by": preempt["bound_by"],
         "library_ms": None, "main_path_ms": preempt["ms"],
         "main_path_bound_ms": preempt["bound_ms"],
+        "plan": preempt["plan"], "one_victim": preempt["one"],
+        "search_split": preempt["search_split"],
         "launch_floor_ms": floor_ms, **rate}, {
         "name": "scan_chunk", "route": "cuda",
         "source": "kubernetes_tpu_torch/sched/device/csrc/scan_kernel.cu",
@@ -1166,6 +1265,7 @@ def main() -> int:
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": None, "main_path_ms": k5_p1["ms"],
         "main_path_bound_ms": k5_p1["bound_ms"],
+        "cluster": k5["cluster"], "main_path_cluster": k5_p1["cluster"],
         "launch_floor_ms": floor_ms, **rate}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -178,6 +178,20 @@ def preempt_pods(spec):
             for name, prio, cpu, mem, zone in spec[2]]
 
 
+def widest_table(tables):
+    """The table the victim kernel is timed on: the widest victim axis,
+    then the most valid victims."""
+    return max(tables, key=lambda t: (t.v, int(t.v_valid.sum())))
+
+
+def preempt_tables(spec=None) -> list:
+    """Every preemptor's VictimTable on the spec's encoder (default: the
+    full-width fixture)."""
+    spec = preempt_spec() if spec is None else spec
+    inc = preempt_encoder(spec)
+    return [inc.victim_table(pod) for pod in preempt_pods(spec)]
+
+
 def preempt_digest(results) -> str:
     """sha256 over victim searches, given as (OracleResult, its
     VictimTable) pairs in order: pick, k*, feasible, the per-node k* and

@@ -311,9 +311,12 @@ def scan_parity(a, weights, anti_weight: int, has_aff: bool,
     """K1 and K5 on ScanArgs `a` (on the card) against their plain
     versions on the same inputs: K1 from two copies of a.state (the
     assignment and every State field must be bit-equal after the
-    chunk), K5 against the unchanged a.state. -> the fields compared,
-    whether all were equal, the largest absolute difference, and the
-    pods the kernel placed. a.state is left as it was."""
+    chunk), K5 against the unchanged a.state on each of its routes: the
+    plan's for the P pods, a block a pod (`sms=1`), and the first pod
+    alone (a cluster of 16 CTAs, or 8). -> the fields compared, whether
+    all were equal, the largest absolute difference, the pods the kernel
+    placed, and the CTAs a pod of each K5 launch. a.state is left as it
+    was."""
     from ..sched.device import scan_kernel as sk
     out = {}
     k_state = type(a.state)(*(t.clone() for t in a.state))
@@ -322,11 +325,20 @@ def scan_parity(a, weights, anti_weight: int, has_aff: bool,
                         has_aff, has_spread)
     want = sk.scan_chunk_plain(a._replace(state=p_state), weights,
                                anti_weight, has_aff, has_spread)
-    mask, total = sk.probe(a, weights, anti_weight, has_aff)
-    p_mask, p_total = sk.probe_plain(a, weights, anti_weight, has_aff)
+    pairs = [("assigned", got, want)]
+    one = a.pod_slice(0, 1)
+    routes = {}
+    for key, b, sms in (("probe", a, None), ("probe_block", a, 1),
+                        ("probe_p1", one, None)):
+        mask, total = sk.probe(b, weights, anti_weight, has_aff, sms)
+        p_mask, p_total = sk.probe_plain(b, weights, anti_weight, has_aff)
+        pairs += [(f"{key}_mask", mask, p_mask),
+                  (f"{key}_total", total, p_total)]
+        routes[key] = sk.launch_plan(
+            sk.PROBE, b.dims(), a.dtype == torch.int64, True, has_aff,
+            bool(anti_weight),
+            sms=sk.card_sms() if sms is None else sms).cluster
     torch.cuda.synchronize(a.device)
-    pairs = [("assigned", got, want), ("probe_mask", mask, p_mask),
-             ("probe_total", total, p_total)]
     pairs += [(f"state.{f}", x, y) for f, x, y in zip(
         a.state._fields, k_state, p_state)]
     err = 0
@@ -335,7 +347,8 @@ def scan_parity(a, weights, anti_weight: int, has_aff: bool,
         if x.numel():
             err = max(err, int((x.long() - y.long()).abs().max()))
     return {"equal": all(out.values()), "max_abs_err": err,
-            "placed": int((got >= 0).sum()), "fields": out}
+            "placed": int((got >= 0).sum()), "fields": out,
+            "probe_clusters": routes}
 
 
 def scan_timing(a, weights, anti_weight: int, has_aff: bool,
@@ -436,20 +449,24 @@ def turns(fns: dict, library=None, device=None) -> dict:
 
 def load_wrappers(root: str) -> dict:
     """Another checkout's `sched/device/{_build,filter_kernel,
-    reject_kernel,scan_kernel}.py` (those it has), loaded as a package
-    of their own beside this checkout's (its kernels build from its own
-    sources into its own `_build/`)."""
+    reject_kernel,scan_kernel,victim_kernel}.py` (those it has), loaded
+    as a package of their own beside this checkout's (its kernels build
+    from its own sources into its own `_build/`). Their parent package
+    holds this checkout's `preemption` (the victim kernel's constants)."""
     import importlib.util
     import sys
+
+    from ..sched import preemption
     pkg_dir = os.path.join(os.path.abspath(root), "kubernetes_tpu_torch",
                            "sched", "device")
-    name = "_other_device_kernels"
-    pkg = types.ModuleType(name)
-    pkg.__path__ = [pkg_dir]
-    sys.modules[name] = pkg
+    parent, name = "_other_sched", "_other_sched.device"
+    for mod, path in ((parent, []), (name, [pkg_dir])):
+        sys.modules[mod] = types.ModuleType(mod)
+        sys.modules[mod].__path__ = path
+    sys.modules[f"{parent}.preemption"] = preemption
     mods = {}
     for mod_name in ("_build", "filter_kernel", "reject_kernel",
-                     "scan_kernel"):
+                     "scan_kernel", "victim_kernel"):
         path = os.path.join(pkg_dir, f"{mod_name}.py")
         if not os.path.exists(path):
             continue
@@ -470,11 +487,13 @@ def section_turns(other_root: str, device=None) -> dict:
     to the plain version. Where the other checkout has the scan kernels,
     also K5 at both shapes, K1 on the snapshot's first 256 pods and K1
     at the e2e's chunk (8192 bench pods on the e2e fleet's 5120 slots),
-    each call restoring the State first. Each kernel's turns carry the
-    SM clock, power and temperature sampled while they ran. The other
-    checkout's wrappers must take the same arguments
-    (`filter_masks(FilterArgs)`, `argsort_rows(x)`, `probe(ScanArgs,
-    ...)`, `scan_chunk(ScanArgs, ...)`)."""
+    each call restoring the State first. Where it has the victim kernel,
+    also K4 on the preempt fixture's widest table (5120 x 16). Each
+    kernel's turns carry the SM clock, power and temperature sampled
+    while they ran. The other checkout's wrappers must take the same
+    arguments (`filter_masks(FilterArgs)`, `argsort_rows(x)`,
+    `probe(ScanArgs, ...)`, `scan_chunk(ScanArgs, ...)`,
+    `victim_search(VictimArgs.from_table(t, device))`)."""
     from ..sched.device import (BatchEngine, encode_snapshot, filter_kernel,
                                 reject_kernel, scan_kernel)
     from .benchmark import _bench_pod
@@ -531,6 +550,17 @@ def section_turns(other_root: str, device=None) -> dict:
             lambda a: e2e_chunk(scan_kernel, a),
             lambda a: e2e_chunk(osk, a), lambda a: e2e_chunk(plain, a),
             fleet, None)
+    if "victim_kernel" in other:
+        # K4 on the preempt fixture's widest table
+        from ..sched.device import victim_kernel as vk
+        from .fixtures import preempt_tables, widest_table
+        ovk = other["victim_kernel"]
+        wide = widest_table(preempt_tables())
+        ta = vk.VictimArgs.from_table(wide, d)
+        oa = ovk.VictimArgs.from_table(wide, d)
+        cases[f"victim_search {wide.n}x{wide.v}"] = (
+            lambda t: vk.victim_search(ta), lambda t: ovk.victim_search(oa),
+            lambda t: vk.victim_search_plain(ta), wide, None)
     out = {"card": card_line(), "kernels": {}}
     for name, (this_fn, other_fn, plain_fn, a, library) in cases.items():
         got = this_fn(a)

@@ -1,0 +1,310 @@
+"""Where the victim search's and the probe's time goes, on the card.
+
+    python -m kubernetes_tpu_torch.kubemark.profile_kernels [--out PATH]
+
+Prints one JSON object (and writes it to PATH when given):
+
+- ``victim_phases``: the victim kernel (K4) on the preempt fixture's
+  widest table (5120 x 16) and a one-victim table, built from a copy of `csrc/victim_kernel.cu` that records, for
+  thread 0 of every CTA, clock64 at the kernel's start, once the node's
+  fields are in (its k = 0 test), once its victims are scanned, after
+  the CTA's first maximum and after the counter, and the globaltimer at
+  its start and after the counter; the last CTA also records its final
+  reduction. Percentiles (0, 50, 100) of each phase in cycles, and the
+  CTAs' start spread and counter times in ns. The copy's device time is
+  given beside the committed kernel's, which it must equal in its
+  answers.
+- ``victim_host``: find_victims' host steps on the widest table, warm
+  and one at a time: packing into pinned memory, queueing the copy,
+  queueing the launch, the launch with its pull, the whole search
+  (median host ms).
+- ``probe_bounds``: the probe kernel's block-a-pod route (K5 at 8192
+  pods x 5000 nodes) in each of its eight instantiations, built from
+  the committed source and from copies that differ only in the slot
+  order (mask first / total first) and the launch bounds (no minimum,
+  2 or 3 blocks an SM), each copy's registers and spills from ptxas and
+  its device time per instantiation: the evidence behind the committed
+  choice.
+
+Every copy is held equal to the plain version before it is timed.
+Copies are written under `kubernetes_tpu_torch/_build/variants/` and
+built there; the committed libraries are untouched.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from ..sched.device import _build
+from ..sched.device import engine as eng
+from ..sched.device import scan_kernel as sk
+from ..sched.device import victim_kernel as vk
+from . import fixtures as fx
+from .gpu_evidence import _cuda, _same, card_line, device_ms, scan_args
+
+VARIANT_DIR = os.path.join(_build.BUILD_DIR, "variants")
+
+
+def _variant(name: str, source: str, edits) -> str:
+    """A copy of `source` with each (old, new) edit applied once."""
+    with open(source) as f:
+        text = f.read()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"{name}: edit anchor found "
+                             f"{text.count(old)} times: {old[:60]!r}")
+        text = text.replace(old, new)
+    path = os.path.join(VARIANT_DIR, name, os.path.basename(source))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _with_source(module, path: str):
+    """Point a wrapper module at another build of its source."""
+    module.SOURCE = path
+    module._library.cache_clear()
+
+
+# --------------------------------------------------------------- K4 phases
+
+_ATOM = """    unsigned prev;
+    asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;"
+                 : "=r"(prev) : "l"(a.done) : "memory");
+    last = prev == gridDim.x - 1;"""
+_HEAD = ("__global__ void __launch_bounds__(VICTIM_BLOCK_THREADS)\n"
+         "victim_kernel(const VictimParams a) {\n")
+# per CTA: 0 start, 1 node fields in, 2 victims scanned, 3 first maximum,
+# 4 counter, 5 last CTA's end (clock64); 6 start, 7 counter (globaltimer)
+_SLOTS = 8
+
+
+def _phase_edits():
+    rec = "victim_dbg[blockIdx.x * 8 + %d]"
+    return [
+        ("#define SCORE_STRIDE (2 * PMAX + 2)\n",
+         "#define SCORE_STRIDE (2 * PMAX + 2)\n"
+         "__device__ long long victim_dbg[8 * 4096];\n"
+         "__device__ __forceinline__ long long gtime() {\n"
+         "  long long t;\n"
+         "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+         "  return t;\n}\n"),
+        (_HEAD, _HEAD + "  if (threadIdx.x == 0) {\n"
+         f"    {rec % 0} = clock64();\n    {rec % 6} = gtime();\n"
+         f"    {rec % 5} = 0;\n  }}\n"),
+        ("  int k0 = cand && fits_after(a, pc, pcap, cc, mc, cu, mu, 0, 0, 0)"
+         " ? 0 : -1;\n",
+         "  int k0 = cand && fits_after(a, pc, pcap, cc, mc, cu, mu, 0, 0, 0)"
+         " ? 0 : -1;\n"
+         f"  if (threadIdx.x == 0) {rec % 1} = clock64() + (k0 > 99);\n"),
+        ("  ks = 0;\n  sc = -1;\n",
+         f"  if (threadIdx.x == 0) {rec % 2} = clock64() + (nv > 999);\n"
+         "  ks = 0;\n  sc = -1;\n"),
+        ("  block_best(best, best_j);\n  __shared__ bool last;",
+         "  block_best(best, best_j);\n"
+         f"  if (threadIdx.x == 0) {rec % 3} = clock64();\n"
+         "  __shared__ bool last;"),
+        (_ATOM, _ATOM + f"\n    {rec % 4} = clock64();"
+         f"\n    {rec % 7} = gtime();"),
+        ("    a.pick[0] = best_j;\n    *a.done = 0;",
+         "    a.pick[0] = best_j;\n    *a.done = 0;"
+         f"\n    {rec % 5} = clock64();"),
+        ("extern \"C\" const char* victim_error_name(int err) {",
+         "extern \"C\" int victim_dbg_read(void* out, int n) {\n"
+         "  return (int)cudaMemcpyFromSymbol(out, victim_dbg, 8 * (size_t)n);"
+         "\n}\n\nextern \"C\" const char* victim_error_name(int err) {"),
+    ]
+
+
+def _pct(x) -> list:
+    return [float(v) for v in np.percentile(x, [0, 50, 100])]
+
+
+def victim_phases(device) -> dict:
+    tables = fx.preempt_tables()
+    wide = fx.widest_table(tables)
+    one = min(tables, key=lambda t: (t.v, -int(t.v_valid.sum())))
+    real = vk.SOURCE
+    copy = _variant("victim_phases", real, _phase_edits())
+    _build.build_all([real, copy])
+    out = {}
+    try:
+        for label, t in (("wide", wide), ("one_victim", one)):
+            args = vk.VictimArgs.from_table(t, device)
+            plan = vk.launch_plan(t.n, t.v, vk.card_sms())
+            want = vk.victim_search_plain(args)
+            rec = {"shape": [t.n, t.v], "plan": list(plan)}
+            for name, path in (("committed", real), ("instrumented", copy)):
+                _with_source(vk, path)
+                if not _same(vk.victim_search(args), want):
+                    raise AssertionError(f"{name} victim kernel differs "
+                                         f"from its plain version")
+                rec[f"{name}_ms"] = device_ms(lambda: vk.victim_search(args))
+            torch.cuda.synchronize()
+            vk.victim_search(args)
+            torch.cuda.synchronize()
+            buf = (ctypes.c_longlong * (_SLOTS * plan.grid))()
+            err = vk._library().victim_dbg_read(buf, _SLOTS * plan.grid)
+            if err:
+                raise RuntimeError(f"reading the phases: CUDA error {err}")
+            d = np.array(list(buf), dtype=np.int64).reshape(plan.grid,
+                                                              _SLOTS)
+            last = d[d[:, 5] != 0]           # only the last CTA sets it
+            rec.update(
+                node_fields_cycles=_pct(d[:, 1] - d[:, 0]),
+                victims_scan_cycles=_pct(d[:, 2] - d[:, 1]),
+                first_max_cycles=_pct(d[:, 3] - d[:, 2]),
+                counter_cycles=_pct(d[:, 4] - d[:, 3]),
+                last_cta_reduce_cycles=int(last[0, 5] - last[0, 4]),
+                start_spread_ns=int(d[:, 6].max() - d[:, 6].min()),
+                counter_done_ns=_pct(d[:, 7] - d[:, 6].min()))
+            out[label] = rec
+    finally:
+        _with_source(vk, real)
+    return out
+
+
+def _host_ms(fn, reps: int = 30) -> float:
+    """Median host ms of fn() after warm-up, the card idle between."""
+    import time
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def victim_host(device) -> dict:
+    """find_victims' host steps on the widest table, warm, one at a time
+    (the preempt phase runs each search cold, after a victim_table
+    cut): packing into pinned memory, the copy queued, the launch
+    queued, the pull, and the whole search."""
+    from ..sched.device import BatchEngine
+    t = fx.widest_table(fx.preempt_tables(fx.preempt_spec(n_preemptors=12)))
+    staged = vk.VictimArgs.stage(t, pin=True)
+    args = staged.to_device(device)
+    engine = BatchEngine(device=device)
+    return {"shape": [t.n, t.v],
+            "stage_ms": _host_ms(lambda: vk.VictimArgs.stage(t, pin=True)),
+            "to_device_ms": _host_ms(lambda: staged.to_device(device)),
+            "launch_ms": _host_ms(lambda: vk.victim_search(args)),
+            "search_and_pull_ms": _host_ms(
+                lambda: vk.victim_search(args).flat().cpu()),
+            "find_victims_ms": _host_ms(lambda: engine.find_victims(t))}
+
+
+# ------------------------------------------------ K5's block-a-pod route
+
+_LB = "__global__ void __launch_bounds__(PROBE_BLOCK_THREADS)\nprobe_kernel("
+_TOTAL_FIRST = """    const T t = node_total<T, true>(a, p, s, n, n);
+    const bool m = fits<T, HAS_AFF>(a, p, s, n, n);
+"""
+_MASK_FIRST = """    const bool m = fits<T, HAS_AFF>(a, p, s, n, n);
+    const T t = node_total<T, true>(a, p, s, n, n);
+"""
+_PICK = "      if constexpr (sizeof(T) == 8 && HAS_AFF && ANTI)\n"
+
+
+def _bounds_variants(real: str) -> dict:
+    """Copies with one order and one bound for every instantiation."""
+    out = {}
+    for order, body in (("total_first", _TOTAL_FIRST),
+                        ("mask_first", _MASK_FIRST)):
+        for minimum in (0, 2, 3):
+            lb = _LB if not minimum else _LB.replace(
+                "(PROBE_BLOCK_THREADS)", f"(PROBE_BLOCK_THREADS, {minimum})")
+            name = f"{order}_min{minimum}"
+            out[name] = _variant(name, real, [
+                (_TOTAL_FIRST, body), (_LB, lb),
+                (_PICK, "      if constexpr (false)\n")])
+    return out
+
+
+def _ptxas(log: str) -> dict:
+    """{probe_kernel instantiation: [registers, spill stores]}."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m[1] if "probe_kernel" in m[1] else None
+            if name:
+                out[name] = [0, 0]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[name][1] = int(m[1])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][0] = int(m[1])
+    return out
+
+
+def probe_bounds(device, p: int = 8192, n: int = 5000) -> dict:
+    real = sk.SOURCE
+    copies = _bounds_variants(real)
+    logs = {r["source"]: r["log"]
+            for r in _build.build_all([real, *copies.values()])}
+    inst = {}
+    for wide in (False, True):
+        for aff in (False, True):
+            for anti in (False, True):
+                tables = fx.scan_tables(3 + 4 * wide + 2 * aff + anti, p, n,
+                                        wide, 2, 3 if aff else 0,
+                                        2 if anti else 0)
+                a = scan_args(*(eng._upload(t, device) for t in tables))
+                inst[sk.variant(wide, True, aff, anti)] = (
+                    a, ((1, 1, 1), 2 if anti else 0, aff))
+    out = {}
+    try:
+        for name, path in [("committed", real)] + list(copies.items()):
+            _with_source(sk, path)
+            rec = {"ptxas": _ptxas(logs[path]) if logs[path] else None,
+                   "ms": {}}
+            for code, (a, flags) in inst.items():
+                head = a.pod_slice(0, 64)
+                if not _same(sk.probe(head, *flags, sms=1),
+                             sk.probe_plain(head, *flags)):
+                    raise AssertionError(f"{name}: probe {code} differs "
+                                         f"from its plain version")
+                rec["ms"][code] = device_ms(lambda: sk.probe(a, *flags,
+                                                             sms=1))
+            out[name] = rec
+    finally:
+        _with_source(sk, real)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="", help="also write the JSON here")
+    args = ap.parse_args(argv)
+    device = _cuda(None)
+    doc = {"card": card_line(), "victim_phases": victim_phases(device),
+           "victim_host": victim_host(device),
+           "probe_bounds": probe_bounds(device)}
+    text = json.dumps(doc, default=str)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

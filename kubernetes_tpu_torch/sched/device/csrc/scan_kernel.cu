@@ -81,9 +81,16 @@
 // Ceiling: C SMs of the card's 132, so the whole-card bound stays out of
 // reach (~8x at C = 16); the speculative engine (K6, queued) is the
 // card-wide route.
-// K5: one block (PROBE_BLOCK_THREADS threads) a pod, the same body read
-// from the tables, a block max for the group and a shared-memory zone
-// histogram, no commit.
+// K5: a cluster of C CTAs a pod (C in 1, 2, 4, 8, 16, so that P x C
+// covers the card's SMs: 16 at the extender's one pod, 1 for a batch of
+// 132 or more; scan_kernel.launch_plan), the node axis split over the
+// CTAs as K1 splits it, the same body read from the tables, no commit.
+// Two phases in one launch: each CTA's part of the spread group's max
+// and, with ServiceAntiAffinity, of the zone histogram of the fitting
+// slots; one cluster barrier and the partials read over distributed
+// shared memory (the helpers K1 uses); then the totals. At C = 1 (a
+// batch of 132 pods or more) it is one block a pod: the group max, then
+// the mask and totals, and with ANTI a second pass.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC; scan_launch and scan_max_clusters are the plain-C
@@ -576,6 +583,32 @@ __device__ int block_max(int v, int* red) {
   return red[32];
 }
 
+// The cluster's reductions, shared by K1 and K5: each CTA has published
+// its partial (a group max in `slot`, a zone histogram in `zl`) in its
+// own shared memory before a cluster barrier; these read every CTA's
+// over distributed shared memory. Max and integer sums are exact in any
+// order.
+__device__ __forceinline__ int cluster_read_max(cg::cluster_group& cl,
+                                                int* slot) {
+  const int lane = threadIdx.x & 31;
+  return warp_max(lane < (int)cl.num_blocks()
+                      ? *cl.map_shared_rank(slot, lane) : INT_MIN);
+}
+
+// the cluster's zone histogram into `ztot` (this CTA's shared memory),
+// complete for every thread of the CTA on return
+__device__ __forceinline__ void cluster_sum_zones(cg::cluster_group& cl,
+                                                  int* zl, int* ztot,
+                                                  int Z) {
+  const int C = (int)cl.num_blocks();
+  for (int z = threadIdx.x; z < Z; z += blockDim.x) {
+    int sum = 0;
+    for (int r = 0; r < C; ++r) sum += cl.map_shared_rank(zl, r)[z];
+    ztot[z] = sum;
+  }
+  __syncthreads();
+}
+
 // (c, j) beats (d, i): the larger composite, then the smaller slot
 template <typename T>
 __device__ __forceinline__ bool beats(T c, int j, T d, int i) {
@@ -761,8 +794,8 @@ scan_kernel(const Params<T> a) {
       m = block_max(m, red_m);
       if (threadIdx.x == 0) gmax[n_max & 1] = m;
       cl.sync();
-      m = lane < C ? *cl.map_shared_rank(&gmax[n_max & 1], lane) : INT_MIN;
-      p.maxc = max(warp_max(m), a.offgrid_max[p.gid]);
+      p.maxc = max(cluster_read_max(cl, &gmax[n_max & 1]),
+                   a.offgrid_max[p.gid]);
       ++n_max;
     }
 
@@ -790,12 +823,7 @@ scan_kernel(const Params<T> a) {
         }
       }
       cl.sync();
-      for (int z = threadIdx.x; z < a.Z; z += nthreads) {
-        int sum = 0;
-        for (int r = 0; r < C; ++r) sum += cl.map_shared_rank(zl, r)[z];
-        ztot[z] = sum;
-      }
-      __syncthreads();
+      cluster_sum_zones(cl, zl, ztot, a.Z);
       p.zones = ztot;
       for (int i = first; i < ns; i += nscore) {
         const int n = lo + i;
@@ -893,9 +921,16 @@ scan_kernel(const Params<T> a) {
   cl.sync();                        // no CTA leaves while read remotely
 }
 
+// K5, one block a pod (the batch shape): the group max first, then the
+// mask and totals, and with ANTI a second pass once the zone histogram
+// of the fitting slots is complete. A slot's total is computed before
+// its mask (its f64 chain runs while the mask resolves, as in K1), and
+// the int64 instantiation with affinity and ANTI is bound to two blocks
+// an SM: of the orders and bounds kubemark/profile_kernels.py builds,
+// the fastest in each instantiation under which ptxas spills nothing
+// (PERF.md section 6).
 template <typename T, bool HAS_AFF, bool ANTI>
-__global__ void __launch_bounds__(PROBE_BLOCK_THREADS)
-probe_kernel(const Params<T> a) {
+__device__ __forceinline__ void probe_block(const Params<T>& a) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int red_max[33];
   const int k = blockIdx.x;
@@ -919,9 +954,10 @@ probe_kernel(const Params<T> a) {
   uint8_t* mask = a.mask + (size_t)k * a.N;
   T* total = a.total + (size_t)k * a.N;
   for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
+    const T t = node_total<T, true>(a, p, s, n, n);
     const bool m = fits<T, HAS_AFF>(a, p, s, n, n);
     mask[n] = m;
-    total[n] = node_total<T, true>(a, p, s, n, n);
+    total[n] = t;
     if (ANTI && m) add_zone(a, p, s, n, n, zones);
   }
   if (ANTI) {
@@ -929,6 +965,94 @@ probe_kernel(const Params<T> a) {
     for (int n = threadIdx.x; n < a.N; n += blockDim.x)
       total[n] = wadd(total[n], wmul(a.w_anti, anti_score(p, s, n)));
   }
+}
+
+template <typename T, bool HAS_AFF, bool ANTI>
+__global__ void __launch_bounds__(PROBE_BLOCK_THREADS)
+probe_kernel(const Params<T> a) {
+  probe_block<T, HAS_AFF, ANTI>(a);
+}
+
+// the same at two blocks an SM (the int64 instantiation with affinity
+// and ANTI)
+template <typename T, bool HAS_AFF, bool ANTI>
+__global__ void __launch_bounds__(PROBE_BLOCK_THREADS, 2)
+probe_kernel_2(const Params<T> a) {
+  probe_block<T, HAS_AFF, ANTI>(a);
+}
+
+// barrier.cluster split in two: this CTA is done reading the others'
+// shared memory (arrive), and none of them still reads its own (wait)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// K5 over a cluster (few pods): pod k = blockIdx.x / C on the C CTAs of
+// one cluster, CTA r owning slots [r * S, r * S + S), S = ceil(N / C),
+// thread t the slots from r * S + t every blockDim.x. Phase 1: its part
+// of the spread group's max and, with ANTI, the mask and the zone
+// histogram of the fitting slots; the partials reduced over the cluster
+// (one barrier, distributed shared memory); phase 2: the totals (and
+// without ANTI the mask).
+template <typename T, bool HAS_AFF, bool ANTI>
+__global__ void __launch_bounds__(PROBE_BLOCK_THREADS, 1)
+probe_cluster_kernel(const Params<T> a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int red_max[33];
+  __shared__ int part_max;          // this CTA's part of the group max
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int k = blockIdx.x / C;
+  const int S = (a.N + C - 1) / C, lo = rank * S;
+  const int ns = max(0, min(a.N - lo, S));
+  const int E = pod_words<T, true, HAS_AFF, ANTI>(a);
+  uint32_t* row = (uint32_t*)smem;
+  int* zones = (int*)(row + E);     // [Z] this CTA's histogram
+  int* ztot = zones + a.Z;          // [Z] the pod's
+  for (int e = threadIdx.x; e < E; e += blockDim.x)
+    row[e] = pod_word<T, true, HAS_AFF, ANTI>(a, k, e);
+  if (ANTI)
+    for (int z = threadIdx.x; z < a.Z; z += blockDim.x) zones[z] = 0;
+  __syncthreads();
+  Pod<T> p = read_pod<T, true, HAS_AFF, ANTI>(a, row);
+  const GlobalSlots<T> s{a};
+  uint8_t* mask = a.mask + (size_t)k * a.N;
+  T* total = a.total + (size_t)k * a.N;
+  const bool spread = p.group_id >= 0;
+  const bool exchange = spread || ANTI;   // the same for the whole pod
+  if (exchange) {
+    int m = INT_MIN;
+    for (int i = threadIdx.x; i < ns; i += blockDim.x) {
+      const int n = lo + i;
+      if (spread) m = max(m, a.spread[(size_t)p.gid * a.N + n]);
+      if (ANTI) {
+        const bool f = fits<T, HAS_AFF>(a, p, s, n, n);
+        mask[n] = f;
+        if (f) add_zone(a, p, s, n, n, zones);
+      }
+    }
+    if (spread) m = block_max(m, red_max);
+    if (threadIdx.x == 0) part_max = m;
+    cl.sync();                      // every CTA's partials published
+    if (spread) p.maxc = max(cluster_read_max(cl, &part_max),
+                             a.offgrid_max[p.gid]);
+    if (ANTI) cluster_sum_zones(cl, zones, ztot, a.Z);
+    cluster_arrive();
+  }
+  p.zones = ztot;
+  for (int i = threadIdx.x; i < ns; i += blockDim.x) {
+    const int n = lo + i;
+    T t = node_total<T, true>(a, p, s, n, n);
+    if (ANTI)
+      t = wadd(t, wmul(a.w_anti, anti_score(p, s, n)));
+    else
+      mask[n] = fits<T, HAS_AFF>(a, p, s, n, n);
+    total[n] = t;
+  }
+  if (exchange) cluster_wait();
 }
 
 template <typename T>
@@ -1001,14 +1125,15 @@ static Params<T> unpack(const long long* d, const unsigned long long* q) {
 
 // bytes of dynamic shared memory each kernel needs (scan_kernel.py
 // shared_bytes): K1 its slots, the ring of three pod rows and the zone
-// partials and sums; K5 one pod row and the zone histogram
+// partials and sums; K5 one pod row and the zone histogram (on a
+// cluster, its CTA's part and the pod's sum)
 template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
 static long long need_bytes(int kind, const long long* d, int cluster) {
   const long long W = sizeof(T) / 4;
   const long long E = 5 + 4 * W + d[DIM_L] + d[DIM_PW] + 4 * d[DIM_K]
                       + (HAS_AFF ? 3 * d[DIM_T] : 0)
                       + (HAS_SPREAD ? d[DIM_G] : 0) + (ANTI ? d[DIM_S] : 0);
-  if (kind == 1) return 4 * (E + d[DIM_Z]);
+  if (kind == 1) return 4 * (E + (cluster > 1 ? 2 : 1) * d[DIM_Z]);
   const long long S = (d[DIM_N] + cluster - 1) / cluster;
   return S * slot_bytes<T>(d[DIM_L], d[DIM_PW], d[DIM_K])
          + 4 * (3 * E + 3 * d[DIM_Z]);
@@ -1031,11 +1156,11 @@ static cudaError_t set_attributes(K kernel, size_t smem, bool cluster,
   return err;
 }
 
-static cudaLaunchConfig_t cluster_config(int cluster, int threads,
+static cudaLaunchConfig_t cluster_config(int grid, int cluster, int threads,
                                          size_t smem, cudaStream_t stream,
                                          cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
+  cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -1048,40 +1173,65 @@ static cudaLaunchConfig_t cluster_config(int cluster, int threads,
   return cfg;
 }
 
-// op 0: launch K1 (one cluster of `cluster` CTAs); op 1: launch K5 (one
-// block a pod); op 2: the number of K1 clusters of that shape the card
-// can hold at once, into *count (no launch)
+// op 0: launch K1 (one cluster of `cluster` CTAs); op 1: launch K5 (a
+// cluster of `cluster` CTAs a pod); ops 2 and 3: the number of K1's, K5's
+// clusters of that shape the card can hold at once, into *count (no
+// launch)
 template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
 static cudaError_t dispatch(int op, int cluster, int threads, size_t smem,
                             const long long* dims,
                             const unsigned long long* ptrs,
                             cudaStream_t stream, int* count) {
-  const int kind = op == 1 ? 1 : 0;
-  if (op != 2 && (long long)smem < need_bytes<T, HAS_SPREAD, HAS_AFF, ANTI>(
-                                       kind, dims, cluster))
+  const int kind = op == 1 || op == 3 ? 1 : 0;
+  if (op < 2 && (long long)smem < need_bytes<T, HAS_SPREAD, HAS_AFF, ANTI>(
+                                      kind, dims, cluster))
     return cudaErrorInvalidValue;
-  static long long set[2] = {-1, -1};   // K1's, K5's attributes
+  static long long set[3] = {-1, -1, -1};   // K1's, K5's two kernels'
   cudaError_t err;
-  if (op == 1) {
+  cudaLaunchAttribute attr;
+  if (kind == 1) {
     if (!HAS_SPREAD) return cudaErrorInvalidValue;   // probes score spread
-    err = set_attributes(probe_kernel<T, HAS_AFF, ANTI>, smem, false,
-                         &set[1]);
+    if (cluster == 1) {             // one block a pod
+      if (op == 3) return cudaErrorInvalidValue;
+      void (*kernel)(const Params<T>);
+      if constexpr (sizeof(T) == 8 && HAS_AFF && ANTI)
+        kernel = probe_kernel_2<T, HAS_AFF, ANTI>;
+      else
+        kernel = probe_kernel<T, HAS_AFF, ANTI>;
+      err = set_attributes(kernel, smem, false, &set[1]);
+      if (err != cudaSuccess) return err;
+      const Params<T> a = unpack<T>(dims, ptrs);
+      kernel<<<a.P, threads, smem, stream>>>(a);
+      return cudaGetLastError();
+    }
+    auto kernel = probe_cluster_kernel<T, HAS_AFF, ANTI>;
+    err = set_attributes(kernel, smem, true, &set[2]);
     if (err != cudaSuccess) return err;
+    if (op == 3) {
+      cudaLaunchConfig_t cfg = cluster_config(cluster, cluster, threads,
+                                              smem, nullptr, &attr);
+      return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+    }
     const Params<T> a = unpack<T>(dims, ptrs);
-    probe_kernel<T, HAS_AFF, ANTI><<<a.P, threads, smem, stream>>>(a);
-    return cudaGetLastError();
+    if ((long long)a.P * cluster > INT_MAX) return cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg = cluster_config(a.P * cluster, cluster, threads,
+                                            smem, stream, &attr);
+    // a refused launch also leaves its error as the last one: clear it
+    err = cudaLaunchKernelEx(&cfg, kernel, a);
+    const cudaError_t last = cudaGetLastError();
+    return err != cudaSuccess ? err : last;
   }
   auto kernel = scan_kernel<T, HAS_SPREAD, HAS_AFF, ANTI>;
   err = set_attributes(kernel, smem, true, &set[0]);
   if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(cluster, threads, smem, stream,
-                                          &attr);
+  cudaLaunchConfig_t cfg = cluster_config(cluster, cluster, threads, smem,
+                                          stream, &attr);
   if (op == 2) return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
   const Params<T> a = unpack<T>(dims, ptrs);
+  // a refused launch also leaves its error as the last one: clear it
   err = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 static int by_variant(int op, int variant, int cluster, int threads,
@@ -1109,7 +1259,7 @@ static int by_variant(int op, int variant, int cluster, int threads,
 }
 
 // kind 0: K1 over a chunk (one cluster of `cluster` CTAs); kind 1: K5
-// (one block a pod; `cluster` unused). variant: bit 3 the int64 layout,
+// (a cluster of `cluster` CTAs a pod, 1: one block a pod). variant: bit 3 the int64 layout,
 // bit 2 the spread tier, bit 1 the affinity tier, bit 0
 // ServiceAntiAffinity (scan_kernel.launch_plan).
 extern "C" int scan_launch(int kind, int variant, int cluster, int threads,
@@ -1123,16 +1273,18 @@ extern "C" int scan_launch(int kind, int variant, int cluster, int threads,
 }
 
 // how many clusters of `cluster` CTAs of `threads` threads and `smem`
-// bytes of dynamic shared memory each the card can run at once for K1's
-// instantiation `variant` (cudaOccupancyMaxActiveClusters): 0 when it
-// cannot schedule one. -> the CUDA error code.
+// bytes of dynamic shared memory each the card can run at once for the
+// instantiation `variant` of K1, or of K5 with bit 4 of `variant` set
+// (cudaOccupancyMaxActiveClusters): 0 when it cannot schedule one. ->
+// the CUDA error code.
 extern "C" int scan_max_clusters(int variant, int cluster, int threads,
                                  long long smem, int* count) {
   *count = 0;
-  if (cluster < 1 || smem < 0 || smem > SCAN_MAX_SHARED_BYTES)
+  if (cluster < 1 || smem < 0 || smem > SCAN_MAX_SHARED_BYTES
+      || variant < 0 || variant > 31)
     return (int)cudaErrorInvalidValue;
-  return by_variant(2, variant, cluster, threads, (size_t)smem, nullptr,
-                    nullptr, nullptr, count);
+  return by_variant(variant & 16 ? 3 : 2, variant & 15, cluster, threads,
+                    (size_t)smem, nullptr, nullptr, nullptr, count);
 }
 
 extern "C" const char* scan_error_name(int err) {

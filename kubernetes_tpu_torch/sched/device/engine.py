@@ -288,6 +288,16 @@ class BatchEngine:
         # launch's own host time where the device waits on it
         self.scan_stats = {"runs": 0, "steps": 0, "seconds": 0.0,
                            "eager_steps": 0, "device_ms": 0.0}
+        # find_victims accounting, one search at a time: host seconds to
+        # pack the table and queue its one copy (pack_s), to queue the
+        # launch (launch_s) and for the one pull that waits for both
+        # (pull_s); on the card, ms between CUDA events around the copy
+        # (upload_ms) and around the launch (kernel_ms), read after the
+        # pull; the launch's pair also counts the host's time to queue it
+        # where the device waits on the host
+        self.victim_stats = {"searches": 0, "pack_s": 0.0, "launch_s": 0.0,
+                             "pull_s": 0.0, "upload_ms": 0.0,
+                             "kernel_ms": 0.0}
 
     @property
     def n_shards(self) -> int:
@@ -616,10 +626,35 @@ class BatchEngine:
         (incremental.victim_table) through the victim kernel. Returns an
         OracleResult whose fields must be bit-equal to
         sched.preemption.oracle_find_victims(table) at every shape. One
-        launch, one host pull after it. A refused launch raises."""
-        pick, kstar, score = victim_kernel.victim_search(
-            victim_kernel.VictimArgs.from_table(table, self.device))
-        out = torch.cat([pick.reshape(1), kstar, score]).cpu().numpy()
+        upload of the packed table, one launch, one pull of pick, kstar
+        and score together. A refused launch raises."""
+        stats = self.victim_stats
+        events = None
+        if self.device.type == "cuda":
+            events = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(3)]
+        t0 = time.monotonic()
+        staged = victim_kernel.VictimArgs.stage(
+            table, pin=self.device.type == "cuda")
+        if events:
+            events[0].record()
+        args = staged.to_device(self.device)
+        t1 = time.monotonic()
+        if events:
+            events[1].record()
+        res = victim_kernel.victim_search(args)
+        if events:
+            events[2].record()
+        t2 = time.monotonic()
+        out = res.flat().cpu().numpy()
+        t3 = time.monotonic()
+        stats["searches"] += 1
+        stats["pack_s"] += t1 - t0
+        stats["launch_s"] += t2 - t1
+        stats["pull_s"] += t3 - t2
+        if events:
+            stats["upload_ms"] += events[0].elapsed_time(events[1])
+            stats["kernel_ms"] += events[1].elapsed_time(events[2])
         n = table.n
         pick = int(out[0])
         kstar, score = out[1:1 + n], out[1 + n:]

@@ -25,11 +25,17 @@ keeps its slots' fixed-width fields in shared memory for the whole
 chunk, and a pod costs no cluster-wide barrier on the node-local tier
 (each CTA pushes its best (composite, slot) into every CTA's shared
 memory with st.async, counted off an mbarrier there); the CTA's last
-warp stages the next pod's row. K5 is one block a pod. Templated on the
-carried integer type (int32 when the encoder narrowed, int64 otherwise)
-and the tiers (spread, inter-pod affinity, ServiceAntiAffinity): the
-launch plan picks the instantiation, the cluster size, the slots a CTA
-and its shared memory.
+warp stages the next pod's row. K5 splits each pod's nodes over a
+cluster of C CTAs where the pods are few (C from 16 at one pod to 1 at
+132 pods or more, so that the clusters cover the card's SMs): each CTA
+reduces its part of the spread group's max and of the
+ServiceAntiAffinity zone histogram, the cluster combines them over
+distributed shared memory, then every CTA scores its slots; at C = 1 it
+is one block a pod. Templated on the carried integer type (int32 when
+the encoder narrowed, int64 otherwise) and the tiers (spread, inter-pod
+affinity, ServiceAntiAffinity): the launch plan picks the
+instantiation, the cluster size, the slots a CTA and its shared
+memory.
 
 Bound: operations (`bounds.scan_ops` / `probe_ops`, INT32 and FP64
 instructions an element). K1 runs on C SMs of the card's 132, so it is
@@ -62,6 +68,13 @@ MAX_SHARED_BYTES = 232448  # SCAN_MAX_SHARED_BYTES
 MAX_CLUSTER = 16           # SCAN_MAX_CLUSTER
 # K1's cluster sizes, the largest first: 16 is non-portable, 8 portable
 CLUSTERS = (MAX_CLUSTER, 8)
+# K5's cluster sizes: the CTAs a pod's nodes are split over
+PROBE_CLUSTERS = (1, 2, 4, 8, MAX_CLUSTER)
+# bit of the instantiation code that asks scan_max_clusters about K5
+PROBE_CODE = 16
+# SMs of an H100 SXM: what K5's plan covers unless given the card's own
+# count (scan_kernel.probe passes it)
+CARD_SMS = 132
 # pods per block of the plain probe: bounds its [B, N, W] temporaries
 PROBE_BLOCK = 512
 
@@ -459,9 +472,10 @@ class LaunchPlan(NamedTuple):
     """What scan_launch is given besides the addresses and sizes: the
     kernel (SCAN or PROBE), the instantiation (bit 3 int64, bit 2 the
     spread tier, bit 1 the affinity tier, bit 0 ServiceAntiAffinity),
-    the grid, the threads a block, the dynamic shared memory, and for K1
-    the CTAs of its one cluster (the grid) and the slots each owns (1
-    and 0 for K5)."""
+    the grid, the threads a block, the dynamic shared memory, the CTAs
+    of a cluster (K1: its one cluster, the grid; K5: a pod's, the grid
+    P times that) and the slots each CTA owns (K5 at 1 CTA a pod: 0,
+    its block walks them all)."""
     kind: int
     variant: int
     grid: int
@@ -499,10 +513,11 @@ def shared_bytes(kind: int, d: dict, wide: bool, has_spread: bool,
                  has_aff: bool, anti: bool, cluster: int = 1) -> int:
     """Dynamic shared memory of a block: for K1 a CTA's slots, a ring of
     three pod rows and the zone partials (two) and sums; for K5 one pod
-    row and the zone histogram."""
+    row and the zone histogram (on a cluster, the CTA's part and the
+    pod's sum)."""
     e = pod_words(d, wide, has_spread, has_aff, anti)
     if kind == PROBE:
-        return 4 * (e + d["z"])
+        return 4 * (e + (2 if cluster > 1 else 1) * d["z"])
     slots = -(-d["n"] // cluster)
     return slots * slot_bytes(d, wide) + 4 * (3 * e + 3 * d["z"])
 
@@ -514,44 +529,72 @@ def cta_threads(slots: int) -> int:
     return min(SCAN_THREADS, max(32, -(-slots // 32) * 32) + 32)
 
 
+def probe_cluster(p: int, sms: int) -> int:
+    """K5's CTAs a pod: the fewest of PROBE_CLUSTERS with which P pods'
+    clusters cover `sms` SMs, the largest when none does."""
+    for c in PROBE_CLUSTERS:
+        if p * c >= sms:
+            return c
+    return PROBE_CLUSTERS[-1]
+
+
+def probe_threads(n: int, cluster: int) -> int:
+    """Threads of a K5 CTA: PROBE_THREADS for a block a pod, else one a
+    slot of its share in whole warps, PROBE_THREADS at most."""
+    if cluster == 1:
+        return PROBE_THREADS
+    per_cta = -(-n // cluster)
+    return min(PROBE_THREADS, max(32, -(-per_cta // 32) * 32))
+
+
 def launch_plan(kind: int, d: dict, wide: bool, has_spread: bool,
                 has_aff: bool, anti: bool,
                 max_clusters: Optional[Callable[[int, int, int, int], int]]
-                = None) -> LaunchPlan:
+                = None, sms: int = CARD_SMS) -> LaunchPlan:
     """The plan for K1 (one cluster over the chunk's slots) or K5 (a
-    block of PROBE_THREADS a pod, the spread tier always on) over sizes
-    `d` (ScanArgs.dims). K1 takes the largest cluster size of CLUSTERS
-    whose CTAs fit their slots in shared memory and of which the card
-    can run a cluster: `max_clusters(variant, cluster, threads, smem)`
-    (default: the card's own answer, `max_active_clusters`). Raises
-    ValueError when no size fits."""
+    cluster of probe_cluster(P, sms) CTAs a pod, the spread tier always
+    on) over sizes `d` (ScanArgs.dims). Each takes the first cluster size
+    of its candidates whose CTAs fit their shared memory and of which
+    the card can run a cluster: `max_clusters(code, cluster, threads,
+    smem)` (default: the card's own answer, `max_active_clusters`; K5's
+    code carries PROBE_CODE; a K5 block a pod asks nothing). K1's
+    candidates are CLUSTERS; K5's its cluster size, and 8 where that is
+    16. Raises ValueError when none fits."""
     if kind == PROBE:
         has_spread = True
     code = variant(wide, has_spread, has_aff, anti)
-    if kind == PROBE:
-        smem = shared_bytes(PROBE, d, wide, True, has_aff, anti)
-        if smem > MAX_SHARED_BYTES:
-            raise ValueError(f"scan: {smem} bytes of shared memory a block "
-                             f"exceed {MAX_SHARED_BYTES}")
-        return LaunchPlan(PROBE, code, d["p"], PROBE_THREADS, smem, 1, 0)
     if max_clusters is None:
         max_clusters = max_active_clusters
+    if kind == PROBE:
+        first = probe_cluster(d["p"], sms)
+        sizes = (first, 8) if first == MAX_CLUSTER else (first,)
+    else:
+        sizes = CLUSTERS
     refused = []
-    for cluster in CLUSTERS:
+    for cluster in sizes:
         slots = -(-d["n"] // cluster)
-        threads = cta_threads(slots)
-        smem = shared_bytes(SCAN, d, wide, has_spread, has_aff, anti,
+        if kind == PROBE:
+            threads = probe_threads(d["n"], cluster)
+            ask = code | PROBE_CODE
+        else:
+            threads, ask = cta_threads(slots), code
+        smem = shared_bytes(kind, d, wide, has_spread, has_aff, anti,
                             cluster)
         if smem > MAX_SHARED_BYTES:
             refused.append(f"{cluster} CTAs: {smem} bytes of shared memory "
                            f"a CTA exceed {MAX_SHARED_BYTES}")
             continue
-        if max_clusters(code, cluster, threads, smem) < 1:
+        if (kind == SCAN or cluster > 1) \
+                and max_clusters(ask, cluster, threads, smem) < 1:
             refused.append(f"{cluster} CTAs of {threads} threads and {smem} "
                            f"bytes: the card cannot schedule the cluster")
             continue
+        if kind == PROBE:
+            return LaunchPlan(PROBE, code, d["p"] * cluster, threads, smem,
+                              cluster, slots if cluster > 1 else 0)
         return LaunchPlan(SCAN, code, cluster, threads, smem, cluster, slots)
-    raise ValueError(f"scan: no cluster fits {d['n']} slots: "
+    what = "scan" if kind == SCAN else "probe"
+    raise ValueError(f"{what}: no cluster fits {d['n']} slots: "
                      + "; ".join(refused))
 
 
@@ -618,10 +661,21 @@ def _max_active_clusters(device: int, code: int, cluster: int,
 
 def max_active_clusters(code: int, cluster: int, threads: int,
                         smem: int) -> int:
-    """How many K1 clusters of that shape the current card can run at
-    once (cudaOccupancyMaxActiveClusters; 0: none), asked once a shape."""
+    """How many clusters of that shape the current card can run at once
+    (cudaOccupancyMaxActiveClusters; 0: none), asked once a shape: K1's
+    instantiation `code`, or K5's with PROBE_CODE set."""
     return _max_active_clusters(torch.cuda.current_device(), code, cluster,
                                 threads, smem)
+
+
+def card_sms() -> int:
+    """SMs of the current card."""
+    return _card_sms(torch.cuda.current_device())
+
+
+@functools.cache
+def _card_sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(plan: LaunchPlan, dims: np.ndarray, ptrs: np.ndarray,
@@ -676,11 +730,14 @@ def scan_chunk(a: ScanArgs, weights: Tuple[int, int, int],
 
 
 def probe(a: ScanArgs, weights: Tuple[int, int, int], anti_weight: int,
-          has_aff: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+          has_aff: bool, sms: Optional[int] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every pod against the same, unchanged State -> (mask bool[P, N],
     total[P, N] in a.dtype), the spread tier on. CPU tensors take the
     plain version; CUDA tensors launch K5 on the current stream (no
-    synchronise) and raise if the launch is refused."""
+    synchronise), its pods' clusters covering `sms` SMs (default: the
+    card's; 1 takes a block a pod at any P), and raise if the launch is
+    refused."""
     if a.device.type == "cpu":
         return probe_plain(a, weights, anti_weight, has_aff)
     _require_cuda(a, "probe")
@@ -689,8 +746,10 @@ def probe(a: ScanArgs, weights: Tuple[int, int, int], anti_weight: int,
     total = torch.empty((d["p"], d["n"]), dtype=a.dtype, device=a.device)
     if d["p"] == 0:
         return mask, total
-    plan = launch_plan(PROBE, d, a.dtype == torch.int64, True, has_aff,
-                       bool(anti_weight))
+    with torch.cuda.device(a.device):
+        plan = launch_plan(PROBE, d, a.dtype == torch.int64, True, has_aff,
+                           bool(anti_weight),
+                           sms=card_sms() if sms is None else sms)
     dims, ptrs = pack(a, weights, anti_weight,
                       {"mask": mask, "total": total})
     err = _launch(plan, dims, ptrs, a.device)

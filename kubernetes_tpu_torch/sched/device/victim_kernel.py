@@ -11,12 +11,20 @@ victim set helps), and the node of the first largest score (pick,
 
     pick, kstar, score = victim_search(VictimArgs.from_table(t, device))
 
-Source: `csrc/victim_kernel.cu`: one thread a node walks its victim
-prefix in order, as `oracle_find_victims` does, and stops at the first
-k that fits; a block reduction, then the last block to finish, find the
-first maximum in the same launch. Bound: bytes (~2.3 MB at 5000 nodes x
-16 victims, ~0.7 us), below one launch: the kernel is read against the
-launch floor.
+`from_table` packs the table into one host buffer (pinned for a card)
+and moves it in one non-blocking copy; the fields are views into the
+device copy. The three results are views of one int64 buffer, which
+`VictimResult.flat()` pulls in one copy.
+
+Source: `csrc/victim_kernel.cu`: a group of lanes a node (a half-warp
+at V <= 16) across the victim axis, so a row is one round trip of
+independent loads; warp scans, ballots and a first set bit give k* and
+nv; the first maximum is reduced in the same launch, by the last block
+to finish, over a grid of at most one CTA an SM (`launch_plan`). Bound:
+bytes (~2.3 MB at 5000 nodes x 16 victims, ~0.7 us), below one launch:
+the kernel is read against the launch floor. `bounds.victim_bound`
+counts what the function needs (`walk`), not the whole rows the kernel
+reads.
 
 On CPU tensors the wrapper computes `victim_search_plain`, the JAX
 kernel's own tensor formulation (prefix sums, a [N, V+1] feasibility
@@ -29,22 +37,60 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..preemption import PMAX, SCORE_STRIDE, SENIOR_NONE
+from .scan_kernel import CARD_SMS, card_sms
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "victim_kernel.cu")
-BLOCK_THREADS = 256       # VICTIM_BLOCK_THREADS
+BLOCK_THREADS = 1024      # VICTIM_BLOCK_THREADS: the most a CTA
+
+
+# the packed upload's parts, in buffer order: the int64 node vectors
+# [N], the int64 victim matrices [N, V], then the flags as bytes
+_I64_NODE = ("cpu_cap", "mem_cap", "pod_cap", "cpu_used", "mem_used",
+             "pod_count", "tie_rank")
+_I64_VICTIM = ("v_prio", "v_cpu", "v_mem")
+_BYTES = ("cand", "v_valid")
+ALIGN = 16
+
+
+def _align(n: int) -> int:
+    return -(-n // ALIGN) * ALIGN
+
+
+@functools.lru_cache(maxsize=64)
+def packed_layout(n: int, v: int) -> Tuple[dict, int]:
+    """-> ({field: (byte offset, shape, dtype, bytes)}, total bytes) of
+    one table packed into a single buffer, each part 16-byte aligned."""
+    parts, off = {}, 0
+    for names, shape, dtype in ((_I64_NODE, (n,), torch.int64),
+                                (_I64_VICTIM, (n, v), torch.int64),
+                                (("cand",), (n,), torch.bool),
+                                (("v_valid",), (n, v), torch.bool)):
+        size = n * (v if len(shape) == 2 else 1) * (
+            8 if dtype == torch.int64 else 1)
+        for name in names:
+            parts[name] = (off, shape, dtype, size)
+            off = _align(off + size)
+    return parts, off
+
+
+def _views(buf: torch.Tensor, parts: dict) -> dict:
+    """The fields as views into a packed uint8 buffer."""
+    return {name: buf[off:off + size].view(dtype).view(shape)
+            for name, (off, shape, dtype, size) in parts.items()}
 
 
 class VictimArgs(NamedTuple):
     """Kernel inputs: node vectors [N], victim matrices [N, V], the
     preemptor's scalars as python ints / bool. Integers int64, flags
-    torch.bool."""
+    torch.bool. `packed`, when set, is the one uint8 buffer the tensor
+    fields are views of (from_table)."""
     cand: torch.Tensor
     cpu_cap: torch.Tensor
     mem_cap: torch.Tensor
@@ -61,24 +107,42 @@ class VictimArgs(NamedTuple):
     req_cpu: int
     req_mem: int
     zero_req: bool
+    packed: Optional[torch.Tensor] = None
 
     @classmethod
     def from_table(cls, t, device) -> "VictimArgs":
-        """A VictimTable's arrays on `device` (one copy each)."""
-        def up(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(
-                a, dtype=dtype)).to(device)
-        return cls(
-            cand=up(t.cand, np.bool_), cpu_cap=up(t.cpu_cap, np.int64),
-            mem_cap=up(t.mem_cap, np.int64), pod_cap=up(t.pod_cap, np.int64),
-            cpu_used=up(t.cpu_used, np.int64),
-            mem_used=up(t.mem_used, np.int64),
-            pod_count=up(t.pod_count, np.int64),
-            tie_rank=up(t.tie_rank, np.int64), v_prio=up(t.v_prio, np.int64),
-            v_cpu=up(t.v_cpu, np.int64), v_mem=up(t.v_mem, np.int64),
-            v_valid=up(t.v_valid, np.bool_), prio=int(t.prio),
-            req_cpu=int(t.req_cpu), req_mem=int(t.req_mem),
-            zero_req=bool(t.zero_req))
+        """A VictimTable's arrays on `device` in one upload: packed on
+        the host into one buffer (pinned for a card), copied once
+        without blocking, the fields views into the copy. The CPU packs
+        the same buffer and keeps it."""
+        device = torch.device(device)
+        return cls.stage(t, pin=device.type == "cuda").to_device(device)
+
+    @classmethod
+    def stage(cls, t, pin: bool = False) -> "VictimArgs":
+        """The table packed into one uint8 host buffer (pinned when
+        `pin`), the fields views into it."""
+        parts, nbytes = packed_layout(t.n, t.v)
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+        arr = host.numpy()
+        for name, (off, shape, dtype, size) in parts.items():
+            np.copyto(arr[off:off + size].view(
+                np.int64 if dtype == torch.int64 else np.bool_).reshape(
+                    shape), getattr(t, name), casting="unsafe")
+        return cls(**_views(host, parts), prio=int(t.prio),
+                   req_cpu=int(t.req_cpu), req_mem=int(t.req_mem),
+                   zero_req=bool(t.zero_req), packed=host)
+
+    def to_device(self, device) -> "VictimArgs":
+        """Staged args on `device`: the packed buffer in one copy, not
+        waited for (none on the CPU)."""
+        device = torch.device(device)
+        if self.packed.device == device:
+            return self
+        buf = self.packed.to(device, non_blocking=True)
+        n, v = self.shape
+        return self._replace(**_views(buf, packed_layout(n, v)[0]),
+                             packed=buf)
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -88,8 +152,8 @@ class VictimArgs(NamedTuple):
         """Bytes the function must move: each input read once, kstar and
         score (int64[N]) and pick written once."""
         n, _ = self.shape
-        return sum(a.numel() * a.element_size() for a in self
-                   if isinstance(a, torch.Tensor)) + 16 * n + 8
+        return sum(getattr(self, f).numel() * getattr(self, f).element_size()
+                   for f in _NODE_FIELDS + _VICTIM_FIELDS) + 16 * n + 8
 
 
 _NODE_FIELDS = ("cand", "cpu_cap", "mem_cap", "pod_cap", "cpu_used",
@@ -189,16 +253,63 @@ def _check(a: VictimArgs) -> None:
             raise ValueError(f"victim scalar {name} exceeds int64")
 
 
+class LaunchPlan(NamedTuple):
+    """How one search is launched: `group` lanes a node (a power of two,
+    1..32), `threads` a CTA, `grid` CTAs, every node a group."""
+    group: int
+    threads: int
+    grid: int
+
+
+def group_width(v: int) -> int:
+    """Lanes a node: the power of two at or above V, 32 at most (V > 32
+    walks chunks of 32)."""
+    return min(32, 1 << max(v - 1, 0).bit_length())
+
+
+def launch_plan(n: int, v: int, sms: int = CARD_SMS) -> LaunchPlan:
+    """Every node a group, the nodes shared evenly by at most one CTA an
+    SM (`sms` of them) in whole warps, as many CTAs as BLOCK_THREADS
+    threads need past that."""
+    g = group_width(v)
+    per_cta = -(-n // sms) * g
+    threads = min(BLOCK_THREADS, max(32, -(-per_cta // 32) * 32))
+    return LaunchPlan(g, threads, -(-n * g // threads))
+
+
+def out_words(n: int, plan: LaunchPlan) -> int:
+    """int64 words of the launch's one output buffer: pick, kstar [N],
+    score [N], and the blocks' winners (score, index)."""
+    return 1 + 2 * n + 2 * plan.grid
+
+
+class VictimResult(NamedTuple):
+    """pick i64[], kstar i64[N], score i64[N]: views of one int64 buffer
+    in that order, which `flat()` returns whole (one pull)."""
+    pick: torch.Tensor
+    kstar: torch.Tensor
+    score: torch.Tensor
+
+    def flat(self) -> torch.Tensor:
+        n = self.kstar.shape[0]
+        return torch.as_strided(self.pick, (1 + 2 * n,), (1,),
+                                self.pick.storage_offset())
+
+
+def _result(out: torch.Tensor, n: int) -> VictimResult:
+    return VictimResult(out[0], out[1:1 + n], out[1 + n:1 + 2 * n])
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     from ._build import load_library
     lib = load_library(SOURCE)
-    # grid, threads, N, V, 12 input pointers, prio, req_cpu, req_mem,
-    # zero_req, kstar, score, pick, 3 scratch pointers, stream
+    # grid, threads, group, N, V, 12 input pointers, prio, req_cpu,
+    # req_mem, zero_req, the output buffer, the counter, stream
     lib.victim_search_launch.argtypes = (
-        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 12
+        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 12
         + [ctypes.c_longlong] * 3 + [ctypes.c_int]
-        + [ctypes.c_void_p] * 7)
+        + [ctypes.c_void_p] * 3)
     lib.victim_search_launch.restype = ctypes.c_int
     lib.victim_error_name.argtypes = [ctypes.c_int]
     lib.victim_error_name.restype = ctypes.c_char_p
@@ -211,60 +322,57 @@ def error_name(err: int) -> str:
 
 @functools.cache
 def _done_counter(device: torch.device) -> torch.Tensor:
-    """The kernel's count of finished blocks on `device`: zeroed once
-    here, and set back to 0 by each launch's last block. Launches share
-    it, so they must not overlap: each is queued on the current stream,
-    and the port queues them all on one."""
+    """The kernel's count of finished blocks on `device`: zeroed
+    once here, and set back to 0 by each launch's last block. Launches
+    share it, so they must not overlap: each is queued on the current
+    stream, and the port queues them all on one."""
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
-def _launch(a: VictimArgs, kstar: torch.Tensor, score: torch.Tensor,
-            pick: torch.Tensor, threads: int = BLOCK_THREADS) -> int:
+def _launch(a: VictimArgs, out: torch.Tensor, plan: LaunchPlan) -> int:
     """Queue the kernel on the current stream -> the CUDA error code of
     the launch (0 = launched). Module-level so that a check can swap in
     a launch the card refuses (chip_smoke: `threads` past the kernel's
     launch bounds) and show that find_victims raises."""
     n, v = a.shape
-    grid = -(-n // threads)
     dev = a.cand.device
-    block_score = torch.empty(grid, dtype=torch.int64, device=dev)
-    block_index = torch.empty(grid, dtype=torch.int32, device=dev)
     done = _done_counter(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         return _library().victim_search_launch(
-            grid, threads, n, v,
+            plan.grid, plan.threads, plan.group, n, v,
             *(getattr(a, f).data_ptr()
               for f in _NODE_FIELDS + _VICTIM_FIELDS),
             a.prio, a.req_cpu, a.req_mem, int(a.zero_req),
-            kstar.data_ptr(), score.data_ptr(), pick.data_ptr(),
-            block_score.data_ptr(), block_index.data_ptr(),
-            done.data_ptr(), stream)
+            out.data_ptr(), done.data_ptr(), stream)
 
 
-def victim_search(a: VictimArgs
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (pick i64[], kstar i64[N], score i64[N]). CPU tensors take the
-    plain version; CUDA tensors launch the kernel on the current stream
-    (no synchronise) and raise if the launch is refused."""
+def victim_search(a: VictimArgs) -> VictimResult:
+    """-> (pick i64[], kstar i64[N], score i64[N]), views of one buffer.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    on the current stream (no synchronise) and raise if the launch is
+    refused."""
     device = a.cand.device
+    n, v = a.shape
     if device.type == "cpu":
-        return victim_search_plain(a)
+        out = torch.empty(1 + 2 * n, dtype=torch.int64)
+        pick, kstar, score = victim_search_plain(a)
+        out[0], out[1:1 + n], out[1 + n:] = pick, kstar, score
+        return _result(out, n)
     if device.type != "cuda":
         raise ValueError(f"victim kernel runs on cuda, not {device}")
     _check(a)
-    n, _ = a.shape
     if n == 0:
         raise ValueError("victim search over an empty node table")
-    kstar = torch.empty(n, dtype=torch.int64, device=device)
-    score = torch.empty(n, dtype=torch.int64, device=device)
-    pick = torch.empty((), dtype=torch.int64, device=device)
-    err = _launch(a, kstar, score, pick)
+    with torch.cuda.device(device):
+        plan = launch_plan(n, v, card_sms())
+    out = torch.empty(out_words(n, plan), dtype=torch.int64, device=device)
+    err = _launch(a, out, plan)
     if err != 0:
         raise RuntimeError(f"victim kernel launch failed: CUDA error "
                            f"{err} ({error_name(err)})")
     victim_search.launches += 1
-    return pick, kstar, score
+    return _result(out, n)
 
 
 # kernel launches since the count was last set to 0

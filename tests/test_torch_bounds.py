@@ -360,3 +360,50 @@ def test_smi_sampler_summarises_each_field(monkeypatch):
         <= out["sm_clock_mhz"][2] == 1980.0
     assert set(out) == {"smi_samples", "sm_clock_mhz", "power_draw_w",
                         "temperature_c"}
+
+
+def test_turns_load_another_checkouts_victim_kernel():
+    """The turns tool loads the other checkout's victim kernel (its
+    `from ..preemption` resolves to this checkout's constants); the
+    plain paths agree on the CPU through each wrapper's own packing."""
+    import os
+
+    from kubernetes_tpu_torch.kubemark import fixtures as fx
+    from kubernetes_tpu_torch.sched.device import victim_kernel
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ovk = gpu_evidence.load_wrappers(root)["victim_kernel"]
+    assert ovk is not victim_kernel and ovk.SOURCE == victim_kernel.SOURCE
+    spec = fx.preempt_spec(n_nodes=40, n_preemptors=3)
+    for t in fx.preempt_tables(spec):
+        assert gpu_evidence._same(
+            ovk.victim_search(ovk.VictimArgs.from_table(t, "cpu")),
+            victim_kernel.victim_search(
+                victim_kernel.VictimArgs.from_table(t, "cpu")))
+    assert fx.widest_table(fx.preempt_tables(spec)).v == \
+        max(t.v for t in fx.preempt_tables(spec))
+
+
+def test_profile_kernels_edits_apply_to_the_sources(tmp_path, monkeypatch):
+    """The profiling tool's instrumented and re-bounded copies are built
+    by text edits of the committed sources: every anchor is found once,
+    and each copy differs from its source only where it says."""
+    from kubernetes_tpu_torch.kubemark import profile_kernels as pk
+    from kubernetes_tpu_torch.sched.device import scan_kernel, victim_kernel
+    monkeypatch.setattr(pk, "VARIANT_DIR", str(tmp_path))
+    phases = open(pk._variant("phases", victim_kernel.SOURCE,
+                              pk._phase_edits())).read()
+    assert phases.count("victim_dbg[blockIdx.x * 8 +") == 9
+    assert "victim_dbg_read" in phases
+    copies = pk._bounds_variants(scan_kernel.SOURCE)
+    assert sorted(copies) == sorted(
+        f"{o}_min{m}" for o in ("total_first", "mask_first")
+        for m in (0, 2, 3))
+    for name, path in copies.items():
+        text = open(path).read()
+        first = text.index("probe_block(const Params<T>& a)")
+        mask_first = text.index("const bool m = fits<T, HAS_AFF>", first) \
+            < text.index("const T t = node_total<T, true>", first)
+        assert mask_first == name.startswith("mask")
+        assert ("(PROBE_BLOCK_THREADS, 3)\nprobe_kernel(" in text) == \
+            name.endswith("min3")
+        assert "if constexpr (false)" in text

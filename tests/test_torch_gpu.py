@@ -318,7 +318,8 @@ def test_turns_against_this_checkout(cuda):
                                    "filter_masks 1x5000",
                                    "probe 8192x5000", "probe 1x5000",
                                    "scan_chunk 256x5000",
-                                   "scan_chunk 8192x5120"}
+                                   "scan_chunk 8192x5120",
+                                   "victim_search 5120x16"}
     for name, rec in out["kernels"].items():
         assert rec["order"] == list(TURNS)
         assert len(rec["ms"]) == len(rec["launch_floor_ms"]) == len(TURNS)
@@ -528,6 +529,28 @@ def test_victim_kernel_matches_plain(cuda, n, v, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("v", [1, 8, 16, 33, 64])
+@pytest.mark.parametrize("n", [1, 31, 5000, 5120])
+def test_victim_kernel_on_its_grid_matches_plain(cuda, n, v):
+    """The preempt fixture's widths and the chunk edges, one launch
+    each, bit-equal to the plain version; with a zero-request preemptor
+    and on a fleet where nothing is feasible."""
+    from kubernetes_tpu_torch.sched.device import victim_kernel as vk
+    for kw in ({}, {"zero_req": True}, {"prio": -2000}):
+        args = _random_victim_args(n, v, n + v, cuda, **kw)
+        if "prio" in kw:
+            args = args._replace(pod_count=args.pod_cap.clone())
+        want = vk.victim_search_plain(args)
+        before = vk.victim_search.launches
+        got = vk.victim_search(args)
+        torch.cuda.synchronize()
+        assert vk.victim_search.launches == before + 1
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        if "prio" in kw:
+            assert int(want[0]) == 0 and bool((want[2] == -1).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 300, 5000])
 def test_victim_kernel_all_infeasible_picks_zero(cuda, n):
     # nothing evictable (every victim outranks) and no room anywhere
@@ -575,7 +598,8 @@ def test_refused_victim_launch_raises_through_find_victims(cuda):
     real = vk._launch
     before = vk.victim_search.launches
     try:
-        vk._launch = lambda a, k, s, p: real(a, k, s, p, threads=2048)
+        vk._launch = lambda a, out, plan: real(
+            a, out, plan._replace(threads=2048))
         with pytest.raises(RuntimeError, match="victim kernel launch"):
             engine.find_victims(table)
     finally:
@@ -635,8 +659,11 @@ def _scan_parity(cuda, name):
     before = (sk.scan_chunk.launches, sk.probe.launches)
     got = scan_parity(a, case["weights"], case["anti_weight"],
                       case["has_aff"], case["has_spread"])
+    # K5 on its three launches: the case's pods, a block a pod, pod 0
     assert (sk.scan_chunk.launches, sk.probe.launches) == \
-        (before[0] + 1, before[1] + 1)
+        (before[0] + 1, before[1] + 3)
+    clusters = got["probe_clusters"]
+    assert clusters["probe_block"] == 1 and clusters["probe_p1"] >= 8
     assert got["equal"], [f for f, ok in got["fields"].items() if not ok]
     assert got["max_abs_err"] == 0
     return got
@@ -690,6 +717,8 @@ def refused_plan(plan):
 def test_refused_scan_and_probe_launches_raise_through_the_engine(cuda):
     from kubernetes_tpu_torch.sched.device import scan_kernel as sk
     enc = encode_snapshot(mixed_snapshot(7, 64, 8, 10))
+    # 160 pods take K5's block a pod, 8 its cluster a pod
+    batch = encode_snapshot(mixed_snapshot(7, 64, 160, 10))
     engine = BatchEngine(device=cuda)
     real = sk._launch
     before = (sk.scan_chunk.launches, sk.probe.launches)
@@ -698,15 +727,17 @@ def test_refused_scan_and_probe_launches_raise_through_the_engine(cuda):
             refused_plan(plan), dims, ptrs, device)
         with pytest.raises(RuntimeError, match="scan kernel launch"):
             engine.run_chunked(enc, 8)
-        with pytest.raises(RuntimeError, match="probe kernel launch"):
-            engine.probe(enc)
+        for e in (enc, batch):
+            with pytest.raises(RuntimeError, match="probe kernel launch"):
+                engine.probe(e)
     finally:
         sk._launch = real
     assert (sk.scan_chunk.launches, sk.probe.launches) == before
     cpu = BatchEngine(device="cpu")
     assert (engine.run_chunked(enc, 8)[0] == cpu.run_chunked(enc, 8)[0]).all()
-    for x, y in zip(engine.probe(enc), cpu.probe(enc)):
-        assert (x == y).all()
+    for e in (enc, batch):
+        for x, y in zip(engine.probe(e), cpu.probe(e)):
+            assert (x == y).all()
 
 
 @pytest.mark.gpu
@@ -806,3 +837,25 @@ def test_probe_kernel_matches_plain_at_the_main_path_shapes(cuda):
         p_mask, p_total = sk.probe_plain(a, engine.weights, 0, False)
         torch.cuda.synchronize()
         assert torch.equal(mask, p_mask) and torch.equal(total, p_total)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CLUSTER_EDGES))
+def test_probe_kernel_matches_plain_at_the_cluster_edges(cuda, name):
+    """K5 at K1's cluster edges (one slot, fewer slots than CTAs, a slot
+    past a multiple of 16, every slot fitting, pinned pods), every tier
+    on and none, on its three launches: the edge's pods, a block a pod,
+    the first pod alone on a cluster of 16 CTAs."""
+    from kubernetes_tpu_torch.kubemark.fixtures import cluster_edge_tables
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import scan_args
+    from kubernetes_tpu_torch.sched.device import engine as eng
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    a = scan_args(*(eng._upload(t, cuda) for t in cluster_edge_tables(name)))
+    for flags in (((1, 1, 1), 0, False), ((2, 3, 5), 4, True)):
+        want = sk.probe_plain(a, *flags)
+        for b, sms, rows in ((a, None, slice(None)), (a, 1, slice(None)),
+                             (a.pod_slice(0, 1), None, slice(0, 1))):
+            got = sk.probe(b, *flags, sms=sms)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0][rows])
+            assert torch.equal(got[1], want[1][rows])

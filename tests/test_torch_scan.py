@@ -23,7 +23,8 @@ import pytest
 import torch
 
 from kubernetes_tpu.sched.device import BatchEngine as JaxEngine
-from kubernetes_tpu.sched.device.engine import _make_probe, _make_run
+from kubernetes_tpu.sched.device.engine import (_make_probe, _make_run,
+                                               ensure_x64)
 from kubernetes_tpu_torch.kubemark.fixtures import (CLUSTER_EDGES,
                                                     SCAN_DEGENERATE,
                                                     SCAN_TRAP,
@@ -510,3 +511,165 @@ def test_cluster_edge_tables(name):
         assert got[SCAN_TRAP:SCAN_TRAP + len(pins)].tolist() == pins
         per = -(-kw["n"] // 16)
         assert len({s // per for s in pins}) > 3   # several CTAs' slots
+
+
+# ------------------------------------------- K5 over a cluster: plan, model
+
+def _accepts(code, cluster, threads, smem):
+    return 1
+
+
+@pytest.mark.parametrize("p,cluster,threads", [
+    (1, 16, 320), (9, 16, 320), (17, 8, 512), (64, 4, 512),
+    (66, 2, 512), (131, 2, 512), (132, 1, 512), (8192, 1, 512)])
+def test_probe_plan_picks_the_cluster_from_p(p, cluster, threads):
+    """P clusters of C CTAs cover the card's 132 SMs: 16 CTAs at the
+    extender's one pod (one slot a thread at 5000 nodes), one block a
+    pod at 132 pods and more (the batch shape, as before)."""
+    d = {**E2E_DIMS, "p": p, "n": 5000}
+    plan = sk.launch_plan(sk.PROBE, d, False, True, False, False, _accepts)
+    slots = -(-5000 // cluster) if cluster > 1 else 0
+    assert (plan.cluster, plan.grid, plan.threads, plan.slots) == \
+        (cluster, p * cluster, threads, slots)
+    assert plan.smem == sk.shared_bytes(sk.PROBE, d, False, True, False,
+                                        False, cluster)
+    assert plan.threads * max(cluster, 1) >= 5000 or cluster < 16
+
+
+def test_probe_plan_asks_the_card_only_for_clusters():
+    asked = []
+
+    def card(code, cluster, threads, smem):
+        asked.append((code, cluster))
+        return int(cluster != 16)
+    d = {**E2E_DIMS, "p": 1, "n": 5000}
+    plan = sk.launch_plan(sk.PROBE, d, True, True, True, False, card)
+    # 16 is refused: 8, the portable size, with K5's code
+    assert (plan.cluster, plan.grid, plan.threads) == (8, 8, 512)
+    code = sk.variant(True, True, True, False)
+    assert asked == [(code | sk.PROBE_CODE, 16), (code | sk.PROBE_CODE, 8)]
+    asked.clear()
+    sk.launch_plan(sk.PROBE, {**d, "p": 8192}, True, True, True, False, card)
+    assert asked == []                    # a block a pod asks nothing
+    with pytest.raises(ValueError, match="cannot schedule"):
+        sk.launch_plan(sk.PROBE, d, True, True, True, False,
+                       lambda *args: 0)
+
+
+def test_probe_plan_covers_the_sms_it_is_given():
+    d = {**E2E_DIMS, "n": 5000}
+    assert sk.launch_plan(sk.PROBE, {**d, "p": 57}, False, True, False,
+                          False, _accepts, sms=114).cluster == 2
+    assert sk.launch_plan(sk.PROBE, {**d, "p": 114}, False, True, False,
+                          False, _accepts, sms=114).cluster == 1
+    assert [sk.probe_cluster(p, 132) for p in (1, 8, 9, 16, 17, 33, 34, 66,
+                                                67, 131, 132)] == \
+        [16, 16, 16, 16, 8, 4, 4, 2, 2, 2, 1]
+
+
+def probe_model(a, weights, anti_weight, has_aff, cluster):
+    """K5's cluster route, modelled (csrc/scan_kernel.cu,
+    probe_cluster_kernel): per pod, CTA r of C owns slots [r * S, r * S +
+    S), S = ceil(N / C); phase 1 takes each CTA's max of the pod's
+    spread row and its zone histogram of the fitting labelled slots;
+    the partials are maxed and summed over the CTAs; phase 2 adds the
+    spread and ServiceAntiAffinity scores to the node-local total."""
+    node, state, pods = a.node, a.state, a.pods
+    n = node.valid.shape[0]
+    aux = sk.node_aux(node)
+    mask, total = sk.mask_and_score(node, aux, weights, 0, state, pods,
+                                    has_aff, has_spread=False)
+    s = -(-n // cluster)
+    ranges = [(r * s, min(n, r * s + s)) for r in range(cluster)]
+    covered = sorted(i for lo, hi in ranges for i in range(lo, hi))
+    assert covered == list(range(n))
+    sdt = total.dtype
+    out = total.clone()
+    z = node.zone_scratch.shape[0]
+    for b in range(pods.valid.shape[0]):
+        gid = int(pods.group_id[b])
+        g = max(gid, 0)
+        parts = [int(state.spread[g, lo:hi].max()) if hi > lo
+                 else -2 ** 31 for lo, hi in ranges]
+        maxc = max(max(parts), int(node.offgrid_max[g])) if gid >= 0 else 0
+        if gid < 0 or maxc == 0:
+            spread = torch.full((n,), 10, dtype=sdt)
+        else:
+            spread = torch.floor(
+                10.0 * (maxc - state.spread[g]).to(torch.float64)
+                / max(maxc, 1)).to(sdt)
+        out[b] = out[b] + weights[2] * spread
+        if not anti_weight:
+            continue
+        sg = int(pods.svc_group[b])
+        hist = torch.zeros(z, dtype=torch.int64)
+        for lo, hi in ranges:          # each CTA's partial, then the sum
+            part = torch.zeros(z, dtype=torch.int64)
+            for i in range(lo, hi):
+                zone = int(node.zone_id[i])
+                if mask[b, i] and zone >= 0:
+                    part[zone] += int(state.svc_count[max(sg, 0), i])
+            hist += part
+        tot = int(state.svc_total[sg]) if sg >= 0 else 0
+        zc = hist[torch.clamp(node.zone_id, min=0).long()]
+        sa = torch.floor(10.0 * (tot - zc).to(torch.float64)
+                         / max(tot, 1)).to(sdt) if tot > 0 \
+            else torch.full((n,), 10, dtype=sdt)
+        sa = torch.where(node.zone_id >= 0, sa, 0)
+        out[b] = out[b] + anti_weight * sa
+    return mask, out
+
+
+def _jax_tables(node, state, pods):
+    """scan_tables' numpy tables as the JAX engine's NamedTuples
+    (bitset words as uint32)."""
+    from kubernetes_tpu.sched.device import engine as je
+    words = {"labels", "port_bits", "disk_any", "disk_rw", "sel", "ports",
+             "qany", "qrw", "sany", "srw"}
+
+    def conv(tree, cls):
+        return cls(**{f: (x.view(np.uint32) if f in words else x)
+                      for f, x in zip(tree._fields, tree)})
+    return (conv(node, je.NodeConst), conv(state, je.State),
+            conv(pods, je.PodXs))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("tier", ["node_local", "spread", "affinity",
+                                  "service_anti"])
+@pytest.mark.parametrize("n", [1, 31, 16 * 320 - 1, 16 * 320 + 1])
+def test_probe_cluster_model_equals_plain_and_jax(n, tier, layout):
+    """The node partition and the two-phase reductions of K5's cluster
+    route, modelled, equal probe_plain and JAX _make_probe at N around a
+    multiple of the 16 CTAs' share, on each tier in both layouts.
+    Tolerance 0. JAX runs on a copy whose FMA-trap slots are moved off
+    the trap (ROADMAP Queue 3 item 2: XLA fuses Balanced there)."""
+    from kubernetes_tpu_torch.kubemark.fixtures import SCAN_TIERS
+    groups, terms, services = SCAN_TIERS[tier]
+    weights, anti = (1, 1, 1), 2 if services else 0
+    wide = layout == "i64"
+    tables = scan_tables(5 + n, 3, n, wide, groups, terms, services)
+    plan = sk.launch_plan(sk.PROBE, {"p": 3, "n": n, "l": 1, "pw": 1,
+                                     "k": 1, "g": 1, "t": 1, "d": 1, "s": 1,
+                                     "z": 3}, wide, True, terms > 0,
+                          bool(anti), _accepts)
+    assert plan.cluster == 16
+    a = sk.ScanArgs.from_engine(*_torch_args(tables))
+    want = sk.probe_plain(a, weights, anti, terms > 0)
+    got = probe_model(a, weights, anti, terms > 0, plan.cluster)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    node, state, pods = tables
+    state.nz_cpu[:SCAN_TRAP] += 1            # off the FMA trap
+    a = sk.ScanArgs.from_engine(*_torch_args(tables))
+    got = probe_model(a, weights, anti, terms > 0, plan.cluster)
+    ensure_x64()                             # as the JAX engine runs it
+    j_mask, j_total = jax.jit(_make_probe(weights, anti, terms > 0, True))(
+        *_jax_tables(node, state, pods))
+    assert np.array_equal(got[0].numpy(), np.asarray(j_mask))
+    assert np.array_equal(got[1].numpy(), np.asarray(j_total))
+
+
+def _torch_args(tables):
+    node, state, pods = (type(t)(*(torch.from_numpy(np.ascontiguousarray(x))
+                                   for x in t)) for t in tables)
+    return node, sk.reciprocals(node), state, pods
