@@ -8,8 +8,8 @@ size, through the entry points a user calls, and holds every kernel and
 every answer to a reference:
 
   build     nvcc-builds every CUDA source (all five at once); no
-            instantiation of the victim or probe kernels may spill
-            (`-Xptxas -v`, printed to stderr and summarised).
+            kernel, in any instantiation, may spill (`-Xptxas -v`,
+            printed to stderr and summarised).
   filter    the predicate-filter kernel on a mixed 8192-pod x 5000-node
             snapshot: bit-equal to its plain PyTorch version on the card
             and to the engine's probe mask; a mask that is neither all
@@ -73,14 +73,26 @@ every answer to a reference:
             mirror phase).
   mirror    the table mirror's own path on the e2e fleet: two unchained
             tiles of 8192 bench pods through run_chunked, a heartbeat of
-            one 500-node shard between them; the second tile scatters
-            its dirty rows (the scatter kernel must launch), and both
+            one 500-node shard between them; the second tile's prologue
+            (both tables' dirty rows, the run's State, the pods) must be
+            one launch of the scatter kernel and, by torch.profiler, one
+            host-to-device copy, and its host ms is timed; both tiles
             bind as an engine that uploads in full.
-  scatter   the dirty-row scatter kernel on the 5000-node fleet's node
-            and State tables (5120 slots), at the mirror phase's dirty
-            rows a launch and at 5000 rows: bit-equal to its plain version and
-            to `index_copy_` per column; kernel / plain / `index_copy_`
-            times beside the bound and the launch floor.
+  scatter   the scatter kernel on a delta tile's prologue over the
+            5000-node fleet's tables (5120 slots), at the mirror phase's
+            rows and at 5000 rows of each table: bit-equal to its plain
+            version and to `index_copy_` a column plus `copy_` a State
+            column; kernel / plain / PyTorch times beside the bound and
+            the launch floor.
+  spec      the speculative engine (K6): BatchEngine(speculative=True)
+            on K1's e2e chunk and the engine fixtures, equal to the scan
+            engine (assignment, State) and to the JAX digests (the spec
+            path); then its pass (K6a) and repair (K6b) held to their
+            plain versions and K1 on fixtures.scan_cases' tables (K6's
+            tiers, both layouts, blocks of 256 and 7) and on the spread
+            fixture's first 512 pods; K6 timed against K1 on the e2e
+            chunk and the spread fixture, a block's K6a and K6b beside
+            their bounds.
   preempt   an IncrementalEncoder over 5000 nodes, each full by CPU with
             16 bound pods of seeded priorities (80,000 pods), and 64
             seeded preemptors: victim_table -> BatchEngine.find_victims
@@ -96,9 +108,10 @@ every answer to a reference:
             returns nothing; restored, the search equals the oracle.
             The same for the scatter kernel: a refused launch in its
             place makes run_chunked raise on a tile off the mirror; and
-            for the scan kernel (a cluster of 32 CTAs) and the probe
-            kernel on both routes (2048 threads a block): run_chunked
-            and probe raise, and restored, equal the CPU engine.
+            for the scan kernel (a cluster of 32 CTAs), the probe
+            kernel on both routes and K6a and K6b (2048 threads a
+            block): run_chunked and probe raise, and restored, equal the
+            CPU engine.
   mixed     mixed mode (factory.create_mixed): the device probe on the
             card and one HTTP extender (the port's ExtenderServer over a
             CPU backend) place 8 pods on 5000 nodes, one at a time; the
@@ -114,12 +127,13 @@ same clock); every record with a bound names the rates
 The launch floor is the device time of a kernel that does nothing,
 timed like every kernel (20 launches in one CUDA graph).
 
-Six paths are driven, each with the kernel launch counts set to 0 just
-before it and read just after: the engine and extender phases (the scan
-kernel a chunk, the filter kernel a Filter, the probe kernel a
+Seven paths are driven, each with the kernel launch counts set to 0
+just before it and read just after: the engine and extender phases (the
+scan kernel a chunk, the filter kernel a Filter, the probe kernel a
 Prioritize), the reject phase (the argsort kernel), the e2e phase (the
-scan kernel a chunk), the mirror phase (the scatter kernel, and the scan
-kernel), the preempt phase's 64 searches (the victim kernel) and the
+scan kernel a chunk, the scatter kernel a tile), the mirror phase (the
+scatter kernel, and the scan kernel), the spec path (K6a and K6b a
+block), the preempt phase's 64 searches (the victim kernel) and the
 mixed phase (the probe kernel a pod).
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero and prints no result. Every line carries the card's name
@@ -132,7 +146,9 @@ shape (`main_path_shape`), `equal_plain`,
 shape (`shape`), `main_path_ms` / `main_path_bound_ms`, the launch floor
 and the integer rate; K1's also its cluster (`cluster`, `ctas`,
 `slots_per_cta`, `threads_per_cta`), the SM clock while it was timed and
-its device ms in the e2e (`e2e_device_ms`). Needs one CUDA device;
+its device ms in the e2e (`e2e_device_ms`); the scatter kernel's its
+launches a tile and the delta tile's profiler counts and host ms; K6b's
+the chunk's ms against K1's at both fixtures. Needs one CUDA device;
 exits non-zero without one, or without the rest of the repository beside
 it.
 """
@@ -177,9 +193,9 @@ def phase_build():
                 print(f"ptxas {os.path.basename(r['source'])}: "
                       f"{line.strip()}", file=sys.stderr)
         entries.update(ptxas_entries(r["log"]))
-    # the victim search and the probe (each instantiation) must not spill
+    # no kernel (each instantiation) may spill
     spilled = {k: v for k, v in entries.items()
-               if ("victim" in k or "probe" in k) and v["spill_stores"]}
+               if v["spill_stores"] or v["spill_loads"]}
     if spilled:
         raise AssertionError(f"kernels that spill: {spilled}")
     return {"phase": "build", "seconds": time.monotonic() - t0,
@@ -187,8 +203,7 @@ def phase_build():
             "libraries": [os.path.relpath(r["library"], ROOT)
                           for r in records],
             "ptxas": {k: [v["registers"], v["spill_stores"]]
-                      for k, v in entries.items()
-                      if "victim" in k or "probe" in k}}
+                      for k, v in entries.items()}}
 
 
 def ptxas_entries(log: str) -> dict:
@@ -426,7 +441,7 @@ def phase_engine():
     from kubernetes_tpu_torch.sched.device import scan_kernel as sk
 
     engine = BatchEngine()
-    records = []
+    records, encs = [], {}
     for name, want in SMOKE_DIGESTS.items():
         t0 = time.monotonic()
         enc = encode_snapshot(
@@ -457,7 +472,8 @@ def phase_engine():
             "sha256": sha, "digest_ok": True, "chunks": chunks,
             "scan_launches": launched,
             "eager_steps": engine.scan_stats["eager_steps"]})
-    return records
+        encs[name] = enc
+    return records, encs
 
 
 def phase_extender():
@@ -596,8 +612,14 @@ def phase_mirror():
     encoder's tiles) on the e2e fleet: a tile of 8192 bench pods seeds
     the mirror; a heartbeat of one 500-node shard and the tile's own
     placements dirty node and State rows, so the next unchained tile
-    scatters them (the scatter kernel). Each tile is held equal to an
-    engine that uploads in full. -> (record, rows a scatter launch)."""
+    scatters them. That delta tile's prologue must be one launch of the
+    scatter kernel (both tables' rows and the run's State) and one
+    host-to-device copy; torch.profiler counts the kernels and copies
+    the card ran for the tile's prologue, and _wrapper_ms times the
+    prologue on the host (the mirror's generations set back before each
+    call, so each repeats the delta tile). Each tile is held equal to an
+    engine that uploads in full. -> (record, (node rows, State rows) of
+    the delta tile)."""
     import numpy as np
 
     from kubernetes_tpu_torch.kubemark.benchmark import _bench_pod
@@ -614,9 +636,9 @@ def phase_mirror():
     inc = fleet_encoder()
     delta, full = BatchEngine(), BatchEngine()
     full.delta_uploads = False
-    rows_before = sk.scatter_rows.rows
-    launches_before = sk.scatter_rows.launches
-    bound = 0
+    rows_before = sk.launch_staged.rows
+    launches_before = sk.launch_staged.launches
+    bound, per_tile, rows = 0, [], None
     for t in range(2):
         if t:
             # one shard of the fleet's heartbeat (PERF.md section 4)
@@ -625,119 +647,165 @@ def phase_mirror():
                                    fleet._node_object(i))
         pods = [_bench_pod(t * SMOKE_CHUNK + j) for j in range(SMOKE_CHUNK)]
         enc = inc.encode_tile(pods, [], [])
+        before = sk.launch_staged.launches
+        if t:
+            cache = delta._table_cache
+            gens = (cache.node_gen, cache.state_gen)
+            d = enc.delta
+            rows = (int((d.node_dirty_gen > gens[0]).sum()),
+                    int((d.state_dirty_gen > gens[1]).sum()))
         got, _ = delta.run_chunked(enc, SMOKE_CHUNK)
+        per_tile.append(sk.launch_staged.launches - before)
         want, _ = full.run_chunked(enc, SMOKE_CHUNK)
         if not np.array_equal(got, want):
             raise AssertionError(f"mirror tile {t}: the delta upload binds "
                                  f"differently from the full upload")
+        if t:
+            prologue = _measure_prologue(delta, enc, gens)
         inc.assume_assigned(enc, pods, got)
         bound += int((got[:enc.n_pods] >= 0).sum())
     up = delta.upload_stats
-    launches = sk.scatter_rows.launches - launches_before
-    if up["delta_tiles"] < 1 or launches == 0:
-        raise AssertionError(f"mirror: no tile scattered its rows: {up}")
-    rows = sk.scatter_rows.rows - rows_before
+    launches = sk.launch_staged.launches - launches_before
+    if up["delta_tiles"] < 1 or min(rows) < 1:
+        raise AssertionError(f"mirror: no tile scattered both tables' "
+                             f"rows: {up}, rows {rows}")
+    if per_tile[1] != 1:
+        raise AssertionError(f"mirror: the delta tile took {per_tile[1]} "
+                             f"scatter launches, not one")
+    prof = prologue["profile"]
+    if max(prof["h2d_copies"], prof["copy_calls"], prof["kernels"],
+           prof["launch_calls"]) > 1:
+        raise AssertionError(f"mirror: the delta tile's prologue took "
+                             f"more than one copy and one launch: {prof}")
     return ({"phase": "mirror", "tiles": 2, "bound": bound,
              "equal_full": True, "scatter_launches": launches,
-             "scatter_rows": rows,
+             "launches_per_tile": per_tile,
+             "delta_rows": {"node": rows[0], "state": rows[1]},
+             "scatter_rows": sk.launch_staged.rows - rows_before,
+             "prologue_profile": prof,
+             "prologue_host_ms": prologue["host_ms"],
              **{k: up[k] for k in ("full_tiles", "delta_tiles",
                                    "reuse_tiles", "delta_bytes",
                                    "table_bytes")}},
-            max(1, round(rows / launches)))
+            rows)
 
 
-def _random_rows(column, r, rng):
-    """r random rows for a mirror column, in the encoder's dtypes."""
-    import numpy as np
+def _measure_prologue(engine, enc, gens):
+    """The delta tile's prologue again, measured and not counted:
+    torch.profiler's counts of one call and its host ms (_wrapper_ms),
+    the mirror's generations set back to `gens` before each call so that
+    each scatters the same rows (into the mirror, the same values); then
+    the launch counts, the upload stats and the generations restored."""
+    from kubernetes_tpu_torch.kubemark.fixtures import SMOKE_CHUNK
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import profile_counts
+    from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
+    counts = (sk.launch_staged.launches, sk.launch_staged.rows)
+    stats = dict(engine.upload_stats)
+    cache = engine._table_cache
+    done = (cache.node_gen, cache.state_gen)
+    flags = engine._enc_flags(enc)
+
+    def again():
+        cache.node_gen, cache.state_gen = gens
+        return engine._prologue(enc, flags, SMOKE_CHUNK)
+
+    out = {"profile": profile_counts(again), "host_ms": _wrapper_ms(again)}
+    cache.node_gen, cache.state_gen = done
+    sk.launch_staged.launches, sk.launch_staged.rows = counts
+    engine.upload_stats.update(stats)
+    return out
+
+
+def phase_scatter(rate, floor_ms, path_rows):
+    """The scatter kernel on a delta tile's prologue over the e2e fleet's
+    tables (gpu_evidence.prologue_staged: both tables' rows into the
+    mirror, the State rows also into the run's State, the 13 copies), at
+    the mirror phase's rows and at 5000 rows of each table, the rows
+    spread over the whole table: bit-equal to its plain version and to
+    the PyTorch calls (index_copy_ a column, copy_ a State column);
+    kernel / plain / PyTorch times beside the bound and the launch
+    floor, and the host's whole prologue (_wrapper_ms). -> (record,
+    timings by rows)."""
     import torch
-    shape = (r,) + tuple(column.shape[1:])
-    if column.dtype == torch.bool:
-        return rng.random(shape) < 0.5
-    dt = np.int64 if column.dtype == torch.int64 else np.uint32
-    return rng.integers(0, 2 ** 32, shape).astype(dt)
 
-
-def phase_scatter(rate, floor_ms, path_rows: int):
-    """The scatter kernel on the e2e fleet's tables, at the mirror
-    phase's dirty rows a launch and at 5000 rows, held bit-equal to its
-    plain version and to index_copy_ a column, then timed. -> (record,
-    timings by row count)."""
-    import numpy as np
-    import torch
-
-    from kubernetes_tpu_torch.kubemark.benchmark import _bench_pod
-    from kubernetes_tpu_torch.kubemark.fixtures import (E2E_COUNTS,
-                                                        fleet_encoder)
-    from kubernetes_tpu_torch.kubemark.gpu_evidence import (device_ms,
-                                                            kernel_timing)
+    from kubernetes_tpu_torch.kubemark.fixtures import E2E_COUNTS
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import (kernel_timing,
+                                                            prologue_staged,
+                                                            prologue_tables)
     from kubernetes_tpu_torch.sched.device import BatchEngine, bounds
-    from kubernetes_tpu_torch.sched.device import engine as eng_mod
     from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
 
+    dev = BatchEngine().device
     n = E2E_COUNTS["n_nodes"]
-    inc = fleet_encoder()
-    engine = BatchEngine()
-    dev = engine.device
-    node_h, state_h, _ = engine.host_args(
-        inc.encode_tile([_bench_pod(0)], [], []))
-    node, state = eng_mod._upload(node_h, dev), eng_mod._upload(state_h, dev)
-    tables = {"node": [getattr(node, f) for f in eng_mod._NODE_ROW_FIELDS],
-              "state": [getattr(state, f) for f in eng_mod._STATE_ROW_FIELDS]}
-    rng = np.random.default_rng(SCATTER_SEED)
-    path_rows = min(path_rows, n)
-    rec = {"phase": "scatter", "slots": int(node_h.valid.shape[0]),
-           "path_rows": path_rows, "equal_plain": True,
-           "equal_library": True, "max_abs_err": 0, "tables": {}}
+    rec = {"phase": "scatter", "path_rows": list(path_rows),
+           "equal_plain": True, "equal_library": True, "max_abs_err": 0,
+           "prologues": {}}
     timed = {}
-    for r in sorted({path_rows, n}):
-        idx = rng.permutation(n)[:r].astype(np.int64)
-        for name, cols in tables.items():
-            rows = [_random_rows(c, r, rng) for c in cols]
-            plain = [c.clone() for c in cols]
-            lib = [c.clone() for c in cols]
-            staged = sk.to_device(sk.stage(cols, idx, rows, pin=True), dev)
-            sk.launch_staged(staged)
-            sk.scatter_staged_plain(plain, staged)
-            idx_dev = torch.from_numpy(idx).to(dev)
-            rows_dev = [torch.from_numpy(sk._host_view(a)).to(dev)
-                        for a in rows]
-            index_copy(lib, idx_dev, rows_dev)
-            torch.cuda.synchronize()
-            for got, want, other in zip(cols, plain, lib):
-                err = int((got.long() - want.long()).abs().max())
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                if not torch.equal(got, want):
-                    raise AssertionError(f"scatter kernel != plain version "
-                                         f"({name} table, {r} rows)")
-                if not torch.equal(got, other):
-                    raise AssertionError(f"scatter kernel != index_copy_ "
-                                         f"({name} table, {r} rows)")
-            row_bytes = [f[0] for f in staged.fields]
-            t = {**kernel_timing(lambda: sk.launch_staged(staged),
-                                 lambda: sk.scatter_staged_plain(plain,
-                                                                 staged),
-                                 lambda: index_copy(lib, idx_dev,
-                                                    rows_dev), floor_ms),
-                 "wrapper_ms": _wrapper_ms(lambda: sk.scatter_rows(
-                     cols, idx, rows)),
-                 **bounds.scatter_bound(r, row_bytes, rate),
-                 "columns": len(cols), "row_bytes": sum(row_bytes)}
-            rec["tables"][f"{name} x {r}"] = t
-            timed[(name, r)] = t
+    for r_node, r_state in sorted({tuple(path_rows), (n, n)}):
+        sides = {}
+        for who in ("kernel", "plain", "library"):
+            node, state, nr, sr = prologue_tables(dev, r_node, r_state)
+            staged, run = prologue_staged(sk, dev, node, state, nr, sr)
+            sides[who] = (node, state, run, staged, nr, sr)
+        sk.launch_staged(sides["kernel"][3])
+        sk.prologue_plain(sides["plain"][3])
+        node, state, run, _, nr, sr = sides["library"]
+        lib_args = (node, state, run, [
+            (torch.from_numpy(idx).to(dev),
+             [torch.from_numpy(sk._host_view(a)).to(dev) for a in rows])
+            for idx, rows in (nr, sr)])
+        index_copy(*lib_args)
+        torch.cuda.synchronize()
+        k, p, lib = (tuple(sides[w][0]) + tuple(sides[w][1])
+                     + tuple(sides[w][2]) for w in ("kernel", "plain",
+                                                    "library"))
+        for got, want, other in zip(k, p, lib):
+            err = int((got.long() - want.long()).abs().max())
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if not torch.equal(got, want):
+                raise AssertionError(f"scatter kernel != plain version "
+                                     f"({r_node} + {r_state} rows)")
+            if not torch.equal(got, other):
+                raise AssertionError(f"scatter kernel != index_copy_ and "
+                                     f"copy_ ({r_node} + {r_state} rows)")
+        staged = sides["kernel"][3]
+        pstaged = sides["plain"][3]
+
+        def wrapper(node=sides["kernel"][0], state=sides["kernel"][1],
+                    nr=nr, sr=sr):
+            sk.apply_staged(prologue_staged(sk, dev, node, state, nr,
+                                            sr)[0])
+
+        t = {**kernel_timing(lambda: sk.launch_staged(staged),
+                             lambda: sk.prologue_plain(pstaged),
+                             lambda: index_copy(*lib_args), floor_ms),
+             "wrapper_ms": _wrapper_ms(wrapper),
+             **bounds.prologue_bound(staged.nbytes, rate),
+             "descriptors": staged.n_desc, "grid_x": staged.grid_x,
+             "rows": [r_node, r_state]}
+        rec["prologues"][f"{r_node}+{r_state}"] = t
+        timed[(r_node, r_state)] = t
     return rec, timed
 
 
-def index_copy(columns, idx, rows) -> None:
-    """The scatter as one typed `index_copy_` a column, from rows already
-    on the card: the PyTorch yardstick of the scatter kernel
-    (`library_ms`), which the port never calls."""
-    for t, r in zip(columns, rows):
-        t.index_copy_(0, idx, r)
+def index_copy(node, state, run, rows) -> None:
+    """A delta tile's prologue as PyTorch calls, from rows already on
+    the card: one typed `index_copy_` a mirror column, one `copy_` a
+    State column into the run's State (the PyTorch yardstick of the
+    scatter kernel, `library_ms`, which the port never calls)."""
+    from kubernetes_tpu_torch.sched.device import engine as eng
+    for tab, fields, (idx, blocks) in ((node, eng._NODE_ROW_FIELDS, rows[0]),
+                                       (state, eng._STATE_ROW_FIELDS,
+                                        rows[1])):
+        for f, r in zip(fields, blocks):
+            getattr(tab, f).index_copy_(0, idx, r)
+    for d, s in zip(run, state):
+        d.copy_(s)
 
 
 def _wrapper_ms(fn) -> float:
-    """Host-clock ms of one whole wrapper call (pack on the host, one
-    copy, one launch) up to its completion, the median of 20."""
+    """Host-clock ms of one whole call (pack on the host, one copy, one
+    launch) up to its completion, the median of 20."""
     import statistics
 
     import torch
@@ -749,6 +817,196 @@ def _wrapper_ms(fn) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times[3:])
+
+
+def phase_spec_path(encs):
+    """The speculative engine's path through the entry point a user
+    calls, BatchEngine(speculative=True).run_chunked(enc, 8192): on K1's
+    e2e chunk (8192 bench pods on the e2e fleet's 5120 slots) and on the
+    engine fixtures (SMOKE_DIGESTS, encoded by the engine phase). Each
+    must bind as the scan engine does, with the same final State, and the
+    fixtures' digests must equal the JAX engine's; every chunk takes K6
+    and none an eager step. -> (record, the e2e chunk's encoding)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.kubemark.benchmark import _bench_pod
+    from kubernetes_tpu_torch.kubemark.fixtures import (SMOKE_CHUNK,
+                                                        SMOKE_DIGESTS,
+                                                        assigned_digest,
+                                                        fleet_encoder)
+    from kubernetes_tpu_torch.sched.device import BatchEngine
+
+    chunk_enc = fleet_encoder().encode_tile(
+        [_bench_pod(i) for i in range(SMOKE_CHUNK)], [], [])
+    rec = {"phase": "spec_path", "runs": {}}
+    for name, enc in (("k1_chunk", chunk_enc), *encs.items()):
+        spec = BatchEngine(speculative=True)
+        scan = BatchEngine()
+        t0 = time.monotonic()
+        got, g_state = spec.run_chunked(enc, SMOKE_CHUNK)
+        spec_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        want, w_state = scan.run_chunked(enc, SMOKE_CHUNK)
+        scan_s = time.monotonic() - t0
+        torch.cuda.synchronize()
+        if not np.array_equal(got, want) or not all(
+                torch.equal(x, y) for x, y in zip(g_state, w_state)):
+            raise AssertionError(f"spec {name}: K6 binds otherwise than K1")
+        chunks = enc.pod_batch.valid.shape[0] // SMOKE_CHUNK
+        st = spec.scan_stats
+        if st["spec_chunks"] != chunks or st["eager_steps"] \
+                or scan.scan_stats["spec_chunks"]:
+            raise AssertionError(f"spec {name}: {st} for {chunks} chunks")
+        sha, bound = assigned_digest(got, enc.n_pods)
+        if name in SMOKE_DIGESTS and (sha, bound) != (
+                SMOKE_DIGESTS[name]["sha256"], SMOKE_DIGESTS[name]["bound"]):
+            raise AssertionError(f"spec {name}: assignment {sha} / {bound} "
+                                 f"differs from the JAX engine's")
+        rec["runs"][name] = {
+            "pods": enc.n_pods, "chunks": chunks, "bound": bound,
+            "sha256": sha, "equal_k1": True, "spec_run_s": spec_s,
+            "scan_run_s": scan_s, "spec_device_ms": st["device_ms"],
+            "scan_device_ms": scan.scan_stats["device_ms"]}
+    return rec, chunk_enc
+
+
+def _chunk_ms(a, fn) -> float:
+    """Device ms of fn(a) on one chunk from a.state each time: a graph of
+    restores and calls, less the restores' own graph."""
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import device_ms
+    init = [t.clone() for t in a.state]
+
+    def restore():
+        for t, s in zip(a.state, init):
+            t.copy_(s)
+
+    def call():
+        restore()
+        fn(a)
+
+    ms = device_ms(call, reps=5, trials=3) - device_ms(restore, reps=5,
+                                                       trials=3)
+    restore()
+    return ms
+
+
+def phase_spec(rate, floor_ms, encs, chunk_enc):
+    """K6a and K6b held to their plain versions and K1 on seeded random
+    tables (fixtures.scan_cases, each case's tables on K6's tiers: the
+    spread tier as the case has it, no affinity, no ServiceAntiAffinity;
+    both layouts; blocks of 256 and 7), then timed: on K1's e2e chunk
+    (K6 == K1, the chunk, K6a and K6b on its first block, bounds from
+    this run's rescores, K1's own ms in the same turn) and on the spread
+    fixture's chunk (the same; K6 == its plain version on the first 512
+    pods). -> (record, timings)."""
+    import torch
+
+    from kubernetes_tpu_torch.kubemark.fixtures import (SCAN_DEGENERATE,
+                                                        scan_cases,
+                                                        scan_tables)
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import (scan_args,
+                                                            spec_parity,
+                                                            spec_timing)
+    from kubernetes_tpu_torch.sched.device import BatchEngine
+    from kubernetes_tpu_torch.sched.device import engine as eng_mod
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+
+    engine = BatchEngine()
+    dev, w = engine.device, engine.weights
+    rec = {"phase": "spec", "cases": {}, "max_abs_err": 0}
+    codes = set()
+    t0 = time.monotonic()
+    for name, case in scan_cases().items():
+        tables = scan_tables(**case["tables"])
+        a = scan_args(*(eng_mod._upload(t, dev) for t in tables))
+        got = spec_parity(a, case["weights"], case["has_spread"])
+        if not got["equal"]:
+            bad = [f for f, ok in got["fields"].items() if not ok]
+            raise AssertionError(f"spec {name}: K6 differs from its plain "
+                                 f"version or K1 in {bad}")
+        if (got["placed"] == 0) != (name.split("/")[0] in SCAN_DEGENERATE):
+            raise AssertionError(f"spec {name}: {got['placed']} placed")
+        codes.add(sk.variant(case["tables"]["wide"], case["has_spread"],
+                             False, False))
+        rec["cases"][name] = [a.dims()["p"], a.dims()["n"], got["placed"],
+                              got["slow"]]
+        rec["max_abs_err"] = max(rec["max_abs_err"], got["max_abs_err"])
+    if codes != {0, 4, 8, 12}:
+        raise AssertionError(f"K6 was held in instantiations {codes}")
+    rec["parity_s"] = time.monotonic() - t0
+
+    timed = {}
+    spread = encs["spread_5000x8192"]
+    for key, enc in (("chunk", chunk_enc), ("spread", spread)):
+        flags = engine._enc_flags(enc)
+        a = scan_args(*engine.device_args(enc))
+        k1 = scan_args(*engine.device_args(enc))
+        k1_ms = _chunk_ms(k1, lambda x: sk.scan_chunk(x, w, 0, *flags))
+        t = spec_timing(a, w, flags[1], rate, floor_ms)
+        want = sk.scan_chunk(k1, w, 0, *flags)
+        torch.cuda.synchronize()
+        if not torch.equal(t.pop("assigned"), want) or not all(
+                torch.equal(x, y) for x, y in zip(a.state, k1.state)):
+            raise AssertionError(f"spec {key}: K6 differs from K1 at "
+                                 f"{a.dims()['p']} x {a.dims()['n']}")
+        t.update(k1_ms=k1_ms, shape=[a.dims()["p"], a.dims()["n"]],
+                 winner="spec" if t["ms"] < k1_ms else "scan")
+        timed[key] = t
+    # the spread fixture's first 512 pods against the plain versions
+    a = scan_args(*engine.device_args(spread)).pod_slice(0, 512)
+    got = spec_parity(a, w, True, blocks=(256,))
+    if not got["equal"]:
+        raise AssertionError("spec: K6 differs from its plain version on "
+                             "the spread fixture's first 512 pods")
+    rec["spread_512"] = [got["placed"], got["slow"]]
+    rec.update(equal_plain=True, equal_k1=True,
+               **{f"{key}_{f}": t[f] for key, t in timed.items()
+                  for f in ("ms", "k1_ms", "winner", "bound_ms",
+                            "bound_by", "launches", "blocks", "entries",
+                            "rescored", "slow_pods", "sm_clock_mhz",
+                            "shape")},
+               **{f"{key}_{part}": t[part] for key, t in timed.items()
+                  for part in ("pass", "repair")})
+    return rec, timed
+
+
+def _spec_refusals():
+    """Launches of K6a, then of K6b, that the card refuses (2048 threads
+    a block) in place of the real ones: run_chunked on a speculative
+    engine must raise and return nothing, with no launch of the refused
+    kernel counted; restored, it equals the CPU engine. -> the errors."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.kubemark.fixtures import mixed_snapshot
+    from kubernetes_tpu_torch.sched.device import BatchEngine, encode_snapshot
+    from kubernetes_tpu_torch.sched.device import spec_kernel as spk
+
+    enc = encode_snapshot(mixed_snapshot(FILTER_SEED, 64, 8, 10))
+    engine = BatchEngine(speculative=True)
+    real = spk._launch
+    errors = {}
+    for kind, name, fn in ((spk.PASS, "pass", spk.spec_pass),
+                           (spk.REPAIR, "repair", spk.spec_repair)):
+        before = fn.launches
+        spk._launch = lambda p, *rest, kind=kind: real(
+            p._replace(threads=2048) if p.kind == kind else p, *rest)
+        got = None
+        try:
+            got = engine.run_chunked(enc, 8)
+        except RuntimeError as e:
+            errors[name] = str(e)
+        finally:
+            spk._launch = real
+        if got is not None or name not in errors or fn.launches != before:
+            raise AssertionError(f"a refused speculative {name} launch did "
+                                 f"not raise through run_chunked")
+    cpu = BatchEngine(device="cpu", speculative=True)
+    if not np.array_equal(engine.run_chunked(enc, 8)[0],
+                          cpu.run_chunked(enc, 8)[0]):
+        raise AssertionError("the speculative run after a refused launch "
+                             "differs from the CPU engine's")
+    return errors
 
 
 def phase_preempt(rate, floor_ms):
@@ -875,7 +1133,7 @@ def _scatter_refusal():
     ones = torch.ones(8, 128, device=engine.device)
     scratch = torch.empty(8, 128, dtype=torch.int32, device=engine.device)
     real = sk._launch
-    before = sk.scatter_rows.launches
+    before = sk.launch_staged.launches
     got, error = None, None
     sk._launch = lambda staged: rk._launch(
         ones, scratch, rk.launch_plan(8, 128, 2 * rk.MAX_BLOCK_THREADS))
@@ -886,7 +1144,7 @@ def _scatter_refusal():
     finally:
         sk._launch = real
     if got is not None or error is None \
-            or sk.scatter_rows.launches != before:
+            or sk.launch_staged.launches != before:
         raise AssertionError("a refused scatter launch did not raise "
                              "through run_chunked")
     # the mirror's generations moved only past scatters that landed, so
@@ -994,7 +1252,11 @@ def phase_no_fallback(table):
         raise AssertionError("the victim search after a refused launch "
                              "differs from the oracle")
     scan_errors = _scan_refusals()
+    spec_errors = _spec_refusals()
     return {"phase": "no_fallback", "raised": True, "error": error[:200],
+            "spec_pass_error": spec_errors["pass"][:200],
+            "spec_repair_error": spec_errors["repair"][:200],
+            "spec_raised": True,
             "equal_after": True,
             "scatter_error": _scatter_refusal()[:200],
             "scatter_raised": True,
@@ -1090,19 +1352,22 @@ def _counts():
                                                    reject_kernel,
                                                    scan_kernel,
                                                    scatter_kernel,
+                                                   spec_kernel,
                                                    victim_kernel)
     return {"filter_masks": filter_kernel.filter_masks,
             "argsort_rows": reject_kernel.argsort_rows,
-            "scatter_rows": scatter_kernel.scatter_rows,
+            "scatter_prologue": scatter_kernel.launch_staged,
             "victim_search": victim_kernel.victim_search,
             "scan_chunk": scan_kernel.scan_chunk,
-            "probe": scan_kernel.probe}
+            "probe": scan_kernel.probe,
+            "spec_pass": spec_kernel.spec_pass,
+            "spec_repair": spec_kernel.spec_repair}
 
 
 def _zero_counts():
     for fn in _counts().values():
         fn.launches = 0
-    _counts()["scatter_rows"].rows = 0
+    _counts()["scatter_prologue"].rows = 0
 
 
 def _read_counts():
@@ -1136,7 +1401,8 @@ def main() -> int:
     del mixed_tables
     stamp(scan)
     _zero_counts()                        # the main path starts here
-    for rec in phase_engine():
+    engine_recs, encs = phase_engine()
+    for rec in engine_recs:
         stamp(rec)
     ext = phase_extender()
     stamp(ext)
@@ -1150,7 +1416,7 @@ def main() -> int:
     _zero_counts()                        # the e2e path starts here
     e2e = phase_e2e()
     e2e_launches = _read_counts()         # ... and ends here
-    e2e_rows = sk.scatter_rows.rows
+    e2e_rows = sk.launch_staged.rows
     stamp({**e2e, "launches": e2e_launches, "scatter_rows": e2e_rows})
     tiles = e2e["tiles_chained"] + e2e["tiles_unchained"]
     if e2e_launches["scan_chunk"] < max(tiles, 1):
@@ -1163,8 +1429,21 @@ def main() -> int:
     mirror, rows_a_launch = phase_mirror()
     mirror_launches = _read_counts()      # ... and ends here
     stamp({**mirror, "launches": mirror_launches})
+    if mirror_launches["scatter_prologue"] == 0:
+        raise AssertionError("the mirror path never launched the scatter "
+                             "kernel")
     scatter, scatter_t = phase_scatter(rate, floor_ms, rows_a_launch)
     stamp(scatter)
+    _zero_counts()                        # the spec path starts here
+    spec_path, chunk_enc = phase_spec_path(encs)
+    spec_launches = _read_counts()        # ... and ends here
+    stamp({**spec_path, "launches": spec_launches})
+    for name in ("spec_pass", "spec_repair"):
+        if spec_launches[name] == 0:
+            raise AssertionError(f"the spec path never launched {name}")
+    spec, spec_t = phase_spec(rate, floor_ms, encs, chunk_enc)
+    del encs, chunk_enc
+    stamp(spec)
     preempt, preempt_launches, wide = phase_preempt(rate, floor_ms)
     stamp(preempt)
     stamp(phase_no_fallback(wide))
@@ -1175,8 +1454,10 @@ def main() -> int:
     if mixed_launches["probe"] == 0:
         raise AssertionError("mixed mode never launched the probe kernel")
     print(card, flush=True)
-    big = scatter_t[("state", E2E_COUNTS["n_nodes"])]
-    small = scatter_t[("state", scatter["path_rows"])]
+    n_rows = E2E_COUNTS["n_nodes"]
+    big = scatter_t[(n_rows, n_rows)]
+    small = scatter_t[tuple(scatter["path_rows"])]
+    k6 = spec_t["chunk"]
     k1, k5, k5_p1 = scan_t["k1"], scan_t["k5"], scan_t["k5_p1"]
     emit({"kernels": [{
         "name": "filter_masks", "route": "cuda",
@@ -1205,20 +1486,24 @@ def main() -> int:
         "library_ms": reject["library_ms"], "main_path_ms": reject["ms"],
         "main_path_bound_ms": reject["bound_ms"],
         "launch_floor_ms": floor_ms, **rate}, {
-        "name": "scatter_rows", "route": "cuda",
+        "name": "scatter_prologue", "route": "cuda",
         "source": "kubernetes_tpu_torch/sched/device/csrc/scatter_kernel.cu",
         "replaces": "kubernetes_tpu/sched/device/engine.py:669",
-        "launches": mirror_launches["scatter_rows"],
+        "launches": mirror_launches["scatter_prologue"],
         "launches_path": "mirror",
-        "e2e_launches": e2e_launches["scatter_rows"],
-        "main_path_shape": [scatter["path_rows"], small["columns"]],
+        "launches_per_tile": mirror["launches_per_tile"],
+        "e2e_launches": e2e_launches["scatter_prologue"],
+        "main_path_shape": scatter["path_rows"],
         "equal_plain": scatter["equal_plain"],
         "max_abs_err": scatter["max_abs_err"],
-        "shape": [E2E_COUNTS["n_nodes"], big["columns"]],
+        "shape": [n_rows, n_rows],
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
         "library_ms": big["library_ms"], "main_path_ms": small["ms"],
         "main_path_bound_ms": small["bound_ms"],
+        "prologue_host_ms": mirror["prologue_host_ms"],
+        "prologue_profile": {k: mirror["prologue_profile"][k] for k in (
+            "kernels", "h2d_copies", "launch_calls", "copy_calls")},
         "launch_floor_ms": floor_ms, **rate}, {
         "name": "victim_search", "route": "cuda",
         "source": "kubernetes_tpu_torch/sched/device/csrc/victim_kernel.cu",
@@ -1266,6 +1551,36 @@ def main() -> int:
         "library_ms": None, "main_path_ms": k5_p1["ms"],
         "main_path_bound_ms": k5_p1["bound_ms"],
         "cluster": k5["cluster"], "main_path_cluster": k5_p1["cluster"],
+        "launch_floor_ms": floor_ms, **rate}, {
+        "name": "spec_pass", "route": "cuda",
+        "source": "kubernetes_tpu_torch/sched/device/csrc/scan_kernel.cu",
+        "replaces": "kubernetes_tpu/sched/device/engine.py:428",
+        "launches": spec_launches["spec_pass"], "launches_path": "spec",
+        "main_path_shape": k6["pass"]["shape"],
+        "equal_plain": spec["equal_plain"],
+        "max_abs_err": spec["max_abs_err"], "shape": k6["pass"]["shape"],
+        "ms": k6["pass"]["ms"], "plain_ms": k6["pass"]["plain_ms"],
+        "bound_ms": k6["pass"]["bound_ms"],
+        "bound_by": k6["pass"]["bound_by"], "library_ms": None,
+        "main_path_ms": k6["pass"]["ms"],
+        "main_path_bound_ms": k6["pass"]["bound_ms"],
+        "launch_floor_ms": floor_ms, **rate}, {
+        "name": "spec_repair", "route": "cuda",
+        "source": "kubernetes_tpu_torch/sched/device/csrc/scan_kernel.cu",
+        "replaces": "kubernetes_tpu/sched/device/engine.py:474",
+        "launches": spec_launches["spec_repair"], "launches_path": "spec",
+        "main_path_shape": k6["repair"]["shape"],
+        "equal_plain": spec["equal_plain"],
+        "max_abs_err": spec["max_abs_err"], "shape": k6["repair"]["shape"],
+        "ms": k6["repair"]["ms"], "plain_ms": k6["repair"]["plain_ms"],
+        "bound_ms": k6["repair"]["bound_ms"],
+        "bound_by": k6["repair"]["bound_by"], "library_ms": None,
+        "main_path_ms": k6["repair"]["ms"],
+        "main_path_bound_ms": k6["repair"]["bound_ms"],
+        "chunk_shape": k6["shape"], "chunk_ms": k6["ms"],
+        "chunk_bound_ms": k6["bound_ms"], "chunk_k1_ms": k6["k1_ms"],
+        "spread_chunk_ms": spec_t["spread"]["ms"],
+        "spread_k1_ms": spec_t["spread"]["k1_ms"],
         "launch_floor_ms": floor_ms, **rate}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,8 @@ Sections:
   context survived).
 - ``engine``: engine-only throughput (`BatchEngine.run_chunked(enc,
   8192)`) on the smoke's engine fixture at 1000x3000 and 5000x30000.
+- ``engine_spec``: the speculative engine (K6) against the scan (K1) on
+  the same fixture and shapes, plain and spread tiers, with the winner.
 - ``e2e``: the live pipeline under the kubemark benchmark
   (`run_scheduling_benchmark(5000, 30000, "batch")`: registry, informer
   fan-out, FIFO drain, incremental encode, chained device scan, batched
@@ -40,8 +42,7 @@ Sections:
 
 Every section needs the card: none falls back to the CPU. Still to port
 from the JAX tool (ROADMAP.md Queue 1, 'Harness and entry points'): the
-chip lock, the crossover against a CPU engine rate, and the speculative
-engine A/B (engine_spec).
+chip lock and the crossover against a CPU engine rate.
 """
 
 from __future__ import annotations
@@ -427,6 +428,199 @@ def probe_timing(a, weights, anti_weight: int, has_aff: bool, rate: dict,
             int((pd.svc_group >= 0).sum()) if anti_weight else 0, rate)}
 
 
+def spec_parity(a, weights, has_spread: bool, blocks=(256, 7)) -> dict:
+    """K6 on ScanArgs `a` (on the card) against its plain versions and
+    K1, each from its own copy of a.state: K6a on the first block against
+    spec_top_plain of spec_pass_plain (the top lists); K6b alone, on the
+    plain top lists, against JAX's repair from the whole rows
+    (spec_block_plain: picks, slow marks and State); the whole chunk at
+    each block size of `blocks` against spec_run_plain (the same); and
+    the chunk against K1 (assignment and State). -> the fields compared,
+    whether all were equal, the largest absolute difference, the pods
+    placed and those that took the full-width rescore. a.state is left
+    as it was."""
+    from ..sched.device import scan_kernel as sk
+    from ..sched.device import spec_kernel as spk
+    p = a.dims()["p"]
+    b = min(spk.SPEC_BLOCK, p)
+    init = [t.clone() for t in a.state]
+
+    def fresh():
+        return a._replace(state=type(a.state)(*(t.clone() for t in init)))
+
+    pairs = []
+    top = spk.spec_pass(a, weights, has_spread, 0, b)
+    rows = spk.spec_pass_plain(a.pod_slice(0, b), weights, has_spread)
+    want_top = spk.Top(*spk.spec_top_plain(rows, b))
+    pairs += [("pass", top.comp, want_top.comp),
+              ("pass_slots", top.slot, want_top.slot)]
+    kb, pb = fresh(), fresh()
+    out = torch.full((p,), -7, dtype=torch.int32, device=a.device)
+    slow_k = torch.zeros(p, dtype=torch.uint8, device=a.device)
+    spk.spec_repair(kb, want_top, 0, b, weights, has_spread, out, slow_k)
+    slow_p = torch.zeros(b, dtype=torch.bool, device=a.device)
+    want = spk.spec_block_plain(pb.pod_slice(0, b), rows, weights,
+                                has_spread, slow=slow_p)
+    pairs += [("repair", out[:b], want),
+              ("repair_slow", slow_k[:b].bool(), slow_p)]
+    pairs += [(f"repair.state.{f}", x, y)
+              for f, x, y in zip(a.state._fields, kb.state, pb.state)]
+    got = None
+    for blk in blocks:
+        ka, pa = fresh(), fresh()
+        slow_k = torch.zeros(p, dtype=torch.uint8, device=a.device)
+        slow_p = torch.zeros(p, dtype=torch.bool, device=a.device)
+        got = spk.spec_chunk(ka, weights, has_spread, blk, slow_k)
+        want = spk.spec_run_plain(pa, weights, has_spread, blk, slow_p)
+        pairs += [(f"chunk{blk}", got, want),
+                  (f"chunk{blk}_slow", slow_k.bool(), slow_p)]
+        pairs += [(f"chunk{blk}.state.{f}", x, y)
+                  for f, x, y in zip(a.state._fields, ka.state, pa.state)]
+        slow = int(slow_k.sum())
+    k1 = fresh()
+    pairs.append(("k1", got, sk.scan_chunk(k1, weights, 0, False,
+                                           has_spread)))
+    pairs += [(f"k1.state.{f}", x, y)
+              for f, x, y in zip(a.state._fields, ka.state, k1.state)]
+    torch.cuda.synchronize(a.device)
+    fields, err = {}, 0
+    for name, x, y in pairs:
+        fields[name] = bool(torch.equal(x, y))
+        if x.numel():
+            err = max(err, int((x.long() - y.long()).abs().max()))
+    return {"equal": all(fields.values()), "max_abs_err": err,
+            "placed": int((got >= 0).sum()), "slow": slow,
+            "fields": fields}
+
+
+def spec_timing(a, weights, has_spread: bool, rate: dict,
+                floor_ms: float) -> dict:
+    """K6 on one chunk (ScanArgs `a` on the card), from a.state each
+    time: the chunk's device time (a graph of its launches after the
+    copies that restore the State, whose own time is taken off), with
+    the SM clock, power and temperature sampled while it runs; K6a on the
+    first block and its plain version (device_ms); K6b on the first
+    block (restored the same way) and its plain version once between
+    CUDA events; each part's bound and the chunk's (bounds.spec_bound,
+    from spec_work's counts of this run). a.state ends as the chunk
+    leaves it; `assigned` is the chunk's assignment."""
+    from ..sched.device import bounds
+    from ..sched.device import spec_kernel as spk
+    d = a.dims()
+    p, n = d["p"], d["n"]
+    b = min(spk.SPEC_BLOCK, p)
+    wide = a.dtype == torch.int64
+    init = [t.clone() for t in a.state]
+
+    def restore():
+        for t, s in zip(a.state, init):
+            t.copy_(s)
+
+    def chunk():
+        restore()
+        spk.spec_chunk(a, weights, has_spread)
+
+    restore_ms = device_ms(restore, reps=5, trials=3)
+    with SmiSampler() as smi:
+        ms = device_ms(chunk, reps=5, trials=3) - restore_ms
+    # the parts alone, on the first block against the initial State
+    restore()
+    top = spk.spec_pass(a, weights, has_spread, 0, b)
+    pass_ms = device_ms(lambda: spk.spec_pass(a, weights, has_spread, 0, b,
+                                              top))
+    first = a.pod_slice(0, b)
+    pass_plain_ms = device_ms(lambda: spk.spec_top_plain(
+        spk.spec_pass_plain(first, weights, has_spread), b))
+    out = torch.empty(p, dtype=torch.int32, device=a.device)
+
+    def repair():
+        restore()
+        spk.spec_repair(a, top, 0, b, weights, has_spread, out)
+
+    repair_ms = device_ms(repair, reps=5, trials=3) - restore_ms
+    restore()
+    plain_state = type(a.state)(*(t.clone() for t in init))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    spk.spec_block_plain(first._replace(state=plain_state),
+                         (top.comp, top.slot), weights, has_spread)
+    end.record()
+    end.synchronize()
+    repair_plain_ms = start.elapsed_time(end)
+    # one run for its outputs: the assignment and the slow marks
+    restore()
+    slow = torch.zeros(p, dtype=torch.uint8, device=a.device)
+    assigned = spk.spec_chunk(a, weights, has_spread, spk.SPEC_BLOCK, slow)
+    pd = a.pods
+    valid = pd.valid.cpu().numpy()
+    group = pd.group_id.cpu().numpy() if has_spread \
+        else np.full(p, -1, np.int32)
+    got = assigned.cpu().numpy()
+    slow_np = slow.cpu().numpy().astype(bool)
+    work = spk.spec_work(got, valid, group, slow_np)
+    work_b = spk.spec_work(got[:b], valid[:b], group[:b], slow_np[:b])
+    pod_bytes = sum(t.numel() * t.element_size() for t in pd)
+    table_bytes = a.nbytes() - pod_bytes
+    blocks = -(-p // b)
+    spread_pods = int((pd.group_id >= 0).sum()) if has_spread else 0
+    spread_b = int((pd.group_id[:b] >= 0).sum()) if has_spread else 0
+    words = (d["l"], d["pw"], d["k"])
+    pass_t = bounds.spec_pass_terms(p, n, blocks, b, table_bytes,
+                                    pod_bytes, wide, *words, spread_pods)
+    rep_t = bounds.spec_repair_terms(p, n, pod_bytes, wide, *words, *work)
+    pod_b = pod_bytes * b // max(p, 1)
+    pass_b = bounds.spec_pass_terms(b, n, 1, b, table_bytes, pod_b, wide,
+                                    *words, spread_b)
+    rep_b = bounds.spec_repair_terms(b, n, pod_b, wide, *words, *work_b)
+    return {"launch_floor_ms": floor_ms, "ms": ms, "restore_ms": restore_ms,
+            "blocks": blocks, "block": b, "launches": 2 * blocks,
+            "entries": work[0], "rescored": work[1],
+            "rescored_spread": work[2], "slow_pods": work[3],
+            "placed": int((got >= 0).sum()),
+            "assigned": assigned, **smi.summary(),
+            **bounds.spec_bound([pass_t, rep_t], rate),
+            "pass": {"ms": pass_ms, "plain_ms": pass_plain_ms,
+                     "shape": [b, n],
+                     **bounds.spec_bound([pass_b], rate)},
+            "repair": {"ms": repair_ms, "plain_ms": repair_plain_ms,
+                       "shape": [b, n], "entries": work_b[0],
+                       "rescored": work_b[1], "slow_pods": work_b[3],
+                       **bounds.spec_bound([rep_b], rate)}}
+
+
+def profile_counts(fn) -> dict:
+    """torch.profiler over one call of `fn` (then a synchronise): the
+    kernels and host->device copies the card ran (device events), and
+    the launches and copies the host queued (runtime calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"kernels": 0, "h2d_copies": 0, "other_copies": 0,
+           "launch_calls": 0, "copy_calls": 0, "kernel_names": {}}
+    for e in prof.events():
+        name = e.name
+        if e.device_type == DeviceType.CUDA:
+            if name.startswith("Memcpy HtoD"):
+                out["h2d_copies"] += 1
+            elif name.startswith(("Memcpy", "Memset")):
+                out["other_copies"] += 1
+            else:
+                out["kernels"] += 1
+                short = name.split("(")[0][-60:]
+                out["kernel_names"][short] = \
+                    out["kernel_names"].get(short, 0) + 1
+        elif name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            out["launch_calls"] += 1
+        elif name.startswith(("cudaMemcpy", "cuMemcpy")):
+            out["copy_calls"] += 1
+    return out
+
+
 TURNS = ("other", "this", "this", "other")
 
 
@@ -448,8 +642,9 @@ def turns(fns: dict, library=None, device=None) -> dict:
 
 
 def load_wrappers(root: str) -> dict:
-    """Another checkout's `sched/device/{_build,filter_kernel,
-    reject_kernel,scan_kernel,victim_kernel}.py` (those it has), loaded
+    """Another checkout's `sched/device/{_build,bounds,filter_kernel,
+    reject_kernel,scan_kernel,victim_kernel,scatter_kernel}.py` (those it
+    has), loaded
     as a package of their own beside this checkout's (its kernels build
     from its own sources into its own `_build/`). Their parent package
     holds this checkout's `preemption` (the victim kernel's constants)."""
@@ -465,8 +660,8 @@ def load_wrappers(root: str) -> dict:
         sys.modules[mod].__path__ = path
     sys.modules[f"{parent}.preemption"] = preemption
     mods = {}
-    for mod_name in ("_build", "filter_kernel", "reject_kernel",
-                     "scan_kernel", "victim_kernel"):
+    for mod_name in ("_build", "bounds", "filter_kernel", "reject_kernel",
+                     "scan_kernel", "victim_kernel", "scatter_kernel"):
         path = os.path.join(pkg_dir, f"{mod_name}.py")
         if not os.path.exists(path):
             continue
@@ -561,6 +756,12 @@ def section_turns(other_root: str, device=None) -> dict:
         cases[f"victim_search {wide.n}x{wide.v}"] = (
             lambda t: vk.victim_search(ta), lambda t: ovk.victim_search(oa),
             lambda t: vk.victim_search_plain(ta), wide, None)
+    if "scatter_kernel" in other:
+        # K3: a delta tile's device prologue on the e2e fleet's tables,
+        # both tables dirty, the run's State from the mirror's
+        for r_node, r_state in PROLOGUE_ROWS:
+            cases[f"prologue {r_node}+{r_state}"] = prologue_turn_case(
+                other["scatter_kernel"], d, r_node, r_state)
     out = {"card": card_line(), "kernels": {}}
     for name, (this_fn, other_fn, plain_fn, a, library) in cases.items():
         got = this_fn(a)
@@ -573,6 +774,102 @@ def section_turns(other_root: str, device=None) -> dict:
                 library, d)
         out["kernels"][name].update(smi.summary())
     return out
+
+
+# the delta tiles K3's turns time: a 500-node heartbeat shard with 1274
+# State rows (the e2e's tiles), and every row of both tables
+PROLOGUE_ROWS = ((500, 1274), (5000, 5000))
+PROLOGUE_SEED = 13
+
+
+def prologue_tables(device, r_node: int, r_state: int,
+                    seed: int = PROLOGUE_SEED):
+    """The e2e fleet's node and State tables on `device` (the mirror)
+    and a delta tile's host rows for them: r_node and r_state random rows
+    of each, spread over the whole table -> (node, state, (node_idx,
+    node_rows), (state_idx, state_rows))."""
+    from ..sched.device import BatchEngine
+    from ..sched.device import engine as eng
+    from .benchmark import _bench_pod
+    from .fixtures import fleet_encoder
+    node_h, state_h, _ = BatchEngine(device=device).host_args(
+        fleet_encoder().encode_tile([_bench_pod(0)], [], []))
+    rng = np.random.default_rng(seed)
+    n = int(node_h.valid.shape[0])
+
+    def rows(tab, fields, r):
+        idx = np.sort(rng.permutation(n)[:r]).astype(np.int64)
+        out = []
+        for f in fields:
+            a = getattr(tab, f)
+            shape = (r,) + a.shape[1:]
+            if a.dtype == np.bool_:
+                out.append(rng.random(shape) < 0.5)
+            else:
+                out.append(rng.integers(0, 2 ** 31, shape).astype(a.dtype))
+        return idx, out
+
+    return (eng._upload(node_h, device), eng._upload(state_h, device),
+            rows(node_h, eng._NODE_ROW_FIELDS, r_node),
+            rows(state_h, eng._STATE_ROW_FIELDS, r_state))
+
+
+def prologue_staged(mod, device, node, state, node_rows, state_rows):
+    """A delta tile's prologue as BatchEngine._fetch_tables builds it,
+    with scatter_kernel module `mod`: both tables' rows into the mirror
+    (the State rows also into the run's State) and the 13 copies ->
+    (staged, the run's State)."""
+    from ..sched.device import engine as eng
+    pro = mod.Prologue()
+    run = eng._alloc_like(state)
+    pro.scatter([getattr(node, f) for f in eng._NODE_ROW_FIELDS],
+                *node_rows)
+    g = pro.scatter([getattr(state, f) for f in eng._STATE_ROW_FIELDS],
+                    *state_rows,
+                    also=[getattr(run, f) for f in eng._STATE_ROW_FIELDS])
+    for f in eng.State._fields:
+        pro.copy(getattr(run, f), getattr(state, f),
+                 skip=g if f in eng._STATE_ROW_FIELDS else None)
+    return pro.stage(device), run
+
+
+def prologue_turn_case(osc, device, r_node: int, r_state: int):
+    """K3's case for section_turns: this checkout's one launch against
+    another checkout's prologue on its own copy of the same tables (two
+    scatter launches and 13 `copy_`s into the run's State where its
+    scatter_kernel has no Prologue), and the plain version on a third.
+    Each callable returns every table it wrote."""
+    from ..sched.device import scatter_kernel as sck
+    from ..sched.device import engine as eng
+    sides = {}
+    for who in ("this", "other", "plain"):
+        node, state, nr, sr = prologue_tables(device, r_node, r_state)
+        if who == "other" and not hasattr(osc, "Prologue"):
+            run = type(state)(*(torch.empty_like(t) for t in state))
+            staged = [osc.to_device(osc.stage(
+                [getattr(tab, f) for f in fields], idx, rows, pin=True),
+                device) for tab, fields, (idx, rows) in (
+                    (node, eng._NODE_ROW_FIELDS, nr),
+                    (state, eng._STATE_ROW_FIELDS, sr))]
+
+            def fn(_, st=staged, node=node, state=state, run=run):
+                for x in st:
+                    osc.launch_staged(x)
+                for d_, s_ in zip(run, state):
+                    d_.copy_(s_)
+                return tuple(node) + tuple(state) + tuple(run)
+        else:
+            mod = osc if who == "other" else sck
+            staged, run = prologue_staged(mod, device, node, state, nr, sr)
+            launch = sck.prologue_plain if who == "plain" \
+                else mod.launch_staged
+
+            def fn(_, st=staged, node=node, state=state, run=run,
+                   launch=launch):
+                launch(st)
+                return tuple(node) + tuple(state) + tuple(run)
+        sides[who] = fn
+    return sides["this"], sides["other"], sides["plain"], None, None
 
 
 def _same(x, y) -> bool:
@@ -698,6 +995,48 @@ def section_engine(device=None,
         out[f"{n_nodes}x{n_pods}"] = {"pods_per_sec": n_pods / run_s,
                                       "run_s": run_s, "bound": bound,
                                       "sha256": sha}
+    return out
+
+
+def section_engine_spec(device=None,
+                        shapes=((1000, 3000), (5000, 30000))) -> dict:
+    """The speculative engine against the scan (JAX tpu_evidence's
+    engine_spec): engine-only throughput on the smoke's engine fixture,
+    plain (the node-local tier, the e2e's) and spread (one service),
+    `run_chunked(enc, 8192)` once to warm up and once timed, encode
+    excluded, with both engines' device ms (scan_stats' CUDA events) and
+    the winner. The two assignments must be equal."""
+    from ..sched.device import BatchEngine, encode_snapshot
+    from .fixtures import (SMOKE_CHUNK, assigned_digest, engine_snapshot,
+                           smoke_pod_pad)
+    d = _cuda(device)
+    out = {}
+    for n_nodes, n_pods in shapes:
+        for tier, plain in (("plain", True), ("spread", False)):
+            enc = encode_snapshot(engine_snapshot(n_nodes, n_pods,
+                                                  plain=plain),
+                                  pod_pad_to=smoke_pod_pad(n_pods))
+            rec = {}
+            for name, spec in (("scan", False), ("spec", True)):
+                eng = BatchEngine(device=d, speculative=spec)
+                eng.run_chunked(enc, SMOKE_CHUNK)
+                before = eng.scan_stats["device_ms"]
+                torch.cuda.synchronize(d)
+                t0 = time.monotonic()
+                assigned, _ = eng.run_chunked(enc, SMOKE_CHUNK)
+                run_s = time.monotonic() - t0
+                sha, bound = assigned_digest(assigned, enc.n_pods)
+                rec[name] = {"pods_per_sec": bound / run_s, "run_s": run_s,
+                             "device_ms": eng.scan_stats["device_ms"]
+                             - before, "bound": bound, "sha256": sha,
+                             "spec_chunks": eng.scan_stats["spec_chunks"]}
+            if rec["spec"]["sha256"] != rec["scan"]["sha256"]:
+                raise AssertionError(f"{n_nodes}x{n_pods}-{tier}: the "
+                                     f"speculative engine binds otherwise "
+                                     f"than the scan")
+            rec["winner"] = ("spec" if rec["spec"]["pods_per_sec"]
+                             >= rec["scan"]["pods_per_sec"] else "scan")
+            out[f"{n_nodes}x{n_pods}-{tier}"] = rec
     return out
 
 
@@ -861,6 +1200,7 @@ def main() -> int:
     ev.run_section("dispatch", section_dispatch)
     ev.run_section("kernels", section_kernels)
     ev.run_section("engine", section_engine)
+    ev.run_section("engine_spec", section_engine_spec)
     if not args.skip_e2e:
         ev.run_section("e2e", section_e2e)
     ev.doc["complete"] = True

@@ -1,4 +1,5 @@
-"""Where the victim search's and the probe's time goes, on the card.
+"""Where the victim search's, the probe's and the speculative repair's
+time goes, on the card.
 
     python -m kubernetes_tpu_torch.kubemark.profile_kernels [--out PATH]
 
@@ -25,6 +26,16 @@ Prints one JSON object (and writes it to PATH when given):
   2 or 3 blocks an SM), each copy's registers and spills from ptxas and
   its device time per instantiation: the evidence behind the committed
   choice.
+
+- ``spec_phases``: the speculative repair (K6b) on the first block of
+  K1's e2e chunk (256 bench pods on the e2e fleet's 5120 slots, after
+  K6a's top lists), built from a copy of `csrc/scan_kernel.cu` that sums
+  clock64 over the block's pods, for thread 0 (list entry 0, the
+  reduction, the commit): its own offers, the wait at the reduction's
+  barrier (the slowest thread's offers and the warp reductions), the
+  CTA's reduction and the commit, and the barrier after the commit;
+  and for the last thread (the rescore of the block's first taken
+  slot) its offers. Cycles a pod of each, and both builds' device ms.
 
 Every copy is held equal to the plain version before it is timed.
 Copies are written under `kubernetes_tpu_torch/_build/variants/` and
@@ -206,6 +217,107 @@ def victim_host(device) -> dict:
             "find_victims_ms": _host_ms(lambda: engine.find_victims(t))}
 
 
+# --------------------------------------------------------------- K6b phases
+
+_SPEC_LOOP = """  for (int k = 0; k < count; ++k) {
+    Pod<T> p = read_pod<T, HAS_SPREAD, false, false>(a, rows + (size_t)k * E);
+    const T fc = nc;"""
+_SPEC_REDUCE = "    // the CTA's best, read by every thread\n"
+_SPEC_READ = "    T cb = lane < nwarps ? (T)red_c[b][lane] : (T)-1;\n"
+_SPEC_PUBLISH = "    __syncthreads();                  // the commit, published\n"
+# 0 thread 0's offers, 1 its wait at the reduction's barrier, 2 the
+# reduction and the commit, 3 the barrier after the commit, 4 the last
+# thread's offers, 5 pods (all cycles summed over the block's pods)
+_SPEC_SLOTS = 6
+
+
+def _spec_edits():
+    return [
+        ("#define SPEC_REPAIR_THREADS 512\n",
+         "#define SPEC_REPAIR_THREADS 512\n"
+         "__device__ long long spec_dbg[8];\n"),
+        (_SPEC_LOOP, _SPEC_LOOP.replace(
+            "  for (int k = 0; k < count; ++k) {\n",
+            "  for (int k = 0; k < count; ++k) {\n"
+            "    const long long c0 = clock64();\n")),
+        (_SPEC_REDUCE, "    const long long c1 = clock64();\n" + _SPEC_REDUCE),
+        (_SPEC_READ, "    const long long c2 = clock64();\n" + _SPEC_READ),
+        (_SPEC_PUBLISH,
+         "    const long long c3 = clock64();\n" + _SPEC_PUBLISH
+         + "    if (tid == 0) {\n"
+           "      spec_dbg[0] += c1 - c0;\n      spec_dbg[1] += c2 - c1;\n"
+           "      spec_dbg[2] += c3 - c2;\n"
+           "      spec_dbg[3] += clock64() - c3;\n      spec_dbg[5] += 1;\n"
+           "    }\n"
+           "    if (tid == nthreads - 1) spec_dbg[4] += c1 - c0;\n"),
+        ("extern \"C\" const char* scan_error_name(int err) {",
+         "extern \"C\" int spec_dbg_read(void* out, int zero) {\n"
+         "  static const long long zeros[8] = {0};\n"
+         "  if (zero) return (int)cudaMemcpyToSymbol(spec_dbg, zeros,"
+         " sizeof zeros);\n"
+         "  return (int)cudaMemcpyFromSymbol(out, spec_dbg, sizeof zeros);"
+         "\n}\n\nextern \"C\" const char* scan_error_name(int err) {"),
+    ]
+
+
+def spec_phases(device) -> dict:
+    from ..sched.device import spec_kernel as spk
+    from .benchmark import _bench_pod
+    enc = fx.fleet_encoder().encode_tile(
+        [_bench_pod(i) for i in range(fx.SMOKE_CHUNK)], [], [])
+    tables = eng.BatchEngine(device=device).device_args(enc)
+    real = sk.SOURCE
+    copy = _variant("spec_phases", real, _spec_edits())
+    _build.build_all([real, copy])
+    w = eng.DEFAULT_WEIGHTS
+    b = spk.SPEC_BLOCK
+    out = {"shape": [b, int(enc.node_tab.valid.shape[0])]}
+    want = None
+    a = scan_args(*tables)
+    init = [t.clone() for t in a.state]
+    try:
+        for name, path in (("committed", real), ("instrumented", copy)):
+            _with_source(sk, path)
+            # both builds from the chunk's initial State
+            for t, s in zip(a.state, init):
+                t.copy_(s)
+            top = spk.spec_pass(a, w, False, 0, b)
+            assigned = torch.empty(a.dims()["p"], dtype=torch.int32,
+                                   device=device)
+
+            def repair():
+                for t, s in zip(a.state, init):
+                    t.copy_(s)
+                spk.spec_repair(a, top, 0, b, w, False, assigned)
+
+            repair()
+            got = assigned[:b].clone()
+            want = got if want is None else want
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} repair differs from the "
+                                     f"committed one")
+            out[f"{name}_ms"] = device_ms(repair, reps=5, trials=3)
+        lib = sk._library()
+        lib.spec_dbg_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        buf = (ctypes.c_longlong * 8)()
+        err = lib.spec_dbg_read(buf, 1)
+        repair()
+        torch.cuda.synchronize()
+        err = err or lib.spec_dbg_read(buf, 0)
+        if err:
+            raise RuntimeError(f"reading the phases: CUDA error {err}")
+        d = list(buf)
+        pods = max(d[5], 1)
+        out.update(pods=d[5], **{f"{k}_cycles_a_pod": d[i] / pods
+                                 for i, k in enumerate(
+                                     ("own_offers", "reduce_wait",
+                                      "reduce_commit", "commit_barrier",
+                                      "rescore_offers"))})
+    finally:
+        _with_source(sk, real)
+    return out
+
+
 # ------------------------------------------------ K5's block-a-pod route
 
 _LB = "__global__ void __launch_bounds__(PROBE_BLOCK_THREADS)\nprobe_kernel("
@@ -295,7 +407,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="", help="also write the JSON here")
     args = ap.parse_args(argv)
     device = _cuda(None)
-    doc = {"card": card_line(), "victim_phases": victim_phases(device),
+    doc = {"card": card_line(), "spec_phases": spec_phases(device),
+           "victim_phases": victim_phases(device),
            "victim_host": victim_host(device),
            "probe_bounds": probe_bounds(device)}
     text = json.dumps(doc, default=str)

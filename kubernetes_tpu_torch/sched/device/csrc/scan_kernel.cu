@@ -110,6 +110,7 @@ namespace cg = cooperative_groups;
 #define PROBE_BLOCK_THREADS 512
 #define SCAN_MAX_SHARED_BYTES 232448
 #define SCAN_MAX_CLUSTER 16
+#define SPEC_REPAIR_THREADS 512
 
 // the addresses the wrapper packs (scan_kernel.PTR_FIELDS, same order)
 enum ScanPtr {
@@ -125,7 +126,7 @@ enum ScanPtr {
   PTR_SRW, PTR_HOST_IDX, PTR_GROUP_ID, PTR_MEMBER, PTR_AFF_REQ,
   PTR_ANTI_REQ, PTR_AFF_MEMBER, PTR_SVC_GROUP, PTR_SVC_MEMBER,
   PTR_ASSIGNED, PTR_MASK, PTR_TOTAL, PTR_WORK_TOTAL, PTR_WORK_MASK,
-  PTR_COUNT
+  PTR_SPEC_NODES, PTR_COUNT
 };
 
 // the sizes and weights the wrapper packs (scan_kernel.DIM_FIELDS)
@@ -195,7 +196,8 @@ struct Params {
   uint8_t* mask;                // K5 [P, N]
   T* total;                     // K5 [P, N]
   T* work_total;                // K1 [N], ANTI only
-  uint8_t* work_mask;           // K1 [N], ANTI only
+  uint8_t* work_mask;           // K1 [N], ANTI only; K6b [P] (slow pods)
+  int* spec_nodes;              // K6 [b, b]: the slots of `total`'s lists
 };
 
 // integer arithmetic in T that wraps as the tensors' does
@@ -446,6 +448,55 @@ __device__ uint8_t* carve(SharedSlots<T>& s, uint8_t* base, int S, int L,
   return (uint8_t*)u;   // the flags go last, after the ring and zones
 }
 
+// slot n's fields from the tables into index i of a SharedSlots copy (K1
+// for its slots at the start, K6b for a slot the first time a pod of its
+// block is committed there)
+template <typename T>
+__device__ __forceinline__ void load_slot(const Params<T>& a,
+                                          SharedSlots<T>& s, int i, int n) {
+  s.flags_[i] = (a.valid[n] && a.sched_ok[n] && a.static_mask[n])
+                | ((a.exceed_cpu[n] || a.exceed_mem[n]) << 1);
+  s.inv_cpu_[i] = a.inv_cpu[n];
+  s.inv_mem_[i] = a.inv_mem[n];
+  s.cpu_cap_[i] = a.cpu_cap[n];
+  s.mem_cap_[i] = a.mem_cap[n];
+  s.static_score_[i] = a.static_score[n];
+  s.cpu_used_[i] = a.cpu_used[n];
+  s.mem_used_[i] = a.mem_used[n];
+  s.nz_cpu_[i] = a.nz_cpu[n];
+  s.nz_mem_[i] = a.nz_mem[n];
+  s.pod_cap_[i] = a.pod_cap[n];
+  s.pod_count_[i] = a.pod_count[n];
+  s.tie_rank_[i] = a.tie_rank[n];
+  s.zone_id_[i] = a.zone_id[n];
+  for (int w = 0; w < a.L; ++w)
+    s.labels_[i * a.L + w] = a.labels[(size_t)n * a.L + w];
+  for (int w = 0; w < a.PW; ++w)
+    s.ports_[i * a.PW + w] = a.port_bits[(size_t)n * a.PW + w];
+  for (int w = 0; w < a.K; ++w) {
+    s.dany_[i * a.K + w] = a.disk_any[(size_t)n * a.K + w];
+    s.drw_[i * a.K + w] = a.disk_rw[(size_t)n * a.K + w];
+  }
+}
+
+// the State of index i of a SharedSlots copy back into slot n's columns
+template <typename T>
+__device__ __forceinline__ void store_slot(const Params<T>& a,
+                                           const SharedSlots<T>& s, int i,
+                                           int n) {
+  a.cpu_used[n] = s.cpu_used_[i];
+  a.mem_used[n] = s.mem_used_[i];
+  a.nz_cpu[n] = s.nz_cpu_[i];
+  a.nz_mem[n] = s.nz_mem_[i];
+  a.pod_count[n] = s.pod_count_[i];
+  for (int w = 0; w < a.PW; ++w)
+    a.port_bits[(size_t)n * a.PW + w] = s.ports_[i * a.PW + w];
+  for (int w = 0; w < a.K; ++w) {
+    a.disk_any[(size_t)n * a.K + w] = s.dany_[i * a.K + w];
+    a.disk_rw[(size_t)n * a.K + w] = s.drw_[i * a.K + w];
+  }
+}
+
 // the predicate mask of pod p on slot n (its fields at index i of s)
 template <typename T, bool HAS_AFF, typename Slots>
 __device__ __forceinline__ bool fits(const Params<T>& a, const Pod<T>& p,
@@ -643,6 +694,28 @@ __device__ __forceinline__ void offer(const Params<T>& a, T total, int tie,
   if (c >= 0 && beats(c, n, best, best_j)) { best = c; best_j = n; }
 }
 
+// the node-local half of the commit (JAX _commit_node_local) into one
+// slot's fields wherever they live (K1: the CTA's shared copy; K6b: the
+// State in global memory): the pod's requests, count, ports and disks
+template <typename T>
+__device__ __forceinline__ void commit_slot(const Params<T>& a,
+                                            const Pod<T>& p, T* cpu_used,
+                                            T* mem_used, T* nz_cpu,
+                                            T* nz_mem, int* pod_count,
+                                            uint32_t* ports, uint32_t* dany,
+                                            uint32_t* drw) {
+  *cpu_used = wadd(*cpu_used, p.req_cpu);
+  *mem_used = wadd(*mem_used, p.req_mem);
+  *nz_cpu = wadd(*nz_cpu, p.nz_cpu);
+  *nz_mem = wadd(*nz_mem, p.nz_mem);
+  *pod_count += 1;
+  for (int w = 0; w < a.PW; ++w) ports[w] |= p.words[a.L + w];
+  for (int w = 0; w < a.K; ++w) {
+    dany[w] |= p.words[a.L + a.PW + 2 * a.K + w];
+    drw[w] |= p.words[a.L + a.PW + 3 * a.K + w];
+  }
+}
+
 struct __align__(16) Cand {
   long long c;
   int j;
@@ -731,32 +804,7 @@ scan_kernel(const Params<T> a) {
   s.flags_ = (uint8_t*)(ztot + a.Z);
 
   // the owner of each slot copies it in
-  for (int i = first; i < ns; i += nscore) {
-    const int n = lo + i;
-    s.flags_[i] = (a.valid[n] && a.sched_ok[n] && a.static_mask[n])
-                  | ((a.exceed_cpu[n] || a.exceed_mem[n]) << 1);
-    s.inv_cpu_[i] = a.inv_cpu[n];
-    s.inv_mem_[i] = a.inv_mem[n];
-    s.cpu_cap_[i] = a.cpu_cap[n];
-    s.mem_cap_[i] = a.mem_cap[n];
-    s.static_score_[i] = a.static_score[n];
-    s.cpu_used_[i] = a.cpu_used[n];
-    s.mem_used_[i] = a.mem_used[n];
-    s.nz_cpu_[i] = a.nz_cpu[n];
-    s.nz_mem_[i] = a.nz_mem[n];
-    s.pod_cap_[i] = a.pod_cap[n];
-    s.pod_count_[i] = a.pod_count[n];
-    s.tie_rank_[i] = a.tie_rank[n];
-    s.zone_id_[i] = a.zone_id[n];
-    for (int w = 0; w < a.L; ++w)
-      s.labels_[i * a.L + w] = a.labels[(size_t)n * a.L + w];
-    for (int w = 0; w < a.PW; ++w)
-      s.ports_[i * a.PW + w] = a.port_bits[(size_t)n * a.PW + w];
-    for (int w = 0; w < a.K; ++w) {
-      s.dany_[i * a.K + w] = a.disk_any[(size_t)n * a.K + w];
-      s.drw_[i * a.K + w] = a.disk_rw[(size_t)n * a.K + w];
-    }
-  }
+  for (int i = first; i < ns; i += nscore) load_slot(a, s, i, lo + i);
   if (ANTI)
     for (int z = threadIdx.x; z < 2 * a.Z; z += nthreads) zloc[z] = 0;
   for (int e = threadIdx.x; e < E; e += nthreads)
@@ -867,17 +915,9 @@ scan_kernel(const Params<T> a) {
       const int j = best_j, i = j - lo;
       if (i >= 0 && i < ns && (int)threadIdx.x == i % nscore) {
         // the owner commits into its copy and its slot's columns
-        s.cpu_used_[i] = wadd(s.cpu_used_[i], p.req_cpu);
-        s.mem_used_[i] = wadd(s.mem_used_[i], p.req_mem);
-        s.nz_cpu_[i] = wadd(s.nz_cpu_[i], p.nz_cpu);
-        s.nz_mem_[i] = wadd(s.nz_mem_[i], p.nz_mem);
-        s.pod_count_[i] += 1;
-        for (int w = 0; w < a.PW; ++w)
-          s.ports_[i * a.PW + w] |= p.words[a.L + w];
-        for (int w = 0; w < a.K; ++w) {
-          s.dany_[i * a.K + w] |= p.words[a.L + a.PW + 2 * a.K + w];
-          s.drw_[i * a.K + w] |= p.words[a.L + a.PW + 3 * a.K + w];
-        }
+        commit_slot(a, p, &s.cpu_used_[i], &s.mem_used_[i], &s.nz_cpu_[i],
+                    &s.nz_mem_[i], &s.pod_count_[i], &s.ports_[i * a.PW],
+                    &s.dany_[i * a.K], &s.drw_[i * a.K]);
         if (HAS_SPREAD)
           for (int g = 0; g < a.G; ++g)
             a.spread[(size_t)g * a.N + j] += p.member[g];
@@ -904,20 +944,7 @@ scan_kernel(const Params<T> a) {
   }
 
   // the State back, once
-  for (int i = first; i < ns; i += nscore) {
-    const int n = lo + i;
-    a.cpu_used[n] = s.cpu_used_[i];
-    a.mem_used[n] = s.mem_used_[i];
-    a.nz_cpu[n] = s.nz_cpu_[i];
-    a.nz_mem[n] = s.nz_mem_[i];
-    a.pod_count[n] = s.pod_count_[i];
-    for (int w = 0; w < a.PW; ++w)
-      a.port_bits[(size_t)n * a.PW + w] = s.ports_[i * a.PW + w];
-    for (int w = 0; w < a.K; ++w) {
-      a.disk_any[(size_t)n * a.K + w] = s.dany_[i * a.K + w];
-      a.disk_rw[(size_t)n * a.K + w] = s.drw_[i * a.K + w];
-    }
-  }
+  for (int i = first; i < ns; i += nscore) store_slot(a, s, i, lo + i);
   cl.sync();                        // no CTA leaves while read remotely
 }
 
@@ -979,6 +1006,265 @@ template <typename T, bool HAS_AFF, bool ANTI>
 __global__ void __launch_bounds__(PROBE_BLOCK_THREADS, 2)
 probe_kernel_2(const Params<T> a) {
   probe_block<T, HAS_AFF, ANTI>(a);
+}
+
+// K6a: the speculative pass over pods [k0, k0 + gridDim.x), a block a
+// pod: the pod's composites against the block-start State (K5's body,
+// into shared memory), then its top list: pod k of the block (k =
+// blockIdx.x) needs only its k + 1 largest fitting composites (at most
+// k slots are touched when it is repaired, and composites are injective
+// per slot, so its largest untouched fitting slot ranks among them).
+// They are drawn one at a time: each thread keeps the best of its own
+// slots not yet drawn; the CTA reduces those (beats(): the largest
+// composite, then the smaller slot); the drawing slot's owner marks it
+// drawn and looks again among its own. Row blockIdx.x of `total` and
+// `spec_nodes` ([count] each) gets the k + 1 composites and slots in
+// that order, -1 past them and past the fitting slots.
+// The composites are K5's block-a-pod body (probe_block) for pod k0 +
+// blockIdx.x with no affinity and no ANTI, the spread tier as the run
+// has it, written as where(mask, total * N + tie_rank, -1) into shared
+// memory: the same helpers (read_pod, block_max, node_total, fits), in
+// a function of its own so that K5's instantiations compile as they did
+// (a template shared with K5 cost K5's node-local int32 instantiation
+// two registers and so a block an SM, PERF.md section 6).
+template <typename T, bool HAS_SPREAD>
+__global__ void __launch_bounds__(PROBE_BLOCK_THREADS)
+spec_pass_kernel(const Params<T> a, int k0, int count) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int red_max[33];
+  __shared__ long long red_c[2][32];
+  __shared__ int red_j[2][32];
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int E = pod_words<T, HAS_SPREAD, false, false>(a);
+  uint32_t* row = (uint32_t*)smem;
+  T* vals = (T*)(smem + (((size_t)4 * E + 7) & ~(size_t)7));   // [N]
+  for (int e = threadIdx.x; e < E; e += nthreads)
+    row[e] = pod_word<T, HAS_SPREAD, false, false>(a, k0 + blockIdx.x, e);
+  __syncthreads();
+  Pod<T> p = read_pod<T, HAS_SPREAD, false, false>(a, row);
+  if (HAS_SPREAD && p.group_id >= 0) {
+    const int* srow = a.spread + (size_t)p.gid * a.N;
+    int m = INT_MIN;
+    for (int n = threadIdx.x; n < a.N; n += nthreads) m = max(m, srow[n]);
+    p.maxc = max(block_max(m, red_max), a.offgrid_max[p.gid]);
+  }
+  const GlobalSlots<T> s{a};
+  for (int n = threadIdx.x; n < a.N; n += nthreads) {
+    const T t = node_total<T, HAS_SPREAD>(a, p, s, n, n);
+    vals[n] = fits<T, false>(a, p, s, n, n)
+                  ? wadd(wmul(t, (T)a.N), (T)s.tie_rank(n)) : (T)-1;
+  }
+  __syncthreads();
+  T mine = (T)-1;
+  int mine_j = INT_MAX;
+  for (int n = threadIdx.x; n < a.N; n += nthreads) {
+    const T v = vals[n];
+    if (v >= 0 && beats(v, n, mine, mine_j)) { mine = v; mine_j = n; }
+  }
+  T* out_c = a.total + (size_t)blockIdx.x * count;
+  int* out_n = a.spec_nodes + (size_t)blockIdx.x * count;
+  const int L = min((int)blockIdx.x + 1, count);
+  int r = 0;
+  for (; r < L; ++r) {
+    T c = mine;
+    int j = mine_j;
+    warp_best(c, j);
+    const int b = r & 1;
+    if (lane == 0) {
+      red_c[b][warp] = (long long)c;
+      red_j[b][warp] = j;
+    }
+    __syncthreads();
+    c = lane < nwarps ? (T)red_c[b][lane] : (T)-1;
+    j = lane < nwarps ? red_j[b][lane] : INT_MAX;
+    warp_best(c, j);
+    if (c < 0) break;                 // no fitting slot is left (uniform)
+    if (threadIdx.x == 0) {
+      out_c[r] = c;
+      out_n[r] = j;
+    }
+    if ((int)threadIdx.x == j % nthreads) {
+      // the owner draws its slot and looks again among its own
+      vals[j] = (T)-1;
+      mine = (T)-1;
+      mine_j = INT_MAX;
+      for (int n = threadIdx.x; n < a.N; n += nthreads) {
+        const T v = vals[n];
+        if (v >= 0 && beats(v, n, mine, mine_j)) { mine = v; mine_j = n; }
+      }
+    }
+  }
+  for (int q = r + threadIdx.x; q < count; q += nthreads) {
+    out_c[q] = (T)-1;
+    out_n[q] = -1;
+  }
+}
+
+// K6b: the speculative repair of pods [k0, k0 + count), one CTA walking
+// them in order (JAX _spec_step). For pod k the frozen side is its top
+// list from K6a (row k of `total` / `spec_nodes`): its first k + 1
+// entries, each offered where no earlier pod of the block took its slot
+// (the largest of those is the pod's largest untouched composite); the
+// rescored side is the slots the earlier pods took, each rescored
+// against the live State with the group max overridden by the block-
+// start max_start (exact while the group's latch is unset). A slot is
+// copied into shared memory (K1's SharedSlots, load_slot) the first time
+// a pod of the block is committed there, into index k, and rescored and
+// committed there from then on, then written back at the end
+// (store_slot); slot_of[n] names its index, node_of[k] its slot. Thread
+// t reads list entry t (the next pod's entry is loaded while this pod
+// is reduced) and thread blockDim.x - 1 - i rescores copy i, so at 256
+// pods a block (SPEC_BLOCK) each does at most one of each. A pod whose
+// group has latched rescores every slot with the live group max (the
+// scan step's selection). The CTA reduces the best (composite, slot) as
+// beats() orders them (composites are injective per slot, so frozen and
+// rescored values never tie), every thread reads the winner, thread 0
+// commits (commit_slot, the spread counts, the latch against max_start
+// read before the commit), and a barrier publishes the commit before
+// the next pod. Invalid (padded) pods commit nothing and write -1;
+// `work_mask`, where given, marks the pods that took the full-width
+// rescore.
+template <typename T, bool HAS_SPREAD>
+__global__ void __launch_bounds__(SPEC_REPAIR_THREADS, 1)
+spec_repair_kernel(const Params<T> a, int k0, int count) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ long long red_c[2][32];
+  __shared__ int red_j[2][32];
+  __shared__ int red_m[33];
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x;
+  const int E = pod_words<T, HAS_SPREAD, false, false>(a);
+  // spec_need_bytes: the taken slots' copies, the pod rows, two words a
+  // group, a slot a pod, an index a slot
+  SharedSlots<T> c;
+  c.flags_ = carve(c, smem, count, a.L, a.PW, a.K);
+  const long long cbytes =
+      ((long long)count * slot_bytes<T>(a.L, a.PW, a.K) + 3) & ~3LL;
+  uint32_t* rows = (uint32_t*)(smem + cbytes);        // [count][E]
+  int* max_start = (int*)(rows + (size_t)count * E);  // [G]
+  int* flag = max_start + a.G;                        // [G]
+  int* node_of = flag + a.G;                          // [count]
+  uint16_t* slot_of = (uint16_t*)(node_of + count);   // [N] index + 1
+  for (int e = tid; e < count * E; e += nthreads)
+    rows[e] = pod_word<T, HAS_SPREAD, false, false>(a, k0 + e / E, e % E);
+  for (int n = tid; n < a.N; n += nthreads) slot_of[n] = 0;
+  for (int i = tid; i < count; i += nthreads) node_of[i] = -1;
+  if (HAS_SPREAD)
+    for (int g = 0; g < a.G; ++g) {
+      const int* srow = a.spread + (size_t)g * a.N;
+      int m = INT_MIN;
+      for (int n = tid; n < a.N; n += nthreads) m = max(m, srow[n]);
+      m = block_max(m, red_m);
+      if (tid == 0) {
+        max_start[g] = max(m, a.offgrid_max[g]);
+        flag[g] = 0;
+      }
+    }
+  const GlobalSlots<T> s{a};
+  // list entry `tid` of the pod being repaired (one ahead)
+  T nc = tid < count ? a.total[tid] : (T)-1;
+  int nn = tid < count ? a.spec_nodes[tid] : -1;
+  __syncthreads();
+  for (int k = 0; k < count; ++k) {
+    Pod<T> p = read_pod<T, HAS_SPREAD, false, false>(a, rows + (size_t)k * E);
+    const T fc = nc;
+    const int fn = nn;
+    if (tid < count && k + 1 < count) {
+      nc = a.total[(size_t)(k + 1) * count + tid];
+      nn = a.spec_nodes[(size_t)(k + 1) * count + tid];
+    }
+    T best = (T)-1;
+    int best_j = INT_MAX;
+    bool slow = false;
+    if (p.valid) {
+      slow = HAS_SPREAD && p.group_id >= 0 && flag[p.gid] != 0;
+      if (slow) {
+        // the group max moved since the block start: every slot against
+        // the live State and the live group max
+        const int* srow = a.spread + (size_t)p.gid * a.N;
+        int m = INT_MIN;
+        for (int n = tid; n < a.N; n += nthreads) m = max(m, srow[n]);
+        p.maxc = max(block_max(m, red_m), a.offgrid_max[p.gid]);
+        for (int n = tid; n < a.N; n += nthreads) {
+          const int i = (int)slot_of[n] - 1;
+          if (i >= 0) {
+            const T total = node_total<T, true>(a, p, c, i, n);
+            if (fits<T, false>(a, p, c, i, n))
+              offer(a, total, c.tie_rank(i), n, best, best_j);
+          } else {
+            const T total = node_total<T, true>(a, p, s, n, n);
+            if (fits<T, false>(a, p, s, n, n))
+              offer(a, total, s.tie_rank(n), n, best, best_j);
+          }
+        }
+      } else {
+        if (HAS_SPREAD && p.group_id >= 0) p.maxc = max_start[p.gid];
+        if (tid <= k && fc >= 0 && slot_of[fn] == 0 &&
+            beats(fc, fn, best, best_j)) {
+          best = fc;
+          best_j = fn;
+        }
+        for (int r = tid + nthreads; r <= k; r += nthreads) {
+          const T v = a.total[(size_t)k * count + r];
+          const int n = a.spec_nodes[(size_t)k * count + r];
+          if (v >= 0 && slot_of[n] == 0 && beats(v, n, best, best_j)) {
+            best = v;
+            best_j = n;
+          }
+        }
+        for (int i = nthreads - 1 - tid; i < k; i += nthreads) {
+          const int n = node_of[i];
+          if (n < 0) continue;
+          const T total = node_total<T, HAS_SPREAD>(a, p, c, i, n);
+          if (fits<T, false>(a, p, c, i, n))
+            offer(a, total, c.tie_rank(i), n, best, best_j);
+        }
+      }
+    }
+    // the CTA's best, read by every thread
+    warp_best(best, best_j);
+    const int b = k & 1;
+    if (lane == 0) {
+      red_c[b][warp] = (long long)best;
+      red_j[b][warp] = best_j;
+    }
+    __syncthreads();
+    T cb = lane < nwarps ? (T)red_c[b][lane] : (T)-1;
+    int j = lane < nwarps ? red_j[b][lane] : INT_MAX;
+    warp_best(cb, j);
+    if (tid == 0) {
+      if (cb >= 0) {
+        // the commit, into the slot's copy (taken into index k the first
+        // time), latching the groups whose count passes the block-start
+        // max
+        int i = (int)slot_of[j] - 1;
+        if (i < 0) {
+          i = k;
+          load_slot(a, c, i, j);
+          slot_of[j] = (uint16_t)(k + 1);
+          node_of[k] = j;
+        }
+        commit_slot(a, p, &c.cpu_used_[i], &c.mem_used_[i], &c.nz_cpu_[i],
+                    &c.nz_mem_[i], &c.pod_count_[i], &c.ports_[i * a.PW],
+                    &c.dany_[i * a.K], &c.drw_[i * a.K]);
+        if (HAS_SPREAD)
+          for (int g = 0; g < a.G; ++g) {
+            const int before = a.spread[(size_t)g * a.N + j];
+            const int add = p.member[g];
+            if (add > 0 && before + add > max_start[g]) flag[g] = 1;
+            a.spread[(size_t)g * a.N + j] = before + add;
+          }
+      }
+      a.assigned[k0 + k] = cb >= 0 ? j : -1;
+      if (a.work_mask != nullptr) a.work_mask[k0 + k] = slow;
+    }
+    __syncthreads();                  // the commit, published
+  }
+  // the taken slots' State back, once
+  for (int i = tid; i < count; i += nthreads)
+    if (node_of[i] >= 0) store_slot(a, c, i, node_of[i]);
 }
 
 // barrier.cluster split in two: this CTA is done reading the others'
@@ -1119,6 +1405,7 @@ static Params<T> unpack(const long long* d, const unsigned long long* q) {
   a.total = P_(PTR_TOTAL, T*);
   a.work_total = P_(PTR_WORK_TOTAL, T*);
   a.work_mask = P_(PTR_WORK_MASK, uint8_t*);
+  a.spec_nodes = P_(PTR_SPEC_NODES, int*);
 #undef P_
   return a;
 }
@@ -1285,6 +1572,63 @@ extern "C" int scan_max_clusters(int variant, int cluster, int threads,
     return (int)cudaErrorInvalidValue;
   return by_variant(variant & 16 ? 3 : 2, variant & 15, cluster, threads,
                     (size_t)smem, nullptr, nullptr, nullptr, count);
+}
+
+// K6: kind 0 launches the pass (K6a) over pods [k0, k0 + count), a block
+// a pod; kind 1 the repair (K6b) of the same pods, one CTA. variant: bit
+// 3 the int64 layout, bit 2 the spread tier (no affinity, no ANTI:
+// spec_kernel.plan).
+template <typename T, bool HAS_SPREAD>
+static cudaError_t spec_dispatch(int kind, int k0, int count, int threads,
+                                 size_t smem, const long long* dims,
+                                 const unsigned long long* ptrs,
+                                 cudaStream_t stream) {
+  const Params<T> a = unpack<T>(dims, ptrs);
+  if (k0 < 0 || count < 1 || (long long)k0 + count > a.P)
+    return cudaErrorInvalidValue;
+  const long long E = 5 + 4 * (long long)(sizeof(T) / 4) + a.L + a.PW
+                      + 4LL * a.K + (HAS_SPREAD ? a.G : 0);
+  static long long set[2] = {-1, -1};   // K6a's, K6b's
+  cudaError_t err;
+  if (kind == 0) {
+    // the pod's row and its N composites
+    if ((long long)smem < ((4 * E + 7) & ~7LL) + (long long)sizeof(T) * a.N)
+      return cudaErrorInvalidValue;
+    auto kernel = spec_pass_kernel<T, HAS_SPREAD>;
+    err = set_attributes(kernel, smem, false, &set[0]);
+    if (err != cudaSuccess) return err;
+    kernel<<<count, threads, smem, stream>>>(a, k0, count);
+    return cudaGetLastError();
+  }
+  // spec_need_bytes: the taken slots' copies, the pod rows, two words a
+  // group, a slot a pod, an index a slot
+  const long long cbytes =
+      ((long long)count * slot_bytes<T>(a.L, a.PW, a.K) + 3) & ~3LL;
+  if ((long long)smem < cbytes + 4 * count * E + 8LL * a.G + 4LL * count
+                            + 2LL * a.N)
+    return cudaErrorInvalidValue;
+  auto kernel = spec_repair_kernel<T, HAS_SPREAD>;
+  err = set_attributes(kernel, smem, false, &set[1]);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, threads, smem, stream>>>(a, k0, count);
+  return cudaGetLastError();
+}
+
+extern "C" int spec_launch(int kind, int variant, int k0, int count,
+                           int threads, long long smem, const long long* dims,
+                           const unsigned long long* ptrs, void* stream) {
+  if (kind < 0 || kind > 1 || dims[DIM_P] <= 0 || dims[DIM_N] <= 0
+      || smem < 0 || smem > SCAN_MAX_SHARED_BYTES)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t b = (size_t)smem;
+  switch (variant) {
+    case 0: return (int)spec_dispatch<int32_t, false>(kind, k0, count, threads, b, dims, ptrs, st);
+    case 4: return (int)spec_dispatch<int32_t, true>(kind, k0, count, threads, b, dims, ptrs, st);
+    case 8: return (int)spec_dispatch<int64_t, false>(kind, k0, count, threads, b, dims, ptrs, st);
+    case 12: return (int)spec_dispatch<int64_t, true>(kind, k0, count, threads, b, dims, ptrs, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* scan_error_name(int err) {

@@ -31,10 +31,11 @@ operations, never fused into an FMA (scan_kernel.py, csrc/scan_kernel.cu).
 
 The carry is updated in place: each pod's commit costs O(1) writes
 instead of a fresh copy of every state vector. The engine only ever
-writes to tensors it made: device_args copies the encoder's arrays, a
-caller's `state_override` is cloned once per run, and so is the State
-of the device table mirror (run_chunked's delta uploads), which only
-the dirty-row scatter writes.
+writes to tensors it made: device_args copies the encoder's arrays, and
+run_chunked's tile prologue (one staging buffer, one copy and one launch
+of the dirty-row scatter kernel, K3) copies a caller's `state_override`
+or the State of the device table mirror, which only that kernel writes,
+into a State of the run's own.
 
 Ties break deterministically to the lexicographically largest node name
 (composite `total * n + tie_rank`, injective per node), as in the JAX
@@ -52,7 +53,8 @@ import numpy as np
 import torch
 
 from ..preemption import OracleResult
-from . import filter_kernel, scan_kernel, scatter_kernel, victim_kernel
+from . import (filter_kernel, scan_kernel, scatter_kernel, spec_kernel,
+               victim_kernel)
 from .tables import ClusterSnapshot, EncodeResult, encode_snapshot
 
 DEFAULT_WEIGHTS = (1, 1, 1)  # LeastRequested, Balanced, SelectorSpread
@@ -157,6 +159,21 @@ def _upload(tree, device: torch.device):
     return type(tree)(*(_tensor(a, device) for a in tree))
 
 
+def _alloc_like(tree):
+    """A NamedTuple of new, uninitialised tensors shaped like `tree`'s,
+    carved from one buffer on their device (16-byte aligned views): one
+    allocation where `tree`'s fields each took one."""
+    offs, off = [], 0
+    for t in tree:
+        offs.append(off)
+        off += -(-t.numel() * t.element_size() // 16) * 16
+    buf = torch.empty(max(off, 16), dtype=torch.uint8,
+                      device=tree[0].device)
+    return type(tree)(*(
+        buf[o:o + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+        for o, t in zip(offs, tree)))
+
+
 # the tensor dtype `_tensor` gives each encoder dtype: torch dtypes never
 # compare equal to numpy's, so whoever matches an encoding against a
 # device carry (sched/batch.py _carry_compatible) goes through this map
@@ -191,7 +208,8 @@ class _TableCache:
     The mirror's tensors are written only by the dirty-row scatter
     (scatter_kernel), in place. A run never scans on the mirror's State:
     the scan commits into its state in place, so each run starts from a
-    clone, or tile k + 1 would start from tile k's post-scan state."""
+    copy (the tile prologue's), or tile k + 1 would start from tile k's
+    post-scan state."""
 
     __slots__ = ("sig", "src", "epochs", "node", "state",
                  "node_gen", "state_gen")
@@ -258,13 +276,20 @@ class BatchEngine:
     tests pass device="cpu"."""
 
     def __init__(self, weights: Tuple[int, int, int] = DEFAULT_WEIGHTS,
-                 policy=None, device=None):
+                 policy=None, device=None,
+                 speculative: Optional[bool] = None):
         self.device = resolve_device(device)
         self.weights = tuple(int(w) for w in weights)
         self.policy = policy
         self._anti_weight = (policy.anti_affinity_weight
                              if policy is not None
                              and policy.needs_anti_affinity else 0)
+        # the speculative engine (K6, spec_kernel) in place of the scan
+        # wherever the encode's tiers allow it (bit-identical results).
+        # None = off, as in the JAX engine, whose TPU A/B the scan won;
+        # an explicit knob for this card's A/B (gpu_evidence
+        # section_engine_spec)
+        self._speculative = speculative
         # device-resident mirror of the incremental encoder's node tables
         # (run_chunked's delta-upload path): the dirty-row scatter kernel
         # writes the journaled rows into it in place
@@ -286,8 +311,11 @@ class BatchEngine:
         # each K1 launch (read when the assignment is pulled, never by a
         # synchronize of its own; 0 on the CPU). A pair also counts the
         # launch's own host time where the device waits on it
+        # ... and the chunks that took the speculative engine instead of
+        # the scan (spec_chunks)
         self.scan_stats = {"runs": 0, "steps": 0, "seconds": 0.0,
-                           "eager_steps": 0, "device_ms": 0.0}
+                           "eager_steps": 0, "device_ms": 0.0,
+                           "spec_chunks": 0}
         # find_victims accounting, one search at a time: host seconds to
         # pack the table and queue its one copy (pack_s), to queue the
         # launch (launch_s) and for the one pull that waits for both
@@ -298,6 +326,19 @@ class BatchEngine:
         self.victim_stats = {"searches": 0, "pack_s": 0.0, "launch_s": 0.0,
                              "pull_s": 0.0, "upload_ms": 0.0,
                              "kernel_ms": 0.0}
+
+    @property
+    def speculative(self) -> bool:
+        """Whether eligible chunks take the speculative engine (the port
+        has no mesh, under which the JAX engine turns it off)."""
+        return bool(self._speculative)
+
+    def _spec_route(self, has_aff: bool) -> bool:
+        """The JAX engine's route (`_get_run`): the speculative engine
+        covers the node-local and spread tiers; inter-pod affinity and
+        ServiceAntiAffinity scores move globally a commit, so those
+        batches keep the scan."""
+        return not has_aff and not self._anti_weight and self.speculative
 
     @property
     def n_shards(self) -> int:
@@ -423,31 +464,24 @@ class BatchEngine:
                 and flags == (False, False) and not enc.tile_groups
                 and self._anti_weight == 0)
 
-    def _scatter_table(self, dev_tab, fields, host_tab,
-                       rows: np.ndarray) -> int:
-        """Scatter the journaled dirty rows of one table into its device
-        mirror, in place: one launch of the scatter kernel for every
-        column in `fields`. No pad: the kernel takes any row count.
-        Returns the host->device bytes the rows and indices make."""
-        return scatter_kernel.scatter_rows(
-            [getattr(dev_tab, f) for f in fields], rows.astype(np.int64),
-            [getattr(host_tab, f)[rows] for f in fields])
-
     def _fetch_tables(self, enc: EncodeResult, node: NodeConst,
                       state: State, flags: Tuple[bool, bool],
-                      state_needed: bool
-                      ) -> Tuple[NodeConst, Optional[State]]:
+                      state_needed: bool, pro: scatter_kernel.Prologue):
         """Resolve the (NodeConst, State-init) run arguments, given as
-        host arrays, through the device-resident mirror. Hit: scatter
-        only the rows the encoder's journal marks dirty since the
-        mirror's generation. Miss or ineligible: full host upload (and
-        reseed the mirror when eligible). The State returned is the
-        run's own (a clone of the mirror's on the delta path); None when
-        not state_needed.
+        host arrays, through the device-resident mirror. Hit: the rows
+        the encoder's journal marks dirty since the mirror's generation
+        go into `pro` as scatters, and the run's own State (new tensors)
+        as copies of the mirror's, the dirty State rows written into
+        both. Miss or ineligible: full host upload (and reseed the
+        mirror when eligible; the run's State is then a copy of it).
+        -> (node, the run's State or None when not state_needed, a
+        function to call once `pro` has launched: it moves the mirror's
+        generations and the upload counts, so that a refused launch
+        leaves the mirror as it was).
 
-        A chained tile (state_needed=False) skips the State mirror: its
-        state_gen lags and the next unchained tile catches up by
-        scattering every row dirtied since."""
+        A chained tile (state_needed=False) adds no State rows and no
+        State copy: its state_gen lags and the next unchained tile
+        catches up by scattering every row dirtied since."""
         stats = self.upload_stats
         node_b, state_b = _host_nbytes(node), _host_nbytes(state)
         stats["table_bytes"] = node_b + state_b
@@ -456,7 +490,8 @@ class BatchEngine:
             stats["full_tiles"] += 1
             stats["full_bytes"] += node_b + (state_b if state_needed else 0)
             return (_upload(node, self.device),
-                    _upload(state, self.device) if state_needed else None)
+                    _upload(state, self.device) if state_needed else None,
+                    None)
         sig = self._table_sig(enc)
         delta = enc.delta
         cache = self._table_cache
@@ -467,23 +502,34 @@ class BatchEngine:
             moved = 0
             node_rows = np.nonzero(delta.node_dirty_gen > cache.node_gen)[0]
             if node_rows.size:
-                moved += self._scatter_table(cache.node, _NODE_ROW_FIELDS,
-                                             node, node_rows)
-            cache.node_gen = delta.table_gen
+                moved += self._scatter_rows(pro, cache.node,
+                                            _NODE_ROW_FIELDS, node,
+                                            node_rows)
+            run = None
             if state_needed:
+                run = _alloc_like(cache.state)
                 state_rows = np.nonzero(
                     delta.state_dirty_gen > cache.state_gen)[0]
+                group = None
                 if state_rows.size:
-                    moved += self._scatter_table(
-                        cache.state, _STATE_ROW_FIELDS, state, state_rows)
-                cache.state_gen = delta.table_gen
-            if moved:
-                stats["delta_tiles"] += 1
-                stats["delta_bytes"] += moved
-            else:
-                stats["reuse_tiles"] += 1
-            return cache.node, (_clone_state(cache.state) if state_needed
-                                else None)
+                    moved += self._scatter_rows(pro, cache.state,
+                                                _STATE_ROW_FIELDS, state,
+                                                state_rows, also=run)
+                    group = len(pro.scatters) - 1
+                for f in State._fields:
+                    pro.copy(getattr(run, f), getattr(cache.state, f),
+                             skip=group if f in _STATE_ROW_FIELDS else None)
+
+            def landed():
+                cache.node_gen = delta.table_gen
+                if state_needed:
+                    cache.state_gen = delta.table_gen
+                if moved:
+                    stats["delta_tiles"] += 1
+                    stats["delta_bytes"] += moved
+                else:
+                    stats["reuse_tiles"] += 1
+            return cache.node, run, landed
         # miss: seed the mirror with one full upload
         cache = _TableCache(sig, delta.encoder_id, delta.shard_epochs,
                             _upload(node, self.device),
@@ -492,24 +538,50 @@ class BatchEngine:
         self._table_cache = cache
         stats["full_tiles"] += 1
         stats["full_bytes"] += node_b + state_b
-        return cache.node, (_clone_state(cache.state) if state_needed
-                            else None)
+        run = None
+        if state_needed:
+            run = _alloc_like(cache.state)
+            for d, s in zip(run, cache.state):
+                pro.copy(d, s)
+        return cache.node, run, None
+
+    @staticmethod
+    def _scatter_rows(pro: scatter_kernel.Prologue, dev_tab, fields,
+                      host_tab, rows: np.ndarray, also=None) -> int:
+        """The journaled dirty rows of one table as one scatter group of
+        `pro` (every column in `fields`; with `also`, into that table's
+        columns too). No pad: the kernel takes any row count. -> the
+        host->device bytes the rows and their int64 indices make."""
+        idx = rows.astype(np.int64)
+        blocks = [getattr(host_tab, f)[rows] for f in fields]
+        pro.scatter([getattr(dev_tab, f) for f in fields], idx, blocks,
+                    None if also is None
+                    else [getattr(also, f) for f in fields])
+        return int(idx.nbytes) + sum(int(b.nbytes) for b in blocks)
 
     def _scan(self, node: NodeConst, aux: scan_kernel.Reciprocals,
               state: State, pods: PodXs, flags: Tuple[bool, bool],
               events: Optional[list] = None) -> torch.Tensor:
         """The sequential pod loop over one chunk, committing into `state`
         in place: one launch of the scan kernel on the card (the plain
-        per-pod loop on the CPU, counted in scan_stats' eager_steps).
-        `events` (on the card) gains a pair of CUDA events recorded
-        around the launch, after the arguments are checked."""
+        per-pod loop on the CPU, counted in scan_stats' eager_steps), or,
+        where the route takes it, the speculative engine (a pass and a
+        repair launch a block; spec_chunks counts the chunk). `events`
+        (on the card) gains a pair of CUDA events recorded around the
+        launches, after the arguments are checked."""
         has_aff, has_spread = flags
         args = scan_kernel.ScanArgs.from_engine(node, aux, state, pods)
+        spec = self._spec_route(has_aff)
         if events is not None:
             pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             pair[0].record()
-        out = scan_kernel.scan_chunk(args, self.weights, self._anti_weight,
-                                     has_aff, has_spread)
+        if spec:
+            out = spec_kernel.spec_chunk(args, self.weights, has_spread)
+            self.scan_stats["spec_chunks"] += 1
+        else:
+            out = scan_kernel.scan_chunk(args, self.weights,
+                                         self._anti_weight, has_aff,
+                                         has_spread)
         if events is not None:
             pair[1].record()
             events.append(pair)
@@ -560,6 +632,31 @@ class BatchEngine:
                               pods, self._enc_flags(enc))
         return assigned.cpu().numpy(), state
 
+    def _prologue(self, enc: EncodeResult, flags: Tuple[bool, bool],
+                  chunk: int, state_override: Optional[State] = None):
+        """A tile's tables and pods on the device, before its scan: the
+        mirror's dirty rows, the run's State (a copy of the mirror's or
+        of `state_override`, or a full upload) and the pods padded with
+        invalid ones to a multiple of `chunk`, in one staging buffer,
+        one copy and at most one launch of the scatter kernel. ->
+        (node, state, pods, the pods before the pad)."""
+        node_h, state_h, pods_h = self.host_args(enc)
+        pro = scatter_kernel.Prologue()
+        node, state, landed = self._fetch_tables(
+            enc, node_h, state_h, flags, state_override is None, pro)
+        if state_override is not None:
+            state = _alloc_like(state_override)
+            for d, s in zip(state, state_override):
+                pro.copy(d, s)
+        p = pods_h.valid.shape[0]
+        slots = [pro.carry(a, p + (-p) % chunk) for a in pods_h]
+        staged = pro.stage(self.device)
+        scatter_kernel.apply_staged(staged)
+        if landed is not None:
+            landed()
+        self.upload_stats["pod_bytes"] += _host_nbytes(pods_h)
+        return node, state, PodXs(*(staged.view(i) for i in slots)), p
+
     def run_chunked(self, enc: EncodeResult, chunk: int = 1024,
                     state_override: Optional[State] = None,
                     block: bool = True):
@@ -580,25 +677,21 @@ class BatchEngine:
         The node tables (and the State init unless chained) come through
         the device table mirror (_fetch_tables): an incremental encode
         whose journal the mirror can follow moves only its dirty rows;
-        anything else uploads in full. upload_stats counts which."""
+        anything else uploads in full. upload_stats counts which. The
+        tile's prologue goes to the device as one staging buffer
+        (scatter_kernel.Prologue): the dirty rows of both tables, the
+        pods padded with invalid ones to the chunk multiple (read as
+        views into it), then one launch of the dirty-row scatter kernel
+        that writes the rows and copies the mirror's State, or the
+        carry, into the run's State (none when there is nothing to
+        scatter or copy)."""
         t0 = time.monotonic()
         enc = self._ensure_safe_dtypes(enc)
         flags = self._enc_flags(enc)
-        node_h, state_h, pods_h = self.host_args(enc)
-        node, state = self._fetch_tables(
-            enc, node_h, state_h, flags,
-            state_needed=state_override is None)
-        pods = _upload(pods_h, self.device)
-        self.upload_stats["pod_bytes"] += _host_nbytes(pods_h)
-        if state_override is not None:
-            state = _clone_state(state_override)
+        node, state, pods, p = self._prologue(enc, flags, chunk,
+                                              state_override)
+        pad = pods.valid.shape[0] - p
         aux = scan_kernel.reciprocals(node)
-        p = pods.valid.shape[0]
-        pad = (-p) % chunk
-        if pad:
-            pods = PodXs(*(torch.cat([a, torch.zeros(
-                (pad,) + tuple(a.shape[1:]), dtype=a.dtype,
-                device=a.device)]) for a in pods))
         events = [] if self.device.type == "cuda" else None
         outs = [self._scan(node, aux, state, _pod_slice(pods, lo, lo + chunk),
                            flags, events)

@@ -91,7 +91,7 @@ PTR_FIELDS = (
     "pod_nz_mem", "sel", "ports", "qany", "qrw", "sany", "srw", "host_idx",
     "group_id", "member", "aff_req", "anti_req", "aff_member", "svc_group",
     "svc_member",
-    "assigned", "mask", "total", "work_total", "work_mask")
+    "assigned", "mask", "total", "work_total", "work_mask", "spec_nodes")
 DIM_FIELDS = ("p", "n", "l", "pw", "k", "g", "t", "d", "s", "z", "w_lr",
               "w_bal", "w_spread", "w_anti")
 _NODE_PTRS = PTR_FIELDS[:14]
@@ -168,7 +168,9 @@ def floordiv_exact(num: torch.Tensor, den: torch.Tensor,
 
 def mask_and_score(node, aux: NodeAux, weights: Tuple[int, int, int],
                    anti_weight: int, state, pod, has_aff: bool = True,
-                   has_spread: bool = True
+                   has_spread: bool = True,
+                   iota: Optional[torch.Tensor] = None,
+                   spread_max_override: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Predicate mask + priority totals for a block of B pods, each
     against the same `state`: -> (bool[B, N], total[B, N]).
@@ -177,8 +179,16 @@ def mask_and_score(node, aux: NodeAux, weights: Tuple[int, int, int],
     plain scan step calls it with B = 1, the plain probe with blocks of
     pods. The two f64 formulas are separate multiply / subtract / divide
     ops: nothing here is compiled or fused, so no FMA can change a
-    floor."""
+    floor.
+
+    `iota` overrides the node indices the lanes stand for, and
+    `spread_max_override` (i32[G]) the spread group's max count: the
+    speculative repair (spec_kernel) rescores a GATHERED lane set, where
+    lane i is node iota[i] and the lanes' own max is not the group's
+    (JAX `_mask_and_score`'s two arguments of the same names)."""
     sdt = node.cpu_cap.dtype
+    if iota is None:
+        iota = aux.iota
 
     # ---- predicate masks (predicates.go:127,192,250,258,403) ----
     fits_count = state.pod_count < node.pod_cap                      # [N]
@@ -194,7 +204,7 @@ def mask_and_score(node, aux: NodeAux, weights: Tuple[int, int, int],
                      != 0).any(dim=2)
     sel_ok = ((pod.sel[:, None] & ~node.labels[None]) == 0).all(dim=2)
     host_ok = (pod.host_idx[:, None] == -1) | \
-        (aux.iota[None] == pod.host_idx[:, None])
+        (iota[None] == pod.host_idx[:, None])
     disk_conflict = (((state.disk_any[None] & pod.qany[:, None])
                       | (state.disk_rw[None] & pod.qrw[:, None]))
                      != 0).any(dim=2)
@@ -248,8 +258,11 @@ def mask_and_score(node, aux: NodeAux, weights: Tuple[int, int, int],
     if has_spread:
         gid = torch.clamp(pod.group_id, min=0).long()                 # [B]
         counts = state.spread.index_select(0, gid)                   # [B, N]
-        max_count = torch.maximum(counts.amax(dim=1),
-                                  node.offgrid_max.index_select(0, gid))
+        if spread_max_override is None:
+            max_count = torch.maximum(counts.amax(dim=1),
+                                      node.offgrid_max.index_select(0, gid))
+        else:
+            max_count = spread_max_override.index_select(0, gid)
         spread_f = (10.0 * (max_count[:, None] - counts).to(torch.float64)
                     / torch.clamp(max_count, min=1).to(
                         torch.float64)[:, None])
@@ -285,6 +298,35 @@ def mask_and_score(node, aux: NodeAux, weights: Tuple[int, int, int],
     return mask, total
 
 
+def commit_node_local(state, pod, j: torch.Tensor,
+                      fit_any: torch.Tensor) -> torch.Tensor:
+    """The node-local half of the assume-pod commit (JAX
+    `_commit_node_local`, shared by the scan step and the speculative
+    repair): the pod's resources, count, ports and disks added into
+    `state` at lane j (i64[1]) in place, a zero delta when not fit_any
+    (bool[1]). -> add32, the i32[1] 0 / 1 the callers' group-indexed
+    updates scale by."""
+    add = fit_any.to(state.cpu_used.dtype)
+    add32 = fit_any.to(torch.int32)
+    state.cpu_used.index_add_(0, j, add * pod.req_cpu)
+    state.mem_used.index_add_(0, j, add * pod.req_mem)
+    state.nz_cpu.index_add_(0, j, add * pod.nz_cpu)
+    state.nz_mem.index_add_(0, j, add * pod.nz_mem)
+    state.pod_count.index_add_(0, j, add32)
+    # bitsets: OR the pod's words into the picked row (zero when no fit)
+    fit_col = fit_any[:, None]
+    state.port_bits.index_copy_(
+        0, j, state.port_bits.index_select(0, j)
+        | torch.where(fit_col, pod.ports, 0))
+    state.disk_any.index_copy_(
+        0, j, state.disk_any.index_select(0, j)
+        | torch.where(fit_col, pod.sany, 0))
+    state.disk_rw.index_copy_(
+        0, j, state.disk_rw.index_select(0, j)
+        | torch.where(fit_col, pod.srw, 0))
+    return add32
+
+
 def step(node, aux: NodeAux, weights: Tuple[int, int, int],
          anti_weight: int, state, pod, has_aff: bool,
          has_spread: bool, fits: Optional[torch.Tensor] = None
@@ -315,24 +357,7 @@ def step(node, aux: NodeAux, weights: Tuple[int, int, int],
     # scatter at the picked lane: O(1) writes per pod. A no-fit step
     # scatters a zero delta at the (arbitrary) argmax lane.
     j = pick
-    add = fit_any.to(state.cpu_used.dtype)
-    add32 = fit_any.to(torch.int32)
-    state.cpu_used.index_add_(0, j, add * pod.req_cpu)
-    state.mem_used.index_add_(0, j, add * pod.req_mem)
-    state.nz_cpu.index_add_(0, j, add * pod.nz_cpu)
-    state.nz_mem.index_add_(0, j, add * pod.nz_mem)
-    state.pod_count.index_add_(0, j, add32)
-    # bitsets: OR the pod's words into the picked row (zero when no fit)
-    fit_col = fit_any[:, None]
-    state.port_bits.index_copy_(
-        0, j, state.port_bits.index_select(0, j)
-        | torch.where(fit_col, pod.ports, 0))
-    state.disk_any.index_copy_(
-        0, j, state.disk_any.index_select(0, j)
-        | torch.where(fit_col, pod.sany, 0))
-    state.disk_rw.index_copy_(
-        0, j, state.disk_rw.index_select(0, j)
-        | torch.where(fit_col, pod.srw, 0))
+    add32 = commit_node_local(state, pod, j, fit_any)
     if has_spread:
         state.spread.index_add_(1, j, (add32 * pod.member).T)
     if has_aff:
@@ -637,6 +662,12 @@ def _library() -> ctypes.CDLL:
                                       ctypes.c_int, ctypes.c_longlong,
                                       ctypes.POINTER(ctypes.c_int)]
     lib.scan_max_clusters.restype = ctypes.c_int
+    # K6 (spec_kernel): kind, variant, k0, count, threads, shared
+    # bytes, sizes, addresses, stream
+    lib.spec_launch.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.spec_launch.restype = ctypes.c_int
     lib.scan_error_name.argtypes = [ctypes.c_int]
     lib.scan_error_name.restype = ctypes.c_char_p
     return lib

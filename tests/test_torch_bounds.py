@@ -240,8 +240,13 @@ def test_scatter_and_victim_blocking_match_the_sources():
     d = _defines(vk.SOURCE)
     assert d["VICTIM_BLOCK_THREADS"] == vk.BLOCK_THREADS
     # the descriptor the host packs is the struct the kernel reads
-    assert sk.DESCRIPTOR.itemsize == 32
-    assert sk.DESCRIPTOR.names == ("dst", "row_bytes", "src_off", "word")
+    assert sk.DESCRIPTOR.itemsize == 64
+    assert sk.DESCRIPTOR.names == ("dst", "dst2", "src", "aux", "elems",
+                                   "words", "word", "kind", "magic",
+                                   "shift", "pad")
+    src = open(sk.SOURCE).read()
+    assert re.search(r"KIND_SCATTER = 0, KIND_COPY = 1", src)
+    assert (sk.SCATTER, sk.COPY) == (0, 1)
 
 
 @pytest.mark.parametrize("rows,row_bytes,grid", [
@@ -249,9 +254,8 @@ def test_scatter_and_victim_blocking_match_the_sources():
     (5000, [8] * 8, 20), (200_000, [8], 782), (1_000_000, [8], 1024)])
 def test_scatter_grid_covers_the_widest_field(rows, row_bytes, grid):
     from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
-    fields = tuple((rb, 0, sk._word(rb, 0)) for rb in row_bytes)
-    staged = sk.Staged(torch.empty(0, dtype=torch.uint8), rows, 0, fields)
-    assert sk.grid_x(staged) == grid
+    elems = max(rows * rb // sk._word(rb, 0) for rb in row_bytes)
+    assert sk.grid_x(elems) == grid
 
 
 RATE2 = {**RATE, "fp64_ops_per_s": bounds.fp64_ops_per_s(H100_SMS,
@@ -394,6 +398,11 @@ def test_profile_kernels_edits_apply_to_the_sources(tmp_path, monkeypatch):
                               pk._phase_edits())).read()
     assert phases.count("victim_dbg[blockIdx.x * 8 +") == 9
     assert "victim_dbg_read" in phases
+    spec = open(pk._variant("spec", scan_kernel.SOURCE,
+                            pk._spec_edits())).read()
+    assert spec.count("spec_dbg[") == 7 and "spec_dbg_read" in spec
+    assert all(f"const long long c{i} = clock64();" in spec
+               for i in range(4))
     copies = pk._bounds_variants(scan_kernel.SOURCE)
     assert sorted(copies) == sorted(
         f"{o}_min{m}" for o in ("total_first", "mask_first")

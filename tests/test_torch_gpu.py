@@ -319,7 +319,9 @@ def test_turns_against_this_checkout(cuda):
                                    "probe 8192x5000", "probe 1x5000",
                                    "scan_chunk 256x5000",
                                    "scan_chunk 8192x5120",
-                                   "victim_search 5120x16"}
+                                   "victim_search 5120x16",
+                                   "prologue 500+1274",
+                                   "prologue 5000+5000"}
     for name, rec in out["kernels"].items():
         assert rec["order"] == list(TURNS)
         assert len(rec["ms"]) == len(rec["launch_floor_ms"]) == len(TURNS)
@@ -431,13 +433,14 @@ def test_scatter_kernel_matches_plain(cuda, n, r):
     rows = _scatter_rows_for(cols, r, rng)
     plain = [c.clone() for c in cols]
     library = [c.clone() for c in cols]
-    before = sk.scatter_rows.launches
+    before = sk.launch_staged.launches
     moved = sk.scatter_rows(cols, idx, rows)
     torch.cuda.synchronize()
-    assert sk.scatter_rows.launches == before + 1
+    assert sk.launch_staged.launches == before + 1
     assert moved == 8 * r + sum(a.nbytes for a in rows)
-    staged = sk.to_device(sk.stage(plain, idx, rows), cuda)
-    sk.scatter_staged_plain(plain, staged)
+    pro = sk.Prologue()
+    pro.scatter(plain, idx, rows)
+    sk.prologue_plain(pro.stage(cuda))
     for t, a in zip(library, rows):
         t.index_copy_(0, torch.from_numpy(idx).to(cuda),
                       torch.from_numpy(sk._host_view(a)).to(cuda))
@@ -459,7 +462,7 @@ def test_mirror_on_card_matches_cpu(cuda):
     for node in snap.nodes:
         inc.on_node_add(node)
     card, cpu = BatchEngine(device=cuda), BatchEngine(device="cpu")
-    before = sk.scatter_rows.launches
+    before = sk.launch_staged.launches
     for tick in range(4):
         pods = mixed_snapshot(tick, 300, 40, 0).pending_pods
         for p in pods:
@@ -475,7 +478,7 @@ def test_mirror_on_card_matches_cpu(cuda):
         if tick == 1:
             node = snap.nodes[int(rng.integers(300))]
             inc.on_node_delete(node)
-    assert sk.scatter_rows.launches > before
+    assert sk.launch_staged.launches > before
     assert card.upload_stats == cpu.upload_stats
     assert card.upload_stats["delta_tiles"] >= 1
 
@@ -626,7 +629,7 @@ def test_refused_scatter_launch_raises_through_run_chunked(cuda):
     ones = torch.ones(8, 128, device=cuda)
     scratch = torch.empty(8, 128, dtype=torch.int32, device=cuda)
     real = sk._launch
-    before = sk.scatter_rows.launches
+    before = sk.launch_staged.launches
     try:
         sk._launch = lambda staged: reject_kernel._launch(
             ones, scratch, reject_kernel.launch_plan(
@@ -635,11 +638,11 @@ def test_refused_scatter_launch_raises_through_run_chunked(cuda):
             engine.run_chunked(enc, 8)
     finally:
         sk._launch = real
-    assert sk.scatter_rows.launches == before
+    assert sk.launch_staged.launches == before
     got, _ = engine.run_chunked(enc, 8)
     want, _ = BatchEngine(device="cpu").run_chunked(enc, 8)
     assert (got == want).all()
-    assert sk.scatter_rows.launches == before + 1
+    assert sk.launch_staged.launches == before + 1
 
 
 # the scan (K1) and probe (K5) kernels on the cases chip_smoke's scan
@@ -859,3 +862,166 @@ def test_probe_kernel_matches_plain_at_the_cluster_edges(cuda, name):
             torch.cuda.synchronize()
             assert torch.equal(got[0], want[0][rows])
             assert torch.equal(got[1], want[1][rows])
+
+
+# ------------------------------------- K3: a delta tile's prologue
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r_node,r_state", [(1, 1), (500, 1274), (37, 0),
+                                            (0, 900), (5000, 5000)])
+def test_prologue_kernel_matches_plain_and_the_old_path(cuda, r_node,
+                                                        r_state):
+    """One launch of the scatter kernel over a delta tile's prologue on
+    the e2e fleet's tables, its rows spread over the whole table: the
+    mirror and the run's State bit-equal to the plain version over the
+    same staging buffer and to the two one-table scatters plus
+    _clone_state (the State copy skips the rows the scatter writes)."""
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import (prologue_staged,
+                                                            prologue_tables)
+    from kubernetes_tpu_torch.sched.device import engine as eng
+    from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
+    sides = {}
+    for who in ("kernel", "plain", "old"):
+        node, state, nr, sr = prologue_tables(cuda, max(r_node, 1),
+                                              max(r_state, 1))
+        nr = (nr[0][:r_node], [a[:r_node] for a in nr[1]])
+        sr = (sr[0][:r_state], [a[:r_state] for a in sr[1]])
+        sides[who] = (node, state, nr, sr)
+    node, state, nr, sr = sides["kernel"]
+    pro = sk.Prologue()
+    run = eng._alloc_like(state)
+    g = None
+    if r_node:
+        pro.scatter([getattr(node, f) for f in eng._NODE_ROW_FIELDS], *nr)
+    if r_state:
+        g = pro.scatter([getattr(state, f) for f in eng._STATE_ROW_FIELDS],
+                        *sr, also=[getattr(run, f)
+                                   for f in eng._STATE_ROW_FIELDS])
+    for f in eng.State._fields:
+        pro.copy(getattr(run, f), getattr(state, f),
+                 skip=g if f in eng._STATE_ROW_FIELDS else None)
+    before = sk.launch_staged.launches
+    sk.apply_staged(pro.stage(cuda))
+    assert sk.launch_staged.launches == before + 1
+    if r_node and r_state:
+        p_node, p_state, p_nr, p_sr = sides["plain"]
+        staged, p_run = prologue_staged(sk, cuda, p_node, p_state, p_nr, p_sr)
+        sk.prologue_plain(staged)
+    o_node, o_state, o_nr, o_sr = sides["old"]
+    for tab, fields, (idx, rows) in ((o_node, eng._NODE_ROW_FIELDS, o_nr),
+                                     (o_state, eng._STATE_ROW_FIELDS, o_sr)):
+        if idx.size:
+            sk.scatter_rows([getattr(tab, f) for f in fields], idx, rows)
+    o_run = eng._clone_state(o_state)
+    torch.cuda.synchronize()
+    for got, want in zip((*node, *state, *run), (*o_node, *o_state, *o_run)):
+        assert torch.equal(got, want)
+    if r_node and r_state:
+        for got, want in zip((*node, *state, *run),
+                             (*p_node, *p_state, *p_run)):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_delta_tile_is_one_launch_and_one_copy(cuda):
+    """A delta tile through run_chunked: one scatter launch and, by
+    torch.profiler, one host-to-device copy for its prologue."""
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import profile_counts
+    from kubernetes_tpu_torch.sched.device import scatter_kernel as sk
+    from kubernetes_tpu_torch.sched.device.incremental import \
+        IncrementalEncoder
+    inc = IncrementalEncoder()
+    snap = mixed_snapshot(5, 300, 0, 0)
+    for node in snap.nodes:
+        inc.on_node_add(node)
+    engine = BatchEngine(device=cuda)
+    for tick in range(2):
+        pods = mixed_snapshot(tick, 300, 40, 0).pending_pods
+        for p in pods:
+            p.metadata.name = f"t{tick}-{p.metadata.name}"
+            p.spec.node_name = ""
+            p.spec.containers[0].ports = []
+            p.spec.volumes = []
+        enc = inc.encode_tile(pods, [], [])
+        if tick:
+            before = sk.launch_staged.launches
+            flags = engine._enc_flags(enc)
+            prof = profile_counts(lambda: engine._prologue(enc, flags, 64))
+            assert sk.launch_staged.launches == before + 1
+            assert prof["copy_calls"] <= 1 and prof["h2d_copies"] <= 1
+            assert prof["launch_calls"] <= 1 and prof["kernels"] <= 1
+            assert engine.upload_stats["delta_tiles"] == 1
+            return
+        got, _ = engine.run_chunked(enc, 64)
+        inc.assume_assigned(enc, pods, got)
+
+
+# ------------------------------------------- K6: speculative engine
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SCAN_CASES))
+def test_spec_kernels_match_plain_and_k1(cuda, name):
+    """K6a, K6b and the whole chunk (blocks of 256 and 7) bit-equal to
+    their plain versions and K1 on each scan case's tables, on K6's
+    tiers (the case's spread tier, no affinity, no ANTI)."""
+    from kubernetes_tpu_torch.kubemark.fixtures import scan_tables
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import (scan_args,
+                                                            spec_parity)
+    from kubernetes_tpu_torch.sched.device import engine as eng
+    from kubernetes_tpu_torch.sched.device import spec_kernel as spk
+    case = SCAN_CASES[name]
+    a = scan_args(*(eng._upload(t, cuda)
+                    for t in scan_tables(**case["tables"])))
+    before = (spk.spec_pass.launches, spk.spec_repair.launches)
+    got = spec_parity(a, case["weights"], case["has_spread"])
+    assert spk.spec_pass.launches > before[0]
+    assert spk.spec_repair.launches > before[1]
+    assert got["equal"], [f for f, ok in got["fields"].items() if not ok]
+    assert got["max_abs_err"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plain", [True, False])
+def test_spec_engine_on_card_matches_the_scan(cuda, plain):
+    """BatchEngine(speculative=True).run_chunked at the smoke's engine
+    fixture (1000 nodes, 3000 pods) binds as the scan engine and the CPU
+    speculative engine, every chunk through K6."""
+    from kubernetes_tpu_torch.kubemark.fixtures import (engine_snapshot,
+                                                        smoke_pod_pad)
+    enc = encode_snapshot(engine_snapshot(1000, 3000, plain=plain),
+                          pod_pad_to=smoke_pod_pad(3000))
+    spec = BatchEngine(device=cuda, speculative=True)
+    got, g_state = spec.run_chunked(enc, 1024)
+    want, w_state = BatchEngine(device=cuda).run_chunked(enc, 1024)
+    assert np.array_equal(got, want)
+    assert all(torch.equal(x, y) for x, y in zip(g_state, w_state))
+    assert spec.scan_stats["spec_chunks"] == enc.pod_batch.valid.shape[0] \
+        // 1024
+    assert spec.scan_stats["eager_steps"] == 0
+
+
+@pytest.mark.gpu
+def test_refused_spec_launches_raise_through_run_chunked(cuda):
+    """No fallback: a K6a or K6b launch the card refuses (2048 threads a
+    block) raises through run_chunked, counted nowhere; restored, the
+    engine equals the CPU's."""
+    from kubernetes_tpu_torch.sched.device import spec_kernel as spk
+    enc = encode_snapshot(mixed_snapshot(7, 64, 8, 10))
+    engine = BatchEngine(device=cuda, speculative=True)
+    real = spk._launch
+    for kind, fn in ((spk.PASS, spk.spec_pass),
+                     (spk.REPAIR, spk.spec_repair)):
+        before = fn.launches
+        try:
+            spk._launch = lambda p, *rest, kind=kind: real(
+                p._replace(threads=2048) if p.kind == kind else p, *rest)
+            with pytest.raises(RuntimeError, match="speculative"):
+                engine.run_chunked(enc, 8)
+        finally:
+            spk._launch = real
+        assert fn.launches == before
+    got, _ = engine.run_chunked(enc, 8)
+    want, _ = BatchEngine(device="cpu", speculative=True).run_chunked(enc, 8)
+    assert (got == want).all()

@@ -16,6 +16,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from kubernetes_tpu.sched.device import BatchEngine as JaxEngine
 from kubernetes_tpu.sched.device.incremental import \
@@ -78,17 +79,16 @@ class Arms:
 
 def _record_scatters(monkeypatch):
     """Record (rows, bytes a row summed over the columns) of every
-    scatter the engine makes."""
+    scatter group the engine adds to a tile's prologue."""
     seen = []
-    real = scatter_kernel.scatter_rows
+    real = scatter_kernel.Prologue.scatter
 
-    def recording(columns, idx, rows):
+    def recording(self, columns, idx, rows, also=None):
         seen.append((int(idx.size), sum(r[0].nbytes if len(r) else 0
                                         for r in rows)))
-        return real(columns, idx, rows)
+        return real(self, columns, idx, rows, also)
 
-    monkeypatch.setattr(port_engine.scatter_kernel, "scatter_rows",
-                        recording)
+    monkeypatch.setattr(scatter_kernel.Prologue, "scatter", recording)
     return seen
 
 
@@ -227,3 +227,198 @@ def test_benchmark_delta_uploads_ab_binds_equal_counts():
     mirror, full = out[True][1], out[False][1]
     assert mirror["delta_tiles"] + mirror["reuse_tiles"] >= 1
     assert full["delta_tiles"] == full["reuse_tiles"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the one-buffer prologue (scatter_kernel.Prologue): both tables' dirty
+# rows, the run's State and the pods in one staging buffer, one launch
+
+
+def _tables(seed, n, wide, words):
+    from kubernetes_tpu_torch.kubemark.fixtures import scan_tables
+    return scan_tables(seed, 4, n, wide=wide, groups=2, terms=1,
+                       services=1, words=words)
+
+
+def _bytes(t):
+    return t.contiguous().view(-1).view(torch.uint8)
+
+
+@pytest.mark.parametrize("wide,words,r_node,r_state", [
+    (False, 1, 5, 7), (True, 3, 64, 1), (False, 2, 0, 30), (True, 1, 30, 0),
+    (False, 1, 200, 200), (True, 2, 0, 0)])
+def test_prologue_plain_equals_two_scatters_and_clone_state(
+        wide, words, r_node, r_state):
+    """The plain version of one tile's prologue (both tables' dirty rows
+    spread over the whole table, the run's State from the mirror's) is
+    byte-equal to the two one-table scatters followed by _clone_state,
+    from a run State that starts as garbage: every byte of it is written
+    once, by the copy or by the scatter. The skip bitmap marks exactly
+    the dirty State rows, and the prologue's bytes are counted as
+    bounds.prologue_bytes counts them."""
+    from kubernetes_tpu_torch.sched.device import bounds
+    n = 200
+    node_h, state_h, _ = _tables(21, n, wide, words)
+    new_node, new_state, _ = _tables(22, n, wide, words)
+    cpu = torch.device("cpu")
+    mirror_node = port_engine._upload(node_h, cpu)
+    mirror_state = port_engine._upload(state_h, cpu)
+    ref_node = port_engine._upload(node_h, cpu)
+    ref_state = port_engine._upload(state_h, cpu)
+    rng = np.random.default_rng(r_node * 1000 + r_state)
+    node_rows = np.sort(rng.choice(n, r_node, replace=False))
+    state_rows = np.sort(rng.choice(n, r_state, replace=False))
+
+    pro = scatter_kernel.Prologue()
+    run = port_engine._alloc_like(mirror_state)
+    for t in run:
+        _bytes(t).fill_(0xA5)
+    if r_node:
+        BatchEngine._scatter_rows(pro, mirror_node,
+                                  port_engine._NODE_ROW_FIELDS, new_node,
+                                  node_rows)
+    group = None
+    if r_state:
+        BatchEngine._scatter_rows(pro, mirror_state,
+                                  port_engine._STATE_ROW_FIELDS, new_state,
+                                  state_rows, also=run)
+        group = len(pro.scatters) - 1
+    for f in port_engine.State._fields:
+        pro.copy(getattr(run, f), getattr(mirror_state, f),
+                 skip=group if f in port_engine._STATE_ROW_FIELDS else None)
+    staged = pro.stage(cpu)
+    assert staged.n_desc == 12 * bool(r_node) + 8 * bool(r_state) + 13
+    assert staged.rows == r_node + r_state
+    scatter_kernel.apply_staged(staged)
+
+    for tab, fields, host, rows in (
+            (ref_node, port_engine._NODE_ROW_FIELDS, new_node, node_rows),
+            (ref_state, port_engine._STATE_ROW_FIELDS, new_state,
+             state_rows)):
+        if rows.size:
+            scatter_kernel.scatter_rows(
+                [getattr(tab, f) for f in fields], rows.astype(np.int64),
+                [getattr(host, f)[rows] for f in fields])
+    ref_run = port_engine._clone_state(ref_state)
+    for got, want in zip(mirror_node, ref_node):
+        assert torch.equal(_bytes(got), _bytes(want))
+    for got, want in zip(mirror_state, ref_state):
+        assert torch.equal(_bytes(got), _bytes(want))
+    for f, got, want in zip(run._fields, run, ref_run):
+        assert torch.equal(_bytes(got), _bytes(want)), f
+
+    marked = set()
+    for op in staged.ops:
+        if op[0] == "copy" and op[3] is not None:
+            words_ = staged.host[op[3]:op[3] + 4 * -(-n // 32)].numpy()
+            bits = np.unpackbits(words_, bitorder="little")[:n]
+            marked.add(tuple(np.nonzero(bits)[0]))
+    assert marked == ({tuple(state_rows)} if r_state else set())
+
+    def row_bytes(tab, fields):
+        return [scatter_kernel._row_bytes(getattr(tab, f)) for f in fields]
+    slot_b = sum(row_bytes(mirror_state, port_engine._STATE_ROW_FIELDS))
+    state_b = sum(t.numel() * t.element_size() for t in mirror_state)
+    groups = [(r_node, row_bytes(mirror_node, port_engine._NODE_ROW_FIELDS),
+               1)] * bool(r_node) + [(r_state, row_bytes(
+                   mirror_state, port_engine._STATE_ROW_FIELDS), 2)] \
+        * bool(r_state)
+    assert staged.nbytes == bounds.prologue_bytes(
+        groups, state_b - r_state * slot_b, 0)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 32])
+def test_prologue_pod_views_equal_upload_and_pad(chunk):
+    """The pods carried in the staging buffer, read as typed views, equal
+    what _upload and a zero pad to the chunk multiple gave: the same
+    dtypes, shapes and values, the padded pods invalid."""
+    from kubernetes_tpu_torch.kubemark.fixtures import mixed_snapshot
+    from kubernetes_tpu_torch.sched.device import encode_snapshot
+    engine = BatchEngine(device="cpu")
+    _, _, pods_h = engine.host_args(encode_snapshot(
+        mixed_snapshot(4, 12, 45, 5)))
+    p = pods_h.valid.shape[0]
+    pad = (-p) % chunk
+    pro = scatter_kernel.Prologue()
+    slots = [pro.carry(a, p + pad) for a in pods_h]
+    staged = pro.stage("cpu")
+    assert staged.n_desc == 0
+    want = port_engine._upload(pods_h, torch.device("cpu"))
+    for f, i, w in zip(pods_h._fields, slots, want):
+        got = staged.view(i)
+        padded = torch.cat([w, torch.zeros((pad,) + tuple(w.shape[1:]),
+                                           dtype=w.dtype)])
+        assert got.dtype == w.dtype and got.shape == padded.shape, f
+        assert torch.equal(got, padded), f
+        assert got.data_ptr() % 16 == 0
+    assert not staged.view(slots[0])[p:].any()
+
+
+def test_magic_division_is_exact():
+    """The kernel's row of element t, umulhi(t, m) >> s, equals t // d
+    for every t below 2^31, at the edges and at random, for the words a
+    row of any column."""
+    rng = np.random.default_rng(0)
+    divisors = list(range(1, 600)) + [1000, 4095, 4096, 65535, 2 ** 20 + 7,
+                                      2 ** 30 + 3, 2 ** 31 - 1]
+    for d in divisors:
+        m, s = scatter_kernel.magic(d)
+        assert 0 <= m < 2 ** 32
+        ts = [0, 1, d - 1, d, d + 1, 2 * d - 1, 2 ** 31 - 1, 2 ** 31 - 2,
+              (2 ** 31 - 1) // d * d, (2 ** 31 - 1) // d * d - 1]
+        ts += [int(x) for x in rng.integers(0, 2 ** 31, 200)]
+        for t in ts:
+            if not 0 <= t < 2 ** 31:
+                continue
+            got = t if d == 1 else (t * m >> 32) >> s
+            assert got == t // d, (d, t)
+
+
+def test_one_staging_and_one_launch_a_delta_tile(monkeypatch):
+    """run_chunked stages once a tile. A mirror seed copies the mirror's
+    State into the run's (13 copies); an unchained tile with both tables
+    dirty is one prologue of every node and State row column and the 13
+    copies; a chained tile copies the carry and scatters only its node
+    rows; a full upload without a carry needs no descriptor, only the
+    pods' copy. Every arm binds as the full-upload engine."""
+    calls = []
+    real = scatter_kernel.Prologue.stage
+
+    def recording(self, device):
+        staged = real(self, device)
+        calls.append((staged.n_desc, len(self.scatters), len(self.copies)))
+        return staged
+
+    inc = _fresh_encoder(20)
+    engine = BatchEngine(device="cpu")
+
+    def tile(tick, carry=None, node=None):
+        if node is not None:
+            old = cross([mk_node(node)])[0]
+            new = cross([mk_node(node, cpu=3000)])[0]
+            inc.on_node_update(old, new)
+        pods = cross([mk_pod(f"s-{tick}-{j}", cpu=300, phase="Pending")
+                      for j in range(6)])
+        enc = inc.encode_tile(pods, [], [])
+        monkeypatch.setattr(scatter_kernel.Prologue, "stage", recording)
+        got, state = engine.run_chunked(enc, 4, state_override=carry)
+        monkeypatch.setattr(scatter_kernel.Prologue, "stage", real)
+        full = BatchEngine(device="cpu")
+        full.delta_uploads = False
+        want, _ = full.run_chunked(enc, 4, state_override=carry)
+        assert np.array_equal(got, want) and (got >= 0).all()
+        inc.assume_assigned(enc, pods, got)
+        return state
+
+    tile(0)
+    assert calls == [(13, 0, 13)]
+    state = tile(1, node="n-003")
+    assert calls[-1] == (12 + 8 + 13, 2, 13)
+    tile(2, carry=state, node="n-007")
+    assert calls[-1] == (12 + 13, 1, 13)
+    engine.delta_uploads = False
+    tile(3)
+    assert calls[-1] == (0, 0, 0)
+    assert len(calls) == 4
+    stats = engine.upload_stats
+    assert (stats["full_tiles"], stats["delta_tiles"]) == (2, 2)

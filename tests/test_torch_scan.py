@@ -392,10 +392,11 @@ def test_pack_orders_addresses_and_sizes_as_the_source():
     assert by_name["svc_member"] == a.pods.svc_member.data_ptr()
     assert by_name["assigned"] == out.data_ptr()
     assert by_name["mask"] == by_name["total"] == by_name["work_total"] == 0
+    assert by_name["spec_nodes"] == 0
     # every input has an address, and no two share one
     inputs = [v for f, v in by_name.items()
               if f not in ("assigned", "mask", "total", "work_total",
-                           "work_mask")]
+                           "work_mask", "spec_nodes")]
     assert all(inputs) and len(set(inputs)) == len(inputs)
 
 
