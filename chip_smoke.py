@@ -112,6 +112,34 @@ every answer to a reference:
             kernel on both routes and K6a and K6b (2048 threads a
             block): run_chunked and probe raise, and restored, equal the
             CPU engine.
+  shard     the node-axis mesh on one card (fixtures.SHARD_COUNTS: 2, 4
+            and 8 virtual shards, a cluster each): the sharded K1 (K7,
+            the exchange between the shards, inside it) on the scan
+            cases' tables padded to the shards (fixtures.SHARD_CASES,
+            both layouts) and at the cluster edges, bit-equal to K1 (the
+            assignment, every State field, every shard's replicas of the
+            replicated counts), four cases also to the sharded plain
+            twin; on the e2e's chunk bit-equal to K1 at every count and
+            to the twin on its first 256 pods; BatchEngine(mesh=...) on
+            the engine fixtures, equal to SMOKE_DIGESTS at every count;
+            the sharded victim search over the preempt phase's 64 tables
+            equal to PREEMPT_DIGEST at every count, and to the unsharded
+            kernel and its twin on the widest table; then the sharded
+            K1's device ms a chunk against K1's at 1, 2, 4 and 8 shards
+            with the SM clock, beside K7's bound, and the sharded K4's.
+  shard_path  the batch loop over NodeMesh([card] * 4) on the e2e fleet
+            (the e2e phase's traffic): every pod bound, the per-node
+            counts equal to E2E_COUNTS, the sharded K1 launched and K1
+            not; the survivor drill (fixtures.shard_survivor_drill: four
+            shard leases on a FakeClock, shard 2's owner dies after the
+            first half of the pods binds, its lease expires while a
+            tile of the second half is in flight, the loop fences,
+            re-shards onto 3 and requeues that tile's pods under
+            shard-2, every pod binds, nothing reaches the commit path
+            under the dead epoch); and, in a process of its own, a
+            shard that withholds its first candidate record: the other
+            shards' spin traps past its budget and the synchronize
+            raises (gpu_evidence.shard_wedge_child).
   mixed     mixed mode (factory.create_mixed): the device probe on the
             card and one HTTP extender (the port's ExtenderServer over a
             CPU backend) place 8 pods on 5000 nodes, one at a time; the
@@ -127,14 +155,16 @@ same clock); every record with a bound names the rates
 The launch floor is the device time of a kernel that does nothing,
 timed like every kernel (20 launches in one CUDA graph).
 
-Seven paths are driven, each with the kernel launch counts set to 0
+Nine paths are driven, each with the kernel launch counts set to 0
 just before it and read just after: the engine and extender phases (the
 scan kernel a chunk, the filter kernel a Filter, the probe kernel a
 Prioritize), the reject phase (the argsort kernel), the e2e phase (the
 scan kernel a chunk, the scatter kernel a tile), the mirror phase (the
 scatter kernel, and the scan kernel), the spec path (K6a and K6b a
-block), the preempt phase's 64 searches (the victim kernel) and the
-mixed phase (the probe kernel a pod).
+block), the preempt phase's 64 searches (the victim kernel), the shard
+phase's 3 x 64 searches over a mesh (the sharded victim kernel), the
+shard path's batch loop over a mesh (the sharded scan kernel a chunk,
+K7 inside it) and the mixed phase (the probe kernel a pod).
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero and prints no result. Every line carries the card's name
 and power limit (nvidia-smi). The last lines are the card's line, the
@@ -148,7 +178,11 @@ and the integer rate; K1's also its cluster (`cluster`, `ctas`,
 `slots_per_cta`, `threads_per_cta`), the SM clock while it was timed and
 its device ms in the e2e (`e2e_device_ms`); the scatter kernel's its
 launches a tile and the delta tile's profiler counts and host ms; K6b's
-the chunk's ms against K1's at both fixtures. Needs one CUDA device;
+the chunk's ms against K1's at both fixtures; the sharded K1's its
+ms at 1, 2, 4 and 8 shards against K1's (`by_shards`); K7's the
+sharded K1's ms less K1's on the same chunk, its plain cost the sharded
+twin's less the plain scan's, and its bound (the records' bytes). Needs
+one CUDA device;
 exits non-zero without one, or without the rest of the repository beside
 it.
 """
@@ -1013,7 +1047,8 @@ def phase_preempt(rate, floor_ms):
     """The full-width preemption fixture through victim_table and the
     victim kernel, each search held to the oracle and the plain version,
     the 64 results to PREEMPT_DIGEST. -> (record, the kernel's launches
-    in the 64 searches, a table at the widest victim axis)."""
+    in the 64 searches, a table at the widest victim axis, the 64
+    tables)."""
     import numpy as np
 
     from kubernetes_tpu_torch.kubemark import fixtures as fx
@@ -1106,7 +1141,249 @@ def phase_preempt(rate, floor_ms):
                             for t in tables}),
            "digest": digest, "digest_ok": True, "equal_oracle": True,
            "equal_plain": True, "max_abs_err": 0, **timing}
-    return rec, launches, wide
+    return rec, launches, wide, tables
+
+
+
+# the scan cases the shard phase also holds to the sharded plain twin
+# (its per-pod loop of tensor ops costs ~1 s a case on the card): every
+# tier at once in both layouts, and ServiceAntiAffinity and affinity
+SHARD_TWIN_CASES = ("all/i32", "all/i64", "service_anti/i64",
+                    "affinity/i32")
+# pods of the e2e chunk the sharded K1 and its twin are timed on
+SHARD_PLAIN_PODS = 256
+SHARD_TIMED = 4                           # shards of the timed chunk
+
+
+def phase_shard_kernels(rate, floor_ms, ptables):
+    """The sharded K1 (K7 inside) and the sharded K4 on one card, at
+    fixtures.SHARD_COUNTS virtual shards. -> (record, timings)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.kubemark import fixtures as fx
+    from kubernetes_tpu_torch.kubemark.benchmark import _bench_pod
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import (call_ms,
+                                                            device_ms,
+                                                            scan_args,
+                                                            shard_parity,
+                                                            shard_timing,
+                                                            victim_shard_parity)
+    from kubernetes_tpu_torch.sched.device import (BatchEngine, NodeMesh,
+                                                   bounds, encode_snapshot)
+    from kubernetes_tpu_torch.sched.device import engine as eng_mod
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    from kubernetes_tpu_torch.sched.device import victim_kernel as vk
+
+    import math
+
+    t0 = time.monotonic()
+    engine = BatchEngine()
+    dev = engine.device
+    rec = {"phase": "shard", "shards": list(fx.SHARD_COUNTS), "cases": {},
+           "max_abs_err": 0}
+    # (a) the scan cases: each sharded launch against K1, some against
+    # the twin as well; the cluster edges against K1
+    for name, case in fx.scan_cases().items():
+        if name.split("/")[0] not in fx.SHARD_CASES:
+            continue
+        for shards in fx.SHARD_COUNTS:
+            tables = fx.shard_pad(fx.scan_tables(**case["tables"]), shards)
+            a = scan_args(*(eng_mod._upload(t, dev) for t in tables))
+            got = shard_parity(a, case["weights"], case["anti_weight"],
+                               case["has_aff"], case["has_spread"], shards,
+                               twin=name in SHARD_TWIN_CASES)
+            if not got["equal"]:
+                bad = [f for f, ok in got["fields"].items() if not ok]
+                raise AssertionError(f"shard {name} at {shards}: the sharded "
+                                     f"K1 differs in {bad[:8]}")
+            rec["cases"][f"{name}@{shards}"] = [
+                got["placed"], got["plan"]["cluster"],
+                name in SHARD_TWIN_CASES]
+            rec["max_abs_err"] = max(rec["max_abs_err"], got["max_abs_err"])
+    for name in fx.CLUSTER_EDGES:
+        for shards in fx.SHARD_COUNTS:
+            tables = fx.shard_pad(fx.cluster_edge_tables(name), shards)
+            a = scan_args(*(eng_mod._upload(t, dev) for t in tables))
+            got = shard_parity(a, (1, 1, 1), 2, True, True, shards,
+                               twin=False)
+            if not got["equal"]:
+                raise AssertionError(f"shard edge {name} at {shards}: the "
+                                     f"sharded K1 differs from K1")
+    rec["parity_s"] = time.monotonic() - t0
+    # the e2e's chunk (8192 bench pods x the fleet's 5120 slots) against
+    # K1, then the twin on its first pods; its device ms against K1's
+    inc = fx.fleet_encoder()
+    enc = inc.encode_tile([_bench_pod(i) for i in range(fx.SMOKE_CHUNK)],
+                          [], [])
+    a = scan_args(*engine.device_args(enc))
+    flags = engine._enc_flags(enc)
+    for shards in fx.SHARD_COUNTS:
+        got = shard_parity(a, engine.weights, 0, *flags, shards, twin=False)
+        if not got["equal"] or got["placed"] != fx.SMOKE_CHUNK:
+            raise AssertionError(f"shard: the sharded K1 at {shards} differs "
+                                 f"from K1 on the e2e chunk")
+        rec[f"e2e_chunk_plan_{shards}"] = got["plan"]
+    head = a.pod_slice(0, SHARD_PLAIN_PODS)
+    got = shard_parity(head, engine.weights, 0, *flags, SHARD_TIMED)
+    if not got["equal"]:
+        raise AssertionError("shard: the sharded K1 differs from its twin "
+                             "on the e2e chunk's first pods")
+    init = [t.clone() for t in a.state]
+    space = sk.ShardSpace(SHARD_TIMED, a.dims(), dev)
+
+    def twin():
+        return sk.scan_chunk_sharded_plain(head, engine.weights, 0, *flags,
+                                           space)
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    twin()
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    for t, s in zip(a.state, init):
+        t.copy_(s)
+
+    def head_kernel():
+        for t, s in zip(a.state, init):
+            t.copy_(s)
+        sk.scan_chunk_sharded(head, engine.weights, 0, *flags, space)
+
+    head_ms = device_ms(head_kernel, reps=5, trials=3)
+    start.record()
+    sk.scan_chunk_plain(head, engine.weights, 0, *flags)
+    end.record()
+    end.synchronize()
+    unsharded_plain_ms = start.elapsed_time(end)
+    for t, s in zip(a.state, init):
+        t.copy_(s)
+    timings = {s: shard_timing(a, engine.weights, 0, *flags, s, rate)
+               for s in (1,) + tuple(fx.SHARD_COUNTS)}
+    for t, s in zip(a.state, init):
+        t.copy_(s)
+    d = a.dims()
+    # the engine's digests over a mesh
+    digests = {}
+    for name, want in fx.SMOKE_DIGESTS.items():
+        enc = encode_snapshot(
+            fx.engine_snapshot(want["n_nodes"], want["n_pods"],
+                               want["plain"]),
+            node_pad_to=math.lcm(*fx.SHARD_COUNTS),
+            pod_pad_to=fx.smoke_pod_pad(want["n_pods"]))
+        for shards in fx.SHARD_COUNTS:
+            mesh_engine = BatchEngine(mesh=NodeMesh([dev] * shards))
+            assigned, _ = mesh_engine.run_chunked(enc, fx.SMOKE_CHUNK)
+            sha, bound = fx.assigned_digest(assigned, enc.n_pods)
+            if (sha, bound) != (want["sha256"], want["bound"]):
+                raise AssertionError(
+                    f"shard {name} at {shards}: assignment {sha} / {bound} "
+                    f"differs from the JAX engine's {want['sha256']}")
+            if mesh_engine.scan_stats["eager_steps"]:
+                raise AssertionError(f"shard {name}: eager steps on a mesh")
+            digests[f"{name}@{shards}"] = sha
+    # (b) the sharded K4 over the preempt phase's 64 tables
+    _zero_counts()                        # the sharded search path
+    results = []
+    for shards in fx.SHARD_COUNTS:
+        mesh_engine = BatchEngine(mesh=NodeMesh([dev] * shards))
+        got = [(mesh_engine.find_victims(t), t) for t in ptables]
+        digest = fx.preempt_digest(got)
+        if digest != fx.PREEMPT_DIGEST:
+            raise AssertionError(f"shard: the sharded victim search at "
+                                 f"{shards} gives {digest}, not the JAX "
+                                 f"engine's {fx.PREEMPT_DIGEST}")
+        results.append(digest)
+    k4_launches = _read_counts()["victim_search_sharded"]
+    if k4_launches != len(ptables) * len(fx.SHARD_COUNTS):
+        raise AssertionError(f"the sharded victim kernel launched "
+                             f"{k4_launches} times")
+    wide = fx.widest_table(ptables)
+    args = vk.VictimArgs.from_table(wide, dev)
+    k4_err = 0
+    for shards in fx.SHARD_COUNTS:
+        got = victim_shard_parity(args, shards)
+        if not got["equal"]:
+            raise AssertionError(f"shard: the sharded victim kernel at "
+                                 f"{shards} differs from its twin")
+        k4_err = max(k4_err, got["max_abs_err"])
+    read, steps = vk.walk(args)
+    n, v = args.shape
+    k4 = {"ms": device_ms(lambda: vk.victim_search_sharded(args,
+                                                           SHARD_TIMED)),
+          "k4_ms": device_ms(lambda: vk.victim_search(args)),
+          # the twin pulls each shard's winner to the host: no graph
+          "plain_ms": call_ms(
+              lambda: vk.victim_search_sharded_plain(args, SHARD_TIMED),
+              warmup=1, reps=5),
+          "shape": [n, v], "max_abs_err": k4_err,
+          **bounds.victim_bound(n, read, steps, rate)}
+    rec.update(
+        e2e_chunk_equal=True, digests=digests, digests_ok=True,
+        preempt_digests=results, preempt_ok=True,
+        k1_plain_shape=[SHARD_PLAIN_PODS, d["n"]], k1_plain_ms=plain_ms,
+        unsharded_plain_ms=unsharded_plain_ms,
+        k1_ms_at_plain_shape=head_ms,
+        timing={s: {k: t[k] for k in (
+            "ms", "k1_ms", "cluster", "ctas", "slots_per_cta",
+            "threads_per_cta", "sm_clock_mhz", "k7_bound_ms", "k7_bytes")}
+            for s, t in timings.items()},
+        k4=k4, seconds=time.monotonic() - t0)
+    return rec, {"timings": timings, "k4": k4, "plain_ms": plain_ms,
+                 "unsharded_plain_ms": unsharded_plain_ms,
+                 "head_ms": head_ms, "k4_launches": k4_launches}
+
+
+def phase_shard_path():
+    """(c) the batch loop over NodeMesh(["cuda:0"] * 4) on the e2e fleet:
+    every pod bound and the per-node counts equal to E2E_COUNTS (the JAX
+    engine's answer); (d) the survivor drill: a shard's lease expires
+    while a tile is in flight, the loop re-shards onto 3 before the next
+    dispatch, requeues the tile's pods and nothing reaches the commit
+    path under the dead epoch; (f) the wedged exchange raising,
+    in a process of its own. -> the record, with the kernels' launches
+    counted over (c), the path."""
+    from kubernetes_tpu_torch.kubemark import gpu_evidence
+    from kubernetes_tpu_torch.kubemark.fixtures import (E2E_COUNTS,
+                                                        shard_survivor_drill)
+    from kubernetes_tpu_torch.sched.device import NodeMesh
+    from kubernetes_tpu_torch.sched.device.engine import resolve_device
+
+    want = E2E_COUNTS
+    dev = resolve_device(None)
+    t0 = time.monotonic()
+    _zero_counts()                        # the shard path starts here
+    sec = gpu_evidence.section_e2e(want["n_nodes"], want["n_pods"],
+                                   mesh=NodeMesh([dev] * SHARD_TIMED))
+    launches = _read_counts()             # ... and ends here
+    if launches["scan_chunk_sharded"] < 1 or launches["scan_chunk"]:
+        raise AssertionError(f"the shard path launched {launches}")
+    if sec["scheduled"] != want["n_pods"] or \
+            (sec["counts_sha256"], sec["counts_bound"]) != (
+                want["sha256"], want["bound"]):
+        raise AssertionError(f"shard e2e: {sec['scheduled']} bound, counts "
+                             f"{sec['counts_sha256']} differ from the JAX "
+                             f"engine's {want['sha256']}")
+    e2e_s = time.monotonic() - t0
+    drill = shard_survivor_drill()
+    if not (drill["first_half_bound"] and drill["second_half_bound"]
+            and drill["mesh_after"] == drill["shards"] - 1
+            and drill["reshards"] == 1
+            and drill["in_flight_at_expiry"] >= 1
+            and drill["requeued_in_flight"] == drill["in_flight_at_expiry"]
+            and drill["handed_under_dead_epoch"] == 0):
+        raise AssertionError(f"shard survivor drill: {drill}")
+    wedge = gpu_evidence.shard_wedge_child()
+    if not wedge.get("raised") or wedge.get("rc") != 0:
+        raise AssertionError(f"shard: the withheld record did not raise: "
+                             f"{wedge}")
+    return {"phase": "shard_path", "mesh": SHARD_TIMED,
+            "launches": launches,
+            "e2e": {k: sec[k] for k in (
+                "pods_per_sec", "elapsed_s", "scheduled", "tiles_chained",
+                "tiles_unchained", "k1_device_ms", "counts_sha256")},
+            "e2e_s": e2e_s, "counts_ok": True, "drill": drill,
+            "wedge": wedge, "seconds": time.monotonic() - t0}
 
 
 def _scatter_refusal():
@@ -1159,8 +1436,8 @@ def _scatter_refusal():
 
 def _refused_plan(plan):
     """A launch the card refuses: K1 on a cluster of 32 CTAs (past the
-    16 a cluster can hold), K5 (either route) with 2048 threads a block
-    (past its launch bounds)."""
+    16 a cluster can hold), K5 (either route) and the sharded K1 with
+    2048 threads a block (past their launch bounds)."""
     from kubernetes_tpu_torch.sched.device import scan_kernel as sk
     if plan.kind == sk.SCAN:
         return plan._replace(cluster=2 * sk.MAX_CLUSTER,
@@ -1176,21 +1453,25 @@ def _scan_refusals():
     import numpy as np
 
     from kubernetes_tpu_torch.kubemark.fixtures import mixed_snapshot
-    from kubernetes_tpu_torch.sched.device import BatchEngine, encode_snapshot
+    from kubernetes_tpu_torch.sched.device import (BatchEngine, NodeMesh,
+                                                   encode_snapshot)
     from kubernetes_tpu_torch.sched.device import scan_kernel as sk
 
     enc = encode_snapshot(mixed_snapshot(FILTER_SEED, 64, 8, 10))
     # 160 pods: K5 a block a pod (8 pods take a cluster of 16 CTAs each)
     batch = encode_snapshot(mixed_snapshot(FILTER_SEED, 64, 160, 10))
     engine = BatchEngine()
+    meshed = BatchEngine(mesh=NodeMesh([engine.device] * 4))
     calls = {"scan": lambda: engine.run_chunked(enc, 8),
              "probe": lambda: engine.probe(enc),
-             "probe_block": lambda: engine.probe(batch)}
+             "probe_block": lambda: engine.probe(batch),
+             "scan_sharded": lambda: meshed.run_chunked(enc, 8)}
     real = sk._launch
-    before = (sk.scan_chunk.launches, sk.probe.launches)
+    before = (sk.scan_chunk.launches, sk.probe.launches,
+              sk.scan_chunk_sharded.launches)
     errors = {}
-    sk._launch = lambda plan, dims, ptrs, device: real(
-        _refused_plan(plan), dims, ptrs, device)
+    sk._launch = lambda plan, dims, ptrs, device, shard=None: real(
+        _refused_plan(plan), dims, ptrs, device, shard)
     try:
         for name, call in calls.items():
             got = None
@@ -1203,11 +1484,27 @@ def _scan_refusals():
                                      f"raise through the engine")
     finally:
         sk._launch = real
-    if (sk.scan_chunk.launches, sk.probe.launches) != before:
+    # shards the card cannot hold at once: the plan refuses, the engine
+    # raises (no shard waits for an SM while the others spin)
+    held = sk.max_active_clusters
+    sk.max_active_clusters = lambda code, cluster, threads, smem: 1
+    try:
+        meshed.run_chunked(enc, 8)
+    except ValueError as e:
+        errors["scan_sharded_resident"] = str(e)
+    finally:
+        sk.max_active_clusters = held
+    if "scan_sharded_resident" not in errors:
+        raise AssertionError("four shards the card cannot hold at once "
+                             "did not raise through the engine")
+    if (sk.scan_chunk.launches, sk.probe.launches,
+            sk.scan_chunk_sharded.launches) != before:
         raise AssertionError("a refused scan or probe launch was counted")
     cpu = BatchEngine(device="cpu")
     if not np.array_equal(engine.run_chunked(enc, 8)[0],
-                          cpu.run_chunked(enc, 8)[0]):
+                          cpu.run_chunked(enc, 8)[0]) \
+            or not np.array_equal(meshed.run_chunked(enc, 8)[0],
+                                  cpu.run_chunked(enc, 8)[0]):
         raise AssertionError("the scan after a refused launch differs "
                              "from the CPU engine's")
     for e in (enc, batch):
@@ -1223,10 +1520,11 @@ def phase_no_fallback(table):
     find_victims must raise and return nothing; restored, the search
     equals the oracle again (the context survived). Then the same for
     the scatter kernel through run_chunked, and the scan and probe
-    kernels (both probe routes)."""
+    kernels (both probe routes), and the sharded scan and victim search
+    (a refused launch, and four shards the card cannot hold at once)."""
     import numpy as np
 
-    from kubernetes_tpu_torch.sched.device import BatchEngine
+    from kubernetes_tpu_torch.sched.device import BatchEngine, NodeMesh
     from kubernetes_tpu_torch.sched.device import victim_kernel as vk
     from kubernetes_tpu_torch.sched.preemption import oracle_find_victims
 
@@ -1251,6 +1549,28 @@ def phase_no_fallback(table):
             or not np.array_equal(again.node_score, want.node_score):
         raise AssertionError("the victim search after a refused launch "
                              "differs from the oracle")
+    # the sharded search likewise
+    meshed = BatchEngine(mesh=NodeMesh([engine.device] * 4))
+    real_sharded = vk._sharded_launch
+    before = vk.victim_search_sharded.launches
+    got, sharded_error = None, None
+    vk._sharded_launch = lambda a, out, plan, shards, b: real_sharded(
+        a, out, plan._replace(threads=2048), shards, b)
+    try:
+        got = meshed.find_victims(table)
+    except RuntimeError as e:
+        sharded_error = str(e)
+    finally:
+        vk._sharded_launch = real_sharded
+    if got is not None or sharded_error is None \
+            or vk.victim_search_sharded.launches != before:
+        raise AssertionError("a refused sharded victim launch did not "
+                             "raise through find_victims")
+    again = meshed.find_victims(table)
+    if (again.pick, again.kstar) != (want.pick, want.kstar) \
+            or not np.array_equal(again.node_score, want.node_score):
+        raise AssertionError("the sharded victim search after a refused "
+                             "launch differs from the oracle")
     scan_errors = _scan_refusals()
     spec_errors = _spec_refusals()
     return {"phase": "no_fallback", "raised": True, "error": error[:200],
@@ -1263,7 +1583,12 @@ def phase_no_fallback(table):
             "scan_error": scan_errors["scan"][:200],
             "probe_error": scan_errors["probe"][:200],
             "probe_block_error": scan_errors["probe_block"][:200],
-            "scan_raised": True, "probe_raised": True}
+            "scan_sharded_error": scan_errors["scan_sharded"][:200],
+            "scan_sharded_resident_error":
+                scan_errors["scan_sharded_resident"][:200],
+            "victim_sharded_error": sharded_error[:200],
+            "scan_raised": True, "probe_raised": True,
+            "sharded_raised": True}
 
 
 def _mixed_bindings(device, snap, server_url):
@@ -1358,7 +1683,9 @@ def _counts():
             "argsort_rows": reject_kernel.argsort_rows,
             "scatter_prologue": scatter_kernel.launch_staged,
             "victim_search": victim_kernel.victim_search,
+            "victim_search_sharded": victim_kernel.victim_search_sharded,
             "scan_chunk": scan_kernel.scan_chunk,
+            "scan_chunk_sharded": scan_kernel.scan_chunk_sharded,
             "probe": scan_kernel.probe,
             "spec_pass": spec_kernel.spec_pass,
             "spec_repair": spec_kernel.spec_repair}
@@ -1444,9 +1771,15 @@ def main() -> int:
     spec, spec_t = phase_spec(rate, floor_ms, encs, chunk_enc)
     del encs, chunk_enc
     stamp(spec)
-    preempt, preempt_launches, wide = phase_preempt(rate, floor_ms)
+    preempt, preempt_launches, wide, ptables = phase_preempt(rate,
+                                                             floor_ms)
     stamp(preempt)
     stamp(phase_no_fallback(wide))
+    shard, shard_t = phase_shard_kernels(rate, floor_ms, ptables)
+    del ptables
+    stamp(shard)
+    shard_path = phase_shard_path()
+    stamp(shard_path)
     _zero_counts()                        # the mixed path starts here
     mixed = phase_mixed()
     mixed_launches = _read_counts()       # ... and ends here
@@ -1459,6 +1792,7 @@ def main() -> int:
     small = scatter_t[tuple(scatter["path_rows"])]
     k6 = spec_t["chunk"]
     k1, k5, k5_p1 = scan_t["k1"], scan_t["k5"], scan_t["k5_p1"]
+    sharded = shard_t["timings"][SHARD_TIMED]
     emit({"kernels": [{
         "name": "filter_masks", "route": "cuda",
         "source": "kubernetes_tpu_torch/sched/device/csrc/filter_kernel.cu",
@@ -1581,6 +1915,53 @@ def main() -> int:
         "chunk_bound_ms": k6["bound_ms"], "chunk_k1_ms": k6["k1_ms"],
         "spread_chunk_ms": spec_t["spread"]["ms"],
         "spread_k1_ms": spec_t["spread"]["k1_ms"],
+        "launch_floor_ms": floor_ms, **rate}, {
+        "name": "scan_chunk_sharded", "route": "cuda",
+        "source": "kubernetes_tpu_torch/sched/device/csrc/scan_kernel.cu",
+        "replaces": "kubernetes_tpu/sched/device/engine.py:829",
+        "launches": shard_path["launches"]["scan_chunk_sharded"],
+        "launches_path": "shard_path", "shards": SHARD_TIMED,
+        "main_path_shape": scan["k1_shape"],
+        "equal_plain": True, "max_abs_err": shard["max_abs_err"],
+        "shape": scan["k1_shape"], "ms": sharded["ms"],
+        "plain_ms": shard_t["plain_ms"],
+        "plain_shape": shard["k1_plain_shape"],
+        "ms_at_plain_shape": shard_t["head_ms"],
+        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+        "library_ms": None, "k1_ms": sharded["k1_ms"],
+        "by_shards": {s: [t["ms"], t["k1_ms"], t["cluster"]]
+                      for s, t in shard_t["timings"].items()},
+        "sm_clock_mhz_timed": sharded["sm_clock_mhz"],
+        "launch_floor_ms": floor_ms, **rate}, {
+        "name": "victim_search_sharded", "route": "cuda",
+        "source": "kubernetes_tpu_torch/sched/device/csrc/victim_kernel.cu",
+        "replaces": "kubernetes_tpu/sched/device/engine.py:879",
+        "launches": shard_t["k4_launches"], "launches_path": "shard",
+        "main_path_shape": shard["k4"]["shape"],
+        "equal_plain": True, "max_abs_err": shard["k4"]["max_abs_err"],
+        "shape": shard["k4"]["shape"], "shards": SHARD_TIMED,
+        "ms": shard["k4"]["ms"], "plain_ms": shard["k4"]["plain_ms"],
+        "k4_ms": shard["k4"]["k4_ms"],
+        "bound_ms": shard["k4"]["bound_ms"],
+        "bound_by": shard["k4"]["bound_by"], "library_ms": None,
+        "launch_floor_ms": floor_ms, **rate}, {
+        "name": "k7_exchange", "route": "cuda",
+        "source": "kubernetes_tpu_torch/sched/device/csrc/scan_kernel.cu",
+        "replaces": "kubernetes_tpu/sched/device/engine.py:677",
+        "inside": ["scan_chunk_sharded", "victim_search_sharded"],
+        "launches": shard_path["launches"]["scan_chunk_sharded"],
+        "launches_path": "shard_path", "shards": SHARD_TIMED,
+        "equal_plain": True, "max_abs_err": shard["max_abs_err"],
+        "shape": scan["k1_shape"],
+        "ms": sharded["ms"] - sharded["k1_ms"],
+        "ms_is": "the sharded K1's device ms less K1's, same chunk",
+        "plain_ms": shard_t["plain_ms"] - shard_t["unsharded_plain_ms"],
+        "plain_ms_is": "the sharded twin's ms less the plain scan's, "
+                       "same pods (plain_shape)",
+        "plain_shape": shard["k1_plain_shape"],
+        "bound_ms": sharded["k7_bound_ms"],
+        "bound_by": sharded["k7_bound_by"],
+        "library_ms": None, "bytes": sharded["k7_bytes"],
         "launch_floor_ms": floor_ms, **rate}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -111,8 +111,8 @@ def run_scheduling_benchmark(n_nodes: int = 1000, n_pods: int = 1000,
                              chaos_seed: Optional[int] = None,
                              chaos_error_rate: float = 0.01,
                              device=None,
-                             delta_uploads: bool = True
-                             ) -> BenchmarkResult:
+                             delta_uploads: bool = True,
+                             mesh=None) -> BenchmarkResult:
     """Stand up master + fleet + scheduler, blast pods from 30 writers,
     measure time until every pod is bound (and optionally Running).
 
@@ -128,8 +128,11 @@ def run_scheduling_benchmark(n_nodes: int = 1000, n_pods: int = 1000,
 
     delta_uploads: False forces the engine to re-upload the full node
     tables every tile (no device table mirror) — the control arm of the
-    delta-scatter A/B, as in the JAX benchmark."""
-    if mode == "batch":
+    delta-scatter A/B, as in the JAX benchmark.
+
+    mesh: a NodeMesh to split the engine's node axis over (the batch
+    loop's `mesh=`); its device stands for `device`."""
+    if mode == "batch" and mesh is None:
         # no card and no device named: raise before anything starts
         resolve_device(device)
     # GIL slice: 1ms measured best at first (the scheduler thread parked
@@ -158,7 +161,8 @@ def run_scheduling_benchmark(n_nodes: int = 1000, n_pods: int = 1000,
                         heartbeat_interval=HEARTBEAT_INTERVAL_S).run()
     factory = ConfigFactory(client, rate_limit=False).start()
     if mode == "batch":
-        sched = BatchScheduler(factory.create_batch(device=device)).run()
+        sched = BatchScheduler(factory.create_batch(
+            device=None if mesh is not None else device, mesh=mesh)).run()
         sched.config.engine.delta_uploads = delta_uploads
     elif mode == "serial":
         sched = Scheduler(factory.create()).run()

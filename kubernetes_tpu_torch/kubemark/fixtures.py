@@ -53,7 +53,7 @@ import random
 import numpy as np
 
 from ..core import types as api
-from ..core.quantity import Quantity
+from ..core.quantity import Quantity, parse_quantity
 from ..sched.device.tables import ClusterSnapshot
 
 GI = 1024 ** 3
@@ -525,3 +525,195 @@ def cluster_edge_tables(name: str):
         pods.valid[k] = True
         pods.aff_req[k] = pods.anti_req[k] = False
     return node, state, pods
+
+
+# the mesh sizes the sharded kernels are held at (virtual shards on one
+# card; the CPU tests run the same through NodeMesh(["cpu"] * S))
+SHARD_COUNTS = (2, 4, 8)
+# the scan cases the sharded K1 is held to its twin at (every tier in
+# both layouts, and the edges whose slots split over every count)
+SHARD_CASES = ("node_local", "spread", "affinity", "service_anti", "all",
+               "p1", "all_invalid", "nothing_fits", "words3")
+
+
+def shard_pad(tables, shards: int):
+    """(NodeConst, State, PodXs) of numpy arrays with the node axis
+    padded to a multiple of `shards` by invalid slots (no zone, no
+    affinity domain, every count 0), as the encoders pad it
+    (`node_pad_to`, `mesh_devices`) -> the same three."""
+    from ..sched.device.mesh import NODE_SPLIT, STATE_SPLIT
+    node, state, pods = tables
+    n = node.valid.shape[0]
+    extra = -n % shards
+
+    def pad(tree, split):
+        out = {}
+        for f, a in zip(type(tree)._fields, tree):
+            if f in split and extra:
+                widths = [(0, 0)] * a.ndim
+                widths[split[f]] = (0, extra)
+                fill = -1 if f in ("zone_id", "aff_dom") else 0
+                a = np.pad(a, widths, constant_values=fill)
+            out[f] = a
+        return type(tree)(**out)
+
+    return pad(node, NODE_SPLIT), pad(state, STATE_SPLIT), pods
+
+
+def shard_survivor_drill(n_nodes: int = 64, n_pods: int = 96,
+                         shards: int = 4, dead: int = 2,
+                         device=None) -> dict:
+    """The shard-failure drill over NodeMesh([device] * shards) (device
+    None: the card; the tests pass "cpu"): a live batch loop over
+    `shards` shard leases (FakeClock), the first half of the pods bound,
+    then shard `dead`'s owner dies (renewals stop, no release) and the
+    second half is created. Right after the loop dispatches the first
+    tile of the second half, and before that tile is finalized, the
+    clock runs past the dead lease's expiry (the survivors renewing), so
+    the lease expires with the tile in flight: the loop's monitor sees
+    it before the next dispatch, fences the lease, re-shards onto the
+    survivors and requeues the in-flight tile's pods under
+    `shard-<dead>`, and they bind on the survivors. -> what the drill
+    saw: every pod bound, the shard counters, the mesh size after, the
+    pods in flight at the expiry and those requeued under the dead
+    shard, and the tiles that reached their commit under an epoch vector
+    the encoder no longer holds with what they handed to the commit
+    path (the fence drops them: must be 0)."""
+    import threading
+    import time as _time
+    from ..api.client import InProcClient
+    from ..api.registry import Registry
+    from ..sched.batch import BatchScheduler
+    from ..sched.device.shardfail import ShardLeaseMonitor, ShardLeaseSet
+    from ..sched.factory import ConfigFactory
+    from ..utils.clock import FakeClock
+    from ..utils.metrics import MetricsRegistry
+    from .fleet import HollowFleet
+
+    def wait(cond, timeout=120.0):
+        end = _time.monotonic() + timeout
+        while _time.monotonic() < end:
+            if cond():
+                return True
+            _time.sleep(0.02)
+        return False
+
+    from ..sched.device import BatchEngine
+    from ..sched.device.engine import resolve_device
+    from ..sched.device.mesh import NodeMesh
+    mesh = NodeMesh([resolve_device(device)] * shards)
+    clock = FakeClock()
+    metrics = MetricsRegistry()
+    client = InProcClient(Registry())
+    leases = ShardLeaseSet(client, shards, clock=clock, lease_duration=3.0,
+                           renew_deadline=2.0, retry_period=1.0,
+                           metrics=metrics)
+    assert leases.acquire_all()
+    monitor = ShardLeaseMonitor(client, leases.lease_names(), clock=clock,
+                                lease_duration=3.0, metrics=metrics)
+    monitor.poll()
+    fleet = HollowFleet(client, n_nodes, cpu="4", memory="32Gi", max_pods=32)
+    for i in range(n_nodes):
+        client.create("nodes", fleet._node_object(i))
+    factory = ConfigFactory(client, rate_limit=False).start()
+    engine = BatchEngine(mesh=mesh)
+    config = factory.create_batch(engine=engine, shard_monitor=monitor,
+                                  metrics=metrics)
+    sched = BatchScheduler(config)
+    # the fence's check: a tile that reaches _finalize under an epoch
+    # vector the encoder no longer holds must hand nothing to the commit
+    # path (the commit queue, or the committer's direct commit), on the
+    # thread that finalizes it
+    seen = threading.local()
+    stale = {"tiles": 0, "handed": 0}
+    finalize, commit, put = sched._finalize, sched._commit, \
+        sched._commit_q.put
+    dispatch, requeue = sched._schedule_incremental, sched._requeue
+    # armed once the owner is dead: the next dispatch expires its lease
+    # while the dispatched tile is still in flight
+    expiry = {"armed": False, "in_flight": 0, "requeued": 0}
+
+    def expire_in_flight(*args, **kw):
+        out = dispatch(*args, **kw)
+        if expiry["armed"] and sched._prev is not None:
+            expiry["armed"] = False
+            expiry["in_flight"] = len(sched._prev.pods)
+            for _ in range(4):
+                leases.renew(skip=[dead])
+                clock.step(1.0)
+        return out
+
+    def counted_requeue(pod, host, reason):
+        if host == f"shard-{dead}":
+            expiry["requeued"] += 1
+        return requeue(pod, host, reason)
+
+    def count(fn):
+        def wrapped(*args, **kw):
+            seen.calls = getattr(seen, "calls", 0) + 1
+            return fn(*args, **kw)
+        return wrapped
+
+    def watched(fl, *args, **kw):
+        inc = sched._inc
+        delta = getattr(fl.enc, "delta", None)
+        old = (fl.shard_epochs is not None and inc is not None
+               and delta is not None and inc.encoder_id == delta.encoder_id
+               and inc.shard_epochs() != fl.shard_epochs)
+        before = getattr(seen, "calls", 0)
+        out = finalize(fl, *args, **kw)
+        if old:
+            stale["tiles"] += 1
+            stale["handed"] += getattr(seen, "calls", 0) - before
+        return out
+
+    sched._finalize, sched._commit = watched, count(commit)
+    sched._commit_q.put = count(put)
+    sched._schedule_incremental = expire_in_flight
+    sched._requeue = counted_requeue
+    sched.run()
+    try:
+        assert wait(lambda: len(factory.node_lister.list()) == n_nodes)
+        half = n_pods // 2
+
+        def bound(lo, hi):
+            pods = client.list("pods")[0]
+            names = {f"drill-{i:04d}" for i in range(lo, hi)}
+            return sum(1 for p in pods if p.metadata.name in names
+                       and p.spec.node_name) == hi - lo
+
+        for i in range(half):
+            client.create("pods", _drill_pod(i))
+        first = wait(lambda: bound(0, half))
+        leases.kill(dead)
+        expiry["armed"] = True
+        for i in range(half, n_pods):
+            client.create("pods", _drill_pod(i))
+        second = wait(lambda: bound(half, n_pods))
+        reshards = metrics.counter("shard_reshards_total")
+    finally:
+        sched.stop()
+        factory.stop()
+    return {"shards": shards, "dead": dead, "first_half_bound": first,
+            "second_half_bound": second,
+            "mesh_after": engine.n_shards,
+            "reshards": reshards,
+            "lease_transitions": metrics.counter(
+                "shard_lease_transitions_total",
+                {"lease": leases.lease_names()[dead]}),
+            "replay_rows": metrics.counter("shard_replay_rows_total"),
+            "in_flight_at_expiry": expiry["in_flight"],
+            "requeued_in_flight": expiry["requeued"],
+            "stale_tiles_fenced": stale["tiles"],
+            "handed_under_dead_epoch": stale["handed"]}
+
+
+def _drill_pod(i: int) -> api.Pod:
+    return api.Pod(
+        metadata=api.ObjectMeta(name=f"drill-{i:04d}", namespace="default"),
+        spec=api.PodSpec(containers=[api.Container(
+            name="c", image="img",
+            resources=api.ResourceRequirements(requests={
+                "cpu": parse_quantity("100m"),
+                "memory": parse_quantity("64Mi")}))]),
+        status=api.PodStatus(phase="Pending"))

@@ -34,6 +34,12 @@ Sections:
   8192)`) on the smoke's engine fixture at 1000x3000 and 5000x30000.
 - ``engine_spec``: the speculative engine (K6) against the scan (K1) on
   the same fixture and shapes, plain and spread tiers, with the winner.
+- ``mesh``: the sharded K1 (K7, the exchange between the shards, inside
+  it) at 1, 2, 4 and 8 shards on one card, on K1's e2e chunk: bit-equal
+  to K1, its device ms a chunk against K1's with the SM clock, and K7's
+  bound (`section_mesh`; the shard phase of chip_smoke.py reuses its
+  helpers `shard_parity`, `shard_timing`, `victim_shard_parity` and
+  `shard_wedge_child`).
 - ``e2e``: the live pipeline under the kubemark benchmark
   (`run_scheduling_benchmark(5000, 30000, "batch")`: registry, informer
   fan-out, FIFO drain, incremental encode, chained device scan, batched
@@ -407,6 +413,166 @@ def scan_timing(a, weights, anti_weight: int, has_aff: bool,
             "valid_pods": valid, "fitting_elements": scored,
             "placed": int((got >= 0).sum()),
             **bounds.scan_bound(nbytes, ops, rate)}
+
+
+def shard_parity(a, weights, anti_weight: int, has_aff: bool,
+                 has_spread: bool, shards: int, twin: bool = True) -> dict:
+    """The sharded K1 (scan_kernel.scan_chunk_sharded, `shards` shards on
+    a's device) on ScanArgs `a` against the unsharded K1 and, with
+    `twin`, the sharded plain twin, each from its own copy of a.state:
+    the assignment and every State field must be bit-equal, and every
+    shard's copy of the replicated counts equal to the State's after
+    the chunk. -> the fields compared, whether all were equal, the
+    largest absolute difference, the pods placed, the launch plan. a.state
+    is left as it was."""
+    from ..sched.device import scan_kernel as sk
+    d = a.dims()
+    flags = (weights, anti_weight, has_aff, has_spread)
+    runs = {}
+    for key in ("sharded", "unsharded") + (("twin",) if twin else ()):
+        state = type(a.state)(*(t.clone() for t in a.state))
+        b = a._replace(state=state)
+        space = sk.ShardSpace(shards, d, a.device)
+        if key == "sharded":
+            out = sk.scan_chunk_sharded(b, *flags, space)
+        elif key == "twin":
+            out = sk.scan_chunk_sharded_plain(b, *flags, space)
+        else:
+            out = sk.scan_chunk(b, *flags)
+        runs[key] = (out, state, space)
+    torch.cuda.synchronize(a.device)
+    got, g_state, g_space = runs["sharded"]
+    pairs = []
+    for key in [k for k in runs if k != "sharded"]:
+        out, state, _ = runs[key]
+        pairs.append((f"{key}.assigned", got, out))
+        pairs += [(f"{key}.state.{f}", x, y) for f, x, y in zip(
+            a.state._fields, g_state, state)]
+    for k in range(1, shards):
+        rep = g_space.replica(k, d)
+        pairs += [(f"replica{k}.{f}", rep[f], getattr(g_state, f))
+                  for f in sk.REPLICATED]
+    fields, err = {}, 0
+    for name, x, y in pairs:
+        fields[name] = bool(torch.equal(x, y))
+        if x.numel():
+            err = max(err, int((x.long() - y.long()).abs().max()))
+    plan = sk.launch_plan(sk.SCAN, d, a.dtype == torch.int64, has_spread,
+                          has_aff, bool(anti_weight), shards=shards)
+    return {"equal": all(fields.values()), "max_abs_err": err,
+            "placed": int((got >= 0).sum()), "fields": fields,
+            "plan": plan._asdict()}
+
+
+def shard_timing(a, weights, anti_weight: int, has_aff: bool,
+                 has_spread: bool, shards: int, rate: dict) -> dict:
+    """The sharded K1 at `shards` shards against the unsharded K1 on one
+    chunk (ScanArgs `a` on the card), each from a.state every time
+    (device_ms of 5 launches in one CUDA graph, each after the copies
+    that restore the State, whose own time is taken off), the SM clock
+    sampled while each ran; K7's bound (bounds.k7_bound: the records'
+    bytes a pod) beside them. a.state ends as the chunk leaves it."""
+    from ..sched.device import bounds
+    from ..sched.device import scan_kernel as sk
+    init = [t.clone() for t in a.state]
+    d = a.dims()
+    space = sk.ShardSpace(shards, d, a.device)
+    flags = (weights, anti_weight, has_aff, has_spread)
+
+    def restore():
+        for t, s in zip(a.state, init):
+            t.copy_(s)
+
+    def sharded():
+        restore()
+        sk.scan_chunk_sharded(a, *flags, space)
+
+    def unsharded():
+        restore()
+        sk.scan_chunk(a, *flags)
+
+    restore_ms = device_ms(restore, reps=5, trials=3)
+    with SmiSampler() as smi:
+        ms = device_ms(sharded, reps=5, trials=3) - restore_ms
+        k1_ms = device_ms(unsharded, reps=5, trials=3) - restore_ms
+    restore()
+    valid = int(a.pods.valid.sum())
+    spread = int((a.pods.valid & (a.pods.group_id >= 0)).sum()) \
+        if has_spread else 0
+    anti = int((a.pods.valid & (a.pods.svc_group >= 0)).sum()) \
+        if anti_weight else 0
+    plan = sk.launch_plan(sk.SCAN, d, a.dtype == torch.int64, has_spread,
+                          has_aff, bool(anti_weight), shards=shards)
+    return {"shards": shards, "ms": ms, "k1_ms": k1_ms,
+            "restore_ms": restore_ms, "cluster": plan.cluster,
+            "ctas": plan.grid, "slots_per_cta": plan.slots,
+            "threads_per_cta": plan.threads, **smi.summary(),
+            **bounds.k7_bound(shards, valid, spread, anti, d["z"], rate)}
+
+
+def victim_shard_parity(args, shards: int) -> dict:
+    """The sharded K4 (victim_kernel.victim_search_sharded) on
+    VictimArgs `args` (on the card) against the unsharded kernel and the
+    sharded plain twin: pick, kstar and score bit-equal. -> whether
+    they were, the largest absolute difference, the pick."""
+    from ..sched.device import victim_kernel as vk
+    got = vk.victim_search_sharded(args, shards).flat()
+    one = vk.victim_search(args).flat()
+    n = args.shape[0]
+    pick, kstar, score = vk.victim_search_sharded_plain(args, shards)
+    twin = torch.cat([pick.reshape(1).to(args.cand.device), kstar, score])
+    torch.cuda.synchronize(args.cand.device)
+    err = max(int((got - one).abs().max()), int((got - twin).abs().max()))
+    return {"equal": bool(torch.equal(got, one) and torch.equal(got, twin)),
+            "max_abs_err": err, "pick": int(got[0]), "n": n}
+
+
+def shard_wedge(shards: int = 4, budget: int = 1 << 24) -> dict:
+    """The wedged exchange, in a process of its own (a trapped kernel
+    leaves the CUDA context unusable): the sharded K1 on small seeded
+    tables with shard 1 withholding its first candidate record and a
+    spin budget of `budget` cycles. The launch succeeds; the other
+    shards' wait traps, and the synchronize after it must raise. -> what
+    happened, within the seconds it took."""
+    from ..sched.device import engine as eng_mod
+    from ..sched.device import scan_kernel as sk
+    from .fixtures import scan_tables, shard_pad
+    t0 = time.monotonic()
+    tables = shard_pad(scan_tables(SHARD_WEDGE_SEED, 16, 512), shards)
+    a = scan_args(*(eng_mod._upload(t, torch.device("cuda"))
+                    for t in tables))
+    space = sk.ShardSpace(shards, a.dims(), a.device)
+    try:
+        sk.scan_chunk_sharded(a, (1, 1, 1), 0, False, False, space,
+                              budget=budget, withhold=1)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return {"raised": True, "error": str(e).splitlines()[0][:200],
+                "seconds": time.monotonic() - t0}
+    return {"raised": False, "seconds": time.monotonic() - t0}
+
+
+SHARD_WEDGE_SEED = 29
+
+
+def shard_wedge_child(timeout_s: float = 120.0) -> dict:
+    """shard_wedge in a child process of the current interpreter (its
+    own CUDA context), from the checkout this module lies in. -> the
+    child's record, its exit code and the seconds it took."""
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    code = ("import json; from kubernetes_tpu_torch.kubemark.gpu_evidence "
+            "import shard_wedge; print(json.dumps(shard_wedge()))")
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=timeout_s,
+                          env={**os.environ, "PYTHONPATH": root})
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    rec = json.loads(lines[-1]) if lines else {
+        "raised": False, "stderr": proc.stderr[-2000:]}
+    return {**rec, "rc": proc.returncode,
+            "child_s": time.monotonic() - t0}
 
 
 def probe_timing(a, weights, anti_weight: int, has_aff: bool, rate: dict,
@@ -998,6 +1164,34 @@ def section_engine(device=None,
     return out
 
 
+def section_mesh(device=None, shards=(1, 2, 4, 8)) -> dict:
+    """The sharded K1 (K7 inside) on one card at each shard count of
+    `shards`, on K1's e2e chunk (8192 bench pods against the e2e fleet's
+    5120 slots): held bit-equal to K1, then its device ms a chunk
+    against K1's (shard_timing: the same graph-timed launches, the SM
+    clock sampled) beside K7's bound. K7's cycles a pod come from
+    kubemark/profile_kernels.py (`k7_phases`)."""
+    from ..sched.device import BatchEngine, bounds
+    from .benchmark import _bench_pod
+    from .fixtures import SMOKE_CHUNK, fleet_encoder
+    d = _cuda(device)
+    engine = BatchEngine(device=d)
+    enc = fleet_encoder().encode_tile(
+        [_bench_pod(i) for i in range(SMOKE_CHUNK)], [], [])
+    a = scan_args(*engine.device_args(enc))
+    flags = engine._enc_flags(enc)
+    rate = bounds.card_rate()
+    out = {"shape": [a.dims()["p"], a.dims()["n"]], "by_shards": {}}
+    for s in shards:
+        got = shard_parity(a, engine.weights, 0, *flags, s, twin=False)
+        if not got["equal"]:
+            raise AssertionError(f"mesh: the sharded K1 at {s} shards "
+                                 f"differs from K1")
+        out["by_shards"][s] = shard_timing(a, engine.weights, 0, *flags, s,
+                                           rate)
+    return out
+
+
 def section_engine_spec(device=None,
                         shapes=((1000, 3000), (5000, 30000))) -> dict:
     """The speculative engine against the scan (JAX tpu_evidence's
@@ -1053,14 +1247,15 @@ E2E_LAYERS = {"drain": "batch_drain_latency_microseconds",
 
 
 def section_e2e(n_nodes: int = 5000, n_pods: int = 30000,
-                device=None, timeout_s: float = 900.0) -> dict:
+                device=None, timeout_s: float = 900.0, mesh=None) -> dict:
     """One run of the live pipeline under the kubemark benchmark (not
     best-of-two: card time is the budget). device=None is the card; the
     tests pass device="cpu" at a small size. Reports the tiles (chained
     or not), the engine's upload and scan accounting, the seconds each
     host layer of E2E_LAYERS spent, summed over the run, and the
     per-node counts digest. `k1_device_ms` is the scan kernel's time on
-    the card in the run (scan_stats' CUDA events around the launches)."""
+    the card in the run (scan_stats' CUDA events around the launches).
+    `mesh`: a NodeMesh for the batch loop's engine (the shard phase)."""
     from ..api.registry import Registry
     from ..utils.metrics import global_metrics
     from .benchmark import run_scheduling_benchmark
@@ -1079,7 +1274,7 @@ def section_e2e(n_nodes: int = 5000, n_pods: int = 30000,
     before = reading()
     r = run_scheduling_benchmark(n_nodes, n_pods, "batch",
                                  registry=registry, device=device,
-                                 timeout_s=timeout_s)
+                                 timeout_s=timeout_s, mesh=mesh)
     after = reading()
     nodes, _ = registry.list("nodes")
     pods, _ = registry.list("pods", "default")
@@ -1201,6 +1396,7 @@ def main() -> int:
     ev.run_section("kernels", section_kernels)
     ev.run_section("engine", section_engine)
     ev.run_section("engine_spec", section_engine_spec)
+    ev.run_section("mesh", section_mesh)
     if not args.skip_e2e:
         ev.run_section("e2e", section_e2e)
     ev.doc["complete"] = True

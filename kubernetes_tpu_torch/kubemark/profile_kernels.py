@@ -37,6 +37,15 @@ Prints one JSON object (and writes it to PATH when given):
   and for the last thread (the rescore of the block's first taken
   slot) its offers. Cycles a pod of each, and both builds' device ms.
 
+- ``k7_phases``: K7, the exchange between the shards inside the sharded
+  K1, at 2, 4 and 8 shards on one card, on K1's e2e chunk and on the
+  spread fixture's first chunk, built from a copy of
+  `csrc/scan_kernel.cu` that sums clock64 around each exchange for CTA
+  0's thread 0 of each shard (its post, its wait for every shard's
+  record, the reduction): cycles a pod of the candidate exchange, the
+  group max and the zone histogram, each shard's; both builds' device
+  ms (their answers held equal).
+
 Every copy is held equal to the plain version before it is timed.
 Copies are written under `kubernetes_tpu_torch/_build/variants/` and
 built there; the committed libraries are untouched.
@@ -318,6 +327,110 @@ def spec_phases(device) -> dict:
     return out
 
 
+# --------------------------------------------------------------- K7
+
+_K7_MAX = "      if constexpr (SHARDED) m = k7_max(x, m, n_max, poster, xs_m);\n"
+_K7_ZONES = ("      if constexpr (SHARDED) k7_zones(x, ztot, a.Z, n_zone, "
+             "rank == 0);\n")
+_K7_BEST = """    if constexpr (SHARDED)
+      k7_best(x, best, best_j, n_cand, poster,
+              a.withhold == shard && n_cand == 0, xs_c, xs_j);
+"""
+# per shard: 0 the candidate exchange, 1 the group max, 2 the zone
+# histogram (cycles summed over the chunk), 3 the pods that exchanged
+
+
+def _k7_edits():
+    def timed(call, slot, count=False):
+        body = call.replace("if constexpr (SHARDED) ", "").replace(
+            "    if constexpr (SHARDED)\n", "")
+        return ("    if constexpr (SHARDED) {\n"
+                "      const long long c0 = clock64();\n" + body
+                + f"      if (poster) {{\n"
+                f"        k7_dbg[4 * shard + {slot}] += clock64() - c0;\n"
+                + ("        k7_dbg[4 * shard + 3] += 1;\n" if count else "")
+                + "      }\n    }\n")
+    return [
+        ("#define K7_MAX_SHARDS 32\n",
+         "#define K7_MAX_SHARDS 32\n"
+         "__device__ long long k7_dbg[4 * K7_MAX_SHARDS];\n"),
+        (_K7_BEST, timed(_K7_BEST, 0, count=True)),
+        (_K7_MAX, timed(_K7_MAX, 1)),
+        (_K7_ZONES, timed(_K7_ZONES, 2)),
+        ("extern \"C\" const char* scan_error_name(int err) {",
+         "extern \"C\" int k7_dbg_read(void* out, int zero) {\n"
+         "  static const long long zeros[4 * K7_MAX_SHARDS] = {0};\n"
+         "  if (zero) return (int)cudaMemcpyToSymbol(k7_dbg, zeros,"
+         " sizeof zeros);\n"
+         "  return (int)cudaMemcpyFromSymbol(out, k7_dbg, sizeof zeros);"
+         "\n}\n\nextern \"C\" const char* scan_error_name(int err) {"),
+    ]
+
+
+def k7_phases(device, shards=(2, 4, 8)) -> dict:
+    """K7's cycles a pod in the sharded K1, as CTA 0's thread 0 of each
+    shard sees them (its post, the wait for every shard's record and the
+    reduction), on K1's e2e chunk (the candidate exchange alone) and on
+    the spread fixture's first chunk (the group max too), from a copy of
+    `csrc/scan_kernel.cu` that sums clock64 around each exchange; both
+    builds' device ms and answers."""
+    from .benchmark import _bench_pod
+    real = sk.SOURCE
+    copy = _variant("k7_phases", real, _k7_edits())
+    _build.build_all([real, copy])
+    engine = eng.BatchEngine(device=device)
+    chunks = {"e2e_chunk": fx.fleet_encoder().encode_tile(
+        [_bench_pod(i) for i in range(fx.SMOKE_CHUNK)], [], []),
+        "spread_chunk": eng.encode_snapshot(
+            fx.engine_snapshot(5000, fx.SMOKE_CHUNK, plain=False),
+            node_pad_to=8)}
+    out = {}
+    try:
+        for key, enc in chunks.items():
+            a = scan_args(*engine.device_args(enc))
+            flags = engine._enc_flags(enc)
+            init = [t.clone() for t in a.state]
+            for s in shards:
+                space = sk.ShardSpace(s, a.dims(), device)
+                rec, want = {}, None
+                for name, path in (("committed", real),
+                                   ("instrumented", copy)):
+                    _with_source(sk, path)
+
+                    def run():
+                        for t, v in zip(a.state, init):
+                            t.copy_(v)
+                        return sk.scan_chunk_sharded(a, engine.weights, 0,
+                                                     *flags, space)
+
+                    got = run().clone()
+                    want = got if want is None else want
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{name} sharded K1 differs")
+                    rec[f"{name}_ms"] = device_ms(run, reps=5, trials=3)
+                lib = sk._library()
+                lib.k7_dbg_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                buf = (ctypes.c_longlong * (4 * sk.MAX_SHARDS))()
+                err = lib.k7_dbg_read(buf, 1)
+                run()
+                torch.cuda.synchronize()
+                err = err or lib.k7_dbg_read(buf, 0)
+                if err:
+                    raise RuntimeError(f"reading K7's cycles: CUDA error "
+                                       f"{err}")
+                d = np.array(list(buf), dtype=np.int64).reshape(-1, 4)[:s]
+                pods = max(int(d[0, 3]), 1)
+                rec.update(pods=int(d[0, 3]), **{
+                    f"{k}_cycles_a_pod": [float(x) for x in d[:, i] / pods]
+                    for i, k in enumerate(("candidate", "group_max",
+                                           "zones"))})
+                out[f"{key}@{s}"] = rec
+                _with_source(sk, real)
+    finally:
+        _with_source(sk, real)
+    return out
+
+
 # ------------------------------------------------ K5's block-a-pod route
 
 _LB = "__global__ void __launch_bounds__(PROBE_BLOCK_THREADS)\nprobe_kernel("
@@ -407,7 +520,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="", help="also write the JSON here")
     args = ap.parse_args(argv)
     device = _cuda(None)
-    doc = {"card": card_line(), "spec_phases": spec_phases(device),
+    doc = {"card": card_line(), "k7_phases": k7_phases(device),
+           "spec_phases": spec_phases(device),
            "victim_phases": victim_phases(device),
            "victim_host": victim_host(device),
            "probe_bounds": probe_bounds(device)}

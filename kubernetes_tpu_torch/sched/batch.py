@@ -11,8 +11,9 @@ The port's copy of the JAX package's live tile loop. A dispatched tile's
 assignment is a device tensor with a CUDA event recorded after its last
 chunk (engine.PendingAssignment): the scheduler thread never waits on
 the device; whichever thread lands the tile waits on that tile's event
-alone. The mesh and shard-failure wiring of the JAX loop are not ported
-yet (ROADMAP.md Queue 1): their config options accept only None.
+alone. `mesh=` splits the engine's node axis (sched/device/mesh.py) and
+`shard_monitor=` watches the shards' leases between tiles
+(sched/device/shardfail.py), as in the JAX loop.
 Priority preemption is (`preemption=`, `_try_preempt`), with one
 difference: a failed victim search is not taken for "no victims" (see
 `_try_preempt`).
@@ -114,17 +115,17 @@ class BatchSchedulerConfig:
         # priority. Only meaningful on the incremental path (the victim
         # table is a cut of the encoder's ledger).
         self.preemption = preemption
-        # the JAX loop's node-axis mesh and shard-lease monitor wait for
-        # their ports (ROADMAP.md Queue 1, 'Multi-GPU node-axis
-        # sharding'): until then only the default None is accepted
-        for name, value in (("mesh", mesh), ("shard_monitor", shard_monitor)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"BatchSchedulerConfig({name}=...) is not ported yet; "
-                    f"see ROADMAP.md Queue 1")
-        # device: where a default engine runs (None = the CUDA device;
-        # ignored when an explicit engine is passed)
-        self.engine = engine or BatchEngine(device=device)
+        # shard-failure tolerance (sched/device/shardfail.py): a
+        # ShardLeaseMonitor polled between tiles. An expired shard
+        # lease triggers fence -> survivor re-shard -> in-flight drop;
+        # None (the default) keeps the mesh un-monitored.
+        self.shard_monitor = shard_monitor
+        # mesh= (a NodeMesh) shards the node axis of the live pipeline
+        # (ignored when an explicit engine is passed — the engine's own
+        # mesh wins); the encoder below keeps slot capacity a multiple
+        # of the mesh size so shards stay block-aligned. device: where a
+        # default engine without a mesh runs (None = the CUDA device)
+        self.engine = engine or BatchEngine(mesh=mesh, device=device)
         self.tile_size = tile_size
         # scan-chunk sizes: small drains run [min_pad] chunks, bulk drains
         # [bulk_chunk] ones (the JAX engine compiles one program per
@@ -473,6 +474,11 @@ class BatchScheduler:
         """Returns True if any pods were processed."""
         c = self.config
         f = c.factory
+        if c.shard_monitor is not None:
+            # between-tile shard failure detection: the scan itself is
+            # never interrupted — an expired shard lease is observed
+            # HERE, before the next dispatch
+            self._check_shards()
         # with a tile in flight, don't park on the FIFO — an empty drain
         # must fall through so the idle path can finalize promptly
         pods = self._drain_tile(0 if self._prev is not None else 0.5)
@@ -794,6 +800,44 @@ class BatchScheduler:
                 self._error(pod, err)
             except Exception:
                 logger.exception("routing unscheduled pod failed")
+
+    def _check_shards(self) -> None:
+        """Shard-failure recovery, scheduler-thread only: poll the
+        shard lease monitor; on expiry, fence the dead owner (CAS
+        takeover advancing lease_transitions — a resurrecting owner
+        loses every subsequent CAS), re-shard the slot mapping onto the
+        survivors (encoder re-journals + re-epochs, engine rebuilds
+        over the survivor mesh), and drop the in-flight tile — it was
+        dispatched against the dead shard's epoch, so its assignments
+        must never bind. Its pods requeue FIFO, the same immediate
+        no-backoff path as the commit-time health gate, now at
+        shard granularity."""
+        from .device.shardfail import reshard_survivors
+        c = self.config
+        dead = c.shard_monitor.poll()
+        if not dead:
+            return
+        res = reshard_survivors(dead, c.shard_monitor, encoder=self._inc,
+                                engine=c.engine, metrics=c.metrics)
+        if res is None:
+            return  # every fence lost: the owners renewed after all
+        logger.warning("shard(s) %s expired: fenced (terms %s), "
+                       "re-sharded onto %d survivors, %d rows replayed",
+                       res.dead, res.fence_terms, res.survivors,
+                       res.replay_rows)
+        fl = self._prev
+        self._prev = None
+        if fl is not None:
+            try:
+                for pod in fl.pods:
+                    try:
+                        self._requeue(pod, f"shard-{res.dead[0]}",
+                                      "lease expired mid-tile")
+                    except Exception:
+                        logger.exception("requeue of %s failed",
+                                         pod.metadata.name)
+            finally:
+                fl.landed.set()
 
     def _try_preempt(self, pod: api.Pod) -> bool:
         """Priority preemption for one unschedulable pod (selection

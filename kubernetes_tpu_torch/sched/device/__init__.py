@@ -16,7 +16,12 @@
   - the dirty-row scatter kernel (scatter_kernel.py,
     csrc/scatter_kernel.cu) that keeps the engine's device table mirror
     current, and the preemption victim-search kernel (victim_kernel.py,
-    csrc/victim_kernel.cu) behind BatchEngine.find_victims.
+    csrc/victim_kernel.cu) behind BatchEngine.find_victims,
+  - the node-axis mesh (mesh.py): NodeMesh splits the node axis into
+    blocks, one a shard; the sharded scan and victim search exchange
+    their per-pod records across the shards (K7) inside the kernels,
+  - shard-failure tolerance (shardfail.py): shard leases, their monitor
+    and the survivor re-shard.
 
 Bit-exactness contract: given the same snapshot, the engine's assignments
 equal the JAX engine's (and so the serial oracle's) pod for pod.
@@ -24,8 +29,9 @@ equal the JAX engine's (and so the serial oracle's) pod for pod.
 
 from .tables import ClusterSnapshot, DevicePolicy, EncodeResult, encode_snapshot
 from .engine import BatchEngine, schedule_batch
+from .mesh import NodeMesh
 
 __all__ = [
     "ClusterSnapshot", "DevicePolicy", "EncodeResult", "encode_snapshot",
-    "BatchEngine", "schedule_batch",
+    "BatchEngine", "schedule_batch", "NodeMesh",
 ]

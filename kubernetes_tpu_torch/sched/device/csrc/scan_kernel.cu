@@ -92,11 +92,20 @@
 // batch of 132 pods or more) it is one block a pod: the group max, then
 // the mask and totals, and with ANTI a second pass.
 //
+// The sharded K1 (scan_sharded_kernel, shard_launch) replaces the same
+// scan jitted over a node-axis mesh (engine.py _get_run with
+// _node_shardings): K1's body with a cluster a shard over the shard's
+// block of slots, and after each of the cluster's reductions a pod the
+// exchange between the shards (K7, below). It computes K1's function
+// (K1's bound); K7 adds a round trip through L2 a reduction a pod.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-// -Xcompiler -fPIC; scan_launch and scan_max_clusters are the plain-C
-// entry points that kubernetes_tpu_torch/sched/device/scan_kernel.py
-// calls through ctypes, with the tensors' addresses in the order of enum
-// ScanPtr and the sizes and weights in the order of enum ScanDim.
+// -Xcompiler -fPIC; scan_launch, shard_launch and scan_max_clusters are
+// the plain-C entry points that
+// kubernetes_tpu_torch/sched/device/scan_kernel.py calls through ctypes,
+// with the tensors' addresses in the order of enum ScanPtr, the sizes and
+// weights in the order of enum ScanDim, and the shard arguments in the
+// order of enum ShardArg.
 
 #include <climits>
 #include <cstdint>
@@ -134,6 +143,22 @@ enum ScanDim {
   DIM_P, DIM_N, DIM_L, DIM_PW, DIM_K, DIM_G, DIM_T, DIM_D, DIM_S, DIM_Z,
   DIM_W_LR, DIM_W_BAL, DIM_W_SPREAD, DIM_W_ANTI, DIM_COUNT
 };
+
+// the sharded K1's arguments (scan_kernel.SHARD_FIELDS): the mesh's
+// shards, the slots a shard owns, the spin budget in cycles (0:
+// K7_BUDGET), the shard that withholds its first candidate record (-1:
+// none), the exchange buffer's int64 words, its address and the
+// replicas' address
+enum ShardArg {
+  SHARD_SHARDS, SHARD_BLOCK, SHARD_BUDGET, SHARD_WITHHOLD, SHARD_XWORDS,
+  SHARD_XCHG, SHARD_REPLICA, SHARD_COUNT
+};
+
+// cycles a K7 spin may wait for a record before the kernel traps (~2 s
+// at the H100's clocks): a shard that never posts raises, never hangs
+#define K7_BUDGET (1LL << 32)
+// the most shards: a warp's lanes read the shards' records
+#define K7_MAX_SHARDS 32
 
 template <typename T>
 struct Params {
@@ -198,6 +223,11 @@ struct Params {
   T* work_total;                // K1 [N], ANTI only
   uint8_t* work_mask;           // K1 [N], ANTI only; K6b [P] (slow pods)
   int* spec_nodes;              // K6 [b, b]: the slots of `total`'s lists
+  // the sharded K1 (K7): see enum ShardArg; zero for the other kernels
+  int shards, shard_block, withhold;
+  long long budget;
+  unsigned long long* xchg;     // K7's exchange buffer
+  int* replica;                 // [shards - 1, R] the replicated counts
 };
 
 // integer arithmetic in T that wraps as the tensors' does
@@ -774,9 +804,194 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t phase) {
         : "=r"(done) : "r"(smem_addr(bar)), "r"(phase) : "memory");
 }
 
-template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
-__global__ void __launch_bounds__(SCAN_BLOCK_THREADS, 1)
-scan_kernel(const Params<T> a) {
+// K7: the shards' exchange in the sharded K1. S shards (clusters) walk
+// the same pods; for each reduction a pod needs across the node axis,
+// each shard's CTA 0 posts one record into a buffer in global memory
+// and every CTA reads all S records and reduces them alike, so every
+// shard reaches the same group max, zone histogram and winner. A
+// record's payload is written first (relaxed) and its sequence number
+// last (release); a reader spins on the sequence (acquire), then reads
+// the payload (relaxed, past L1). The sequence is the launch's
+// generation (the buffer's header, which shard 0 advances once every
+// shard has posted its done record) in the high word and the
+// exchange's count (by kind) in the low one, so the buffer is zeroed
+// once and never reset. Two records a shard and kind, by the count's
+// parity: a shard cannot post count m + 2 before every shard has read
+// count m, since posting m + 1 needs every CTA of its own shard past
+// reading m (a cluster barrier or its inbox lies between) and posting
+// m + 2 needs every shard's m + 1. Scope .gpu: the shards share one
+// card. A spin that outlasts the budget traps, so a lost record raises
+// in the caller.
+// Layout in int64 words (scan_kernel.exchange_words): a header of 16
+// (word 0 the generation), a done record a shard, then by [parity]
+// [shard] the candidates (sequence, composite, slot, pad), the group
+// maxima (sequence, max) and the zone histograms (sequence, Z int32 in
+// ceil(Z / 2) words).
+struct K7 {
+  unsigned long long* base;
+  int S, shard, zw;
+  long long budget;
+  unsigned long long gen;     // this launch's, in the high word
+
+  __device__ unsigned long long* done(int r) const { return base + 16 + r; }
+  __device__ unsigned long long* cand(int par, int r) const {
+    return base + 16 + S + 4 * (par * S + r);
+  }
+  __device__ unsigned long long* gmax(int par, int r) const {
+    return base + 16 + 9 * S + 2 * (par * S + r);
+  }
+  __device__ unsigned long long* zone(int par, int r) const {
+    return base + 16 + 13 * S + (size_t)(1 + zw) * (par * S + r);
+  }
+  __device__ unsigned long long seq(int m) const {
+    return gen | (unsigned long long)(unsigned)(m + 1);
+  }
+};
+
+__device__ __forceinline__ uint64_t gaddr(const void* p) {
+  return (uint64_t)__cvta_generic_to_global(p);
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+               :: "l"(gaddr(p)), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(gaddr(p)) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed64(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(gaddr(p)), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed64(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(gaddr(p)) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed32(int* p, int v) {
+  asm volatile("st.relaxed.gpu.global.s32 [%0], %1;"
+               :: "l"(gaddr(p)), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int ld_relaxed32(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];"
+               : "=r"(v) : "l"(gaddr(p)) : "memory");
+  return v;
+}
+
+// wait for record `p` to carry sequence `want`; trap past the budget
+__device__ __forceinline__ void k7_wait(const unsigned long long* p,
+                                       unsigned long long want,
+                                       const K7& x) {
+  const long long t0 = clock64();
+  while (ld_acquire(p) != want)
+    if (clock64() - t0 > x.budget) __trap();
+}
+
+// the shards' largest group count, from this shard's `m` (every thread
+// of the CTA calls it; CTA 0's thread 0 posts). -> the max in every
+// thread, through `slot` (this CTA's shared memory, by parity)
+__device__ __forceinline__ int k7_max(const K7& x, int m, int count,
+                                      bool poster, int* slot) {
+  const int par = count & 1, lane = threadIdx.x & 31;
+  if (poster) {
+    unsigned long long* r = x.gmax(par, x.shard);
+    st_relaxed64(r + 1, (unsigned long long)(unsigned)m);
+    st_release(r, x.seq(count));
+  }
+  if ((threadIdx.x >> 5) == 0) {
+    int v = INT_MIN;
+    if (lane < x.S) {
+      const unsigned long long* r = x.gmax(par, lane);
+      k7_wait(r, x.seq(count), x);
+      v = (int)(unsigned)ld_relaxed64(r + 1);
+    }
+    v = warp_max(v);
+    if (lane == 0) slot[par] = v;
+  }
+  __syncthreads();
+  return slot[par];
+}
+
+// the shards' zone histogram into `ztot` (this CTA's shard's sums on
+// entry, complete for every thread of the CTA on return); CTA 0 posts
+__device__ __forceinline__ void k7_zones(const K7& x, int* ztot, int Z,
+                                         int count, bool cta0) {
+  const int par = count & 1, lane = threadIdx.x & 31;
+  if (cta0) {
+    int* w = (int*)(x.zone(par, x.shard) + 1);
+    for (int z = threadIdx.x; z < Z; z += blockDim.x)
+      st_relaxed32(w + z, ztot[z]);
+    __threadfence();
+  }
+  __syncthreads();
+  if (cta0 && threadIdx.x == 0)
+    st_release(x.zone(par, x.shard), x.seq(count));
+  if ((threadIdx.x >> 5) == 0 && lane < x.S) {
+    k7_wait(x.zone(par, lane), x.seq(count), x);
+    __threadfence();
+  }
+  __syncthreads();
+  for (int z = threadIdx.x; z < Z; z += blockDim.x) {
+    int sum = 0;
+    for (int r = 0; r < x.S; ++r)
+      sum += ld_relaxed32((const int*)(x.zone(par, r) + 1) + z);
+    ztot[z] = sum;
+  }
+  __syncthreads();
+}
+
+// the shards' best (composite, slot) from this shard's (c, j), reduced
+// as beats() orders them; `poster` (CTA 0's thread 0) posts unless it
+// withholds. -> in every thread, through `slot_c` / `slot_j`
+template <typename T>
+__device__ __forceinline__ void k7_best(const K7& x, T& c, int& j,
+                                        int count, bool poster,
+                                        bool withhold, long long* slot_c,
+                                        int* slot_j) {
+  const int par = count & 1, lane = threadIdx.x & 31;
+  if (poster && !withhold) {
+    unsigned long long* r = x.cand(par, x.shard);
+    st_relaxed64(r + 1, (unsigned long long)(long long)c);
+    st_relaxed64(r + 2, (unsigned long long)(unsigned)j);
+    st_release(r, x.seq(count));
+  }
+  if ((threadIdx.x >> 5) == 0) {
+    T rc = (T)-1;
+    int rj = INT_MAX;
+    if (lane < x.S) {
+      const unsigned long long* r = x.cand(par, lane);
+      k7_wait(r, x.seq(count), x);
+      rc = (T)(long long)ld_relaxed64(r + 1);
+      rj = (int)(unsigned)ld_relaxed64(r + 2);
+    }
+    warp_best(rc, rj);
+    if (lane == 0) { slot_c[par] = (long long)rc; slot_j[par] = rj; }
+  }
+  __syncthreads();
+  c = (T)slot_c[par];
+  j = slot_j[par];
+}
+
+// K1's body, unsharded (SHARDED false: one cluster over the whole node
+// axis) or as shard `shard` of a mesh (one cluster over the shard's
+// block, with the K7 exchanges after each cluster reduction and `a`'s
+// replicated counts the shard's own copy)
+template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI, bool SHARDED>
+__device__ __forceinline__ void scan_body(const Params<T>& a, int shard) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ Cand inbox[2][SCAN_MAX_CLUSTER];  // the CTAs' best, by parity
   __shared__ __align__(8) uint64_t inbox_bar[2];
@@ -784,6 +999,10 @@ scan_kernel(const Params<T> a) {
   __shared__ long long red_c[32];
   __shared__ int red_j[32];
   __shared__ int red_m[33];
+  // K7's results, by exchange parity
+  __shared__ long long xs_c[SHARDED ? 2 : 1];
+  __shared__ int xs_j[SHARDED ? 2 : 1];
+  __shared__ int xs_m[SHARDED ? 2 : 1];
   cg::cluster_group cl = cg::this_cluster();
   const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -792,10 +1011,24 @@ scan_kernel(const Params<T> a) {
   const int nscore = nthreads - 32;
   const int first = (int)threadIdx.x < nscore ? (int)threadIdx.x : INT_MAX;
   const bool loader = warp == nwarps - 1;
-  const int S = (a.N + C - 1) / C;
-  const int lo = rank * S;
-  const int ns = max(0, min(a.N - lo, S));
+  // the cluster's slots: the whole axis, or the shard's block
+  const int span = SHARDED ? a.shard_block : a.N;
+  const int S = (span + C - 1) / C;
+  const int lo = (SHARDED ? shard * a.shard_block : 0) + rank * S;
+  const int ns = max(0, min(span - rank * S, S));
   const int E = pod_words<T, HAS_SPREAD, HAS_AFF, ANTI>(a);
+  // the CTA that writes the assignment and posts the shard's records
+  const bool head = rank == 0 && (!SHARDED || shard == 0);
+  K7 x;
+  if constexpr (SHARDED) {
+    x.base = a.xchg;
+    x.S = a.shards;
+    x.shard = shard;
+    x.zw = (a.Z + 1) / 2;
+    x.budget = a.budget > 0 ? a.budget : K7_BUDGET;
+    x.gen = (ld_relaxed64(a.xchg) + 1) << 32;
+  }
+  const bool poster = SHARDED && rank == 0 && threadIdx.x == 0;
 
   SharedSlots<T> s;
   uint32_t* ring = (uint32_t*)carve(s, smem, S, a.L, a.PW, a.K);
@@ -828,7 +1061,7 @@ scan_kernel(const Params<T> a) {
       for (int e = lane; e < E; e += 32)
         next[e] = pod_word<T, HAS_SPREAD, HAS_AFF, ANTI>(a, k + 1, e);
     if (!p.valid) {                 // padded pods commit nothing
-      if (rank == 0 && threadIdx.x == 0) a.assigned[k] = -1;
+      if (head && threadIdx.x == 0) a.assigned[k] = -1;
       __syncthreads();
       continue;
     }
@@ -842,8 +1075,9 @@ scan_kernel(const Params<T> a) {
       m = block_max(m, red_m);
       if (threadIdx.x == 0) gmax[n_max & 1] = m;
       cl.sync();
-      p.maxc = max(cluster_read_max(cl, &gmax[n_max & 1]),
-                   a.offgrid_max[p.gid]);
+      m = cluster_read_max(cl, &gmax[n_max & 1]);
+      if constexpr (SHARDED) m = k7_max(x, m, n_max, poster, xs_m);
+      p.maxc = max(m, a.offgrid_max[p.gid]);
       ++n_max;
     }
 
@@ -860,6 +1094,7 @@ scan_kernel(const Params<T> a) {
     } else {
       // ServiceAntiAffinity needs the whole mask first: the zone
       // histogram of this CTA's fitting slots, summed over the cluster
+      // (and over the shards)
       int* zl = zloc + (n_zone & 1) * a.Z;
       for (int i = first; i < ns; i += nscore) {
         const int n = lo + i;
@@ -872,6 +1107,7 @@ scan_kernel(const Params<T> a) {
       }
       cl.sync();
       cluster_sum_zones(cl, zl, ztot, a.Z);
+      if constexpr (SHARDED) k7_zones(x, ztot, a.Z, n_zone, rank == 0);
       p.zones = ztot;
       for (int i = first; i < ns; i += nscore) {
         const int n = lo + i;
@@ -905,6 +1141,9 @@ scan_kernel(const Params<T> a) {
       best = c;
       best_j = j;
     }
+    if constexpr (SHARDED)
+      k7_best(x, best, best_j, n_cand, poster,
+              a.withhold == shard && n_cand == 0, xs_c, xs_j);
     ++n_cand;
     if (ANTI)   // every CTA read this use's partials before it pushed
       for (int z = threadIdx.x; z < a.Z; z += nthreads)
@@ -926,7 +1165,8 @@ scan_kernel(const Params<T> a) {
             a.svc_count[(size_t)g * a.N + j] += p.svc_member[g];
       }
       if ((HAS_AFF || ANTI) && rank == 0) {
-        // the counts every CTA reads: CTA 0 commits them
+        // the counts every CTA reads: CTA 0 commits them (each shard's
+        // CTA 0 into the shard's own copy)
         if (HAS_AFF)
           for (int t = threadIdx.x; t < a.NT; t += nthreads) {
             const int add = p.terms[2 * a.NT + t];
@@ -939,13 +1179,60 @@ scan_kernel(const Params<T> a) {
             a.svc_total[g] += p.svc_member[g];
       }
     }
-    if (rank == 0 && threadIdx.x == 0) a.assigned[k] = best >= 0 ? best_j : -1;
+    if (head && threadIdx.x == 0) a.assigned[k] = best >= 0 ? best_j : -1;
     if ((HAS_AFF || ANTI) && best >= 0) cl.sync();   // publish CTA 0's
   }
 
   // the State back, once
   for (int i = first; i < ns; i += nscore) store_slot(a, s, i, lo + i);
   cl.sync();                        // no CTA leaves while read remotely
+  if constexpr (SHARDED) {
+    // done: shard 0 advances the generation once every shard is past
+    // its last read of the buffer (and of its header)
+    if (poster) {
+      st_release(x.done(shard), x.gen);
+      if (shard == 0) {
+        for (int r = 0; r < x.S; ++r) k7_wait(x.done(r), x.gen, x);
+        st_relaxed64(a.xchg, x.gen >> 32);
+      }
+    }
+  }
+}
+
+template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
+__global__ void __launch_bounds__(SCAN_BLOCK_THREADS, 1)
+scan_kernel(const Params<T> a) {
+  scan_body<T, HAS_SPREAD, HAS_AFF, ANTI, false>(a, 0);
+}
+
+// the sharded K1: a cluster a shard, the grid's clusters shards 0, 1,
+// ...; shard k > 0 reads and commits the replicated counts in its own
+// row of `replica`, copied from the State's (shard 0's) at the start:
+// shard 0 commits nothing before every shard has posted its first
+// record, which it does after its copy
+template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
+__global__ void __launch_bounds__(SCAN_BLOCK_THREADS, 1)
+scan_sharded_kernel(const Params<T> a0) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int shard = (int)(blockIdx.x / cl.num_blocks());
+  Params<T> a = a0;
+  if (shard > 0) {
+    const int td = a0.NT * a0.D;
+    int* row = a0.replica + (size_t)(shard - 1) * (td + a0.NT + a0.S);
+    a.aff_count = row;
+    a.aff_total = row + td;
+    a.svc_total = row + td + a0.NT;
+    if (cl.block_rank() == 0) {
+      // the body's first cluster barrier publishes the copy
+      for (int i = threadIdx.x; i < td; i += blockDim.x)
+        row[i] = a0.aff_count[i];
+      for (int i = threadIdx.x; i < a0.NT; i += blockDim.x)
+        row[td + i] = a0.aff_total[i];
+      for (int i = threadIdx.x; i < a0.S; i += blockDim.x)
+        row[td + a0.NT + i] = a0.svc_total[i];
+    }
+  }
+  scan_body<T, HAS_SPREAD, HAS_AFF, ANTI, true>(a, shard);
 }
 
 // K5, one block a pod (the batch shape): the group max first, then the
@@ -1407,21 +1694,25 @@ static Params<T> unpack(const long long* d, const unsigned long long* q) {
   a.work_mask = P_(PTR_WORK_MASK, uint8_t*);
   a.spec_nodes = P_(PTR_SPEC_NODES, int*);
 #undef P_
+  a.shards = 0; a.shard_block = 0; a.withhold = -1;
+  a.budget = 0; a.xchg = nullptr; a.replica = nullptr;
   return a;
 }
 
 // bytes of dynamic shared memory each kernel needs (scan_kernel.py
-// shared_bytes): K1 its slots, the ring of three pod rows and the zone
+// shared_bytes): K1 its slots (a cluster over `slots` of them: the
+// axis, or a shard's block), the ring of three pod rows and the zone
 // partials and sums; K5 one pod row and the zone histogram (on a
 // cluster, its CTA's part and the pod's sum)
 template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
-static long long need_bytes(int kind, const long long* d, int cluster) {
+static long long need_bytes(int kind, const long long* d, int cluster,
+                            long long slots) {
   const long long W = sizeof(T) / 4;
   const long long E = 5 + 4 * W + d[DIM_L] + d[DIM_PW] + 4 * d[DIM_K]
                       + (HAS_AFF ? 3 * d[DIM_T] : 0)
                       + (HAS_SPREAD ? d[DIM_G] : 0) + (ANTI ? d[DIM_S] : 0);
   if (kind == 1) return 4 * (E + (cluster > 1 ? 2 : 1) * d[DIM_Z]);
-  const long long S = (d[DIM_N] + cluster - 1) / cluster;
+  const long long S = (slots + cluster - 1) / cluster;
   return S * slot_bytes<T>(d[DIM_L], d[DIM_PW], d[DIM_K])
          + 4 * (3 * E + 3 * d[DIM_Z]);
 }
@@ -1463,19 +1754,53 @@ static cudaLaunchConfig_t cluster_config(int grid, int cluster, int threads,
 // op 0: launch K1 (one cluster of `cluster` CTAs); op 1: launch K5 (a
 // cluster of `cluster` CTAs a pod); ops 2 and 3: the number of K1's, K5's
 // clusters of that shape the card can hold at once, into *count (no
-// launch)
+// launch); op 4: launch the sharded K1 (a cluster a shard, `sh` its
+// shard arguments); op 5: the sharded K1's count, as ops 2 and 3
 template <typename T, bool HAS_SPREAD, bool HAS_AFF, bool ANTI>
 static cudaError_t dispatch(int op, int cluster, int threads, size_t smem,
                             const long long* dims,
                             const unsigned long long* ptrs,
-                            cudaStream_t stream, int* count) {
+                            const long long* sh, cudaStream_t stream,
+                            int* count) {
   const int kind = op == 1 || op == 3 ? 1 : 0;
-  if (op < 2 && (long long)smem < need_bytes<T, HAS_SPREAD, HAS_AFF, ANTI>(
-                                      kind, dims, cluster))
+  if ((op == 0 || op == 1)
+      && (long long)smem < need_bytes<T, HAS_SPREAD, HAS_AFF, ANTI>(
+                               kind, dims, cluster, dims[DIM_N]))
     return cudaErrorInvalidValue;
-  static long long set[3] = {-1, -1, -1};   // K1's, K5's two kernels'
+  static long long set[4] = {-1, -1, -1, -1};   // K1's, K5's two, sharded
   cudaError_t err;
   cudaLaunchAttribute attr;
+  if (op == 4 || op == 5) {
+    auto kernel = scan_sharded_kernel<T, HAS_SPREAD, HAS_AFF, ANTI>;
+    err = set_attributes(kernel, smem, true, &set[3]);
+    if (err != cudaSuccess) return err;
+    if (op == 5) {
+      cudaLaunchConfig_t cfg = cluster_config(cluster, cluster, threads,
+                                              smem, nullptr, &attr);
+      return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
+    }
+    Params<T> a = unpack<T>(dims, ptrs);
+    const long long S = sh[SHARD_SHARDS], B = sh[SHARD_BLOCK];
+    const long long zw = (a.Z + 1) / 2;
+    if (S < 1 || S > K7_MAX_SHARDS || B < 1 || B * S != a.N
+        || sh[SHARD_XCHG] == 0 || (S > 1 && sh[SHARD_REPLICA] == 0)
+        || sh[SHARD_XWORDS] < 16 + S + 2 * S * (7 + zw)
+        || (long long)smem < need_bytes<T, HAS_SPREAD, HAS_AFF, ANTI>(
+                                 0, dims, cluster, B))
+      return cudaErrorInvalidValue;
+    a.shards = (int)S;
+    a.shard_block = (int)B;
+    a.budget = sh[SHARD_BUDGET];
+    a.withhold = (int)sh[SHARD_WITHHOLD];
+    a.xchg = (unsigned long long*)(uintptr_t)sh[SHARD_XCHG];
+    a.replica = (int*)(uintptr_t)sh[SHARD_REPLICA];
+    cudaLaunchConfig_t cfg = cluster_config((int)S * cluster, cluster,
+                                            threads, smem, stream, &attr);
+    // a refused launch also leaves its error as the last one: clear it
+    err = cudaLaunchKernelEx(&cfg, kernel, (const Params<T>)a);
+    const cudaError_t last = cudaGetLastError();
+    return err != cudaSuccess ? err : last;
+  }
   if (kind == 1) {
     if (!HAS_SPREAD) return cudaErrorInvalidValue;   // probes score spread
     if (cluster == 1) {             // one block a pod
@@ -1523,24 +1848,25 @@ static cudaError_t dispatch(int op, int cluster, int threads, size_t smem,
 
 static int by_variant(int op, int variant, int cluster, int threads,
                       size_t b, const long long* d,
-                      const unsigned long long* q, cudaStream_t s, int* n) {
+                      const unsigned long long* q, const long long* h,
+                      cudaStream_t s, int* n) {
   switch (variant) {
-    case 0: return (int)dispatch<int32_t, false, false, false>(op, cluster, threads, b, d, q, s, n);
-    case 1: return (int)dispatch<int32_t, false, false, true>(op, cluster, threads, b, d, q, s, n);
-    case 2: return (int)dispatch<int32_t, false, true, false>(op, cluster, threads, b, d, q, s, n);
-    case 3: return (int)dispatch<int32_t, false, true, true>(op, cluster, threads, b, d, q, s, n);
-    case 4: return (int)dispatch<int32_t, true, false, false>(op, cluster, threads, b, d, q, s, n);
-    case 5: return (int)dispatch<int32_t, true, false, true>(op, cluster, threads, b, d, q, s, n);
-    case 6: return (int)dispatch<int32_t, true, true, false>(op, cluster, threads, b, d, q, s, n);
-    case 7: return (int)dispatch<int32_t, true, true, true>(op, cluster, threads, b, d, q, s, n);
-    case 8: return (int)dispatch<int64_t, false, false, false>(op, cluster, threads, b, d, q, s, n);
-    case 9: return (int)dispatch<int64_t, false, false, true>(op, cluster, threads, b, d, q, s, n);
-    case 10: return (int)dispatch<int64_t, false, true, false>(op, cluster, threads, b, d, q, s, n);
-    case 11: return (int)dispatch<int64_t, false, true, true>(op, cluster, threads, b, d, q, s, n);
-    case 12: return (int)dispatch<int64_t, true, false, false>(op, cluster, threads, b, d, q, s, n);
-    case 13: return (int)dispatch<int64_t, true, false, true>(op, cluster, threads, b, d, q, s, n);
-    case 14: return (int)dispatch<int64_t, true, true, false>(op, cluster, threads, b, d, q, s, n);
-    case 15: return (int)dispatch<int64_t, true, true, true>(op, cluster, threads, b, d, q, s, n);
+    case 0: return (int)dispatch<int32_t, false, false, false>(op, cluster, threads, b, d, q, h, s, n);
+    case 1: return (int)dispatch<int32_t, false, false, true>(op, cluster, threads, b, d, q, h, s, n);
+    case 2: return (int)dispatch<int32_t, false, true, false>(op, cluster, threads, b, d, q, h, s, n);
+    case 3: return (int)dispatch<int32_t, false, true, true>(op, cluster, threads, b, d, q, h, s, n);
+    case 4: return (int)dispatch<int32_t, true, false, false>(op, cluster, threads, b, d, q, h, s, n);
+    case 5: return (int)dispatch<int32_t, true, false, true>(op, cluster, threads, b, d, q, h, s, n);
+    case 6: return (int)dispatch<int32_t, true, true, false>(op, cluster, threads, b, d, q, h, s, n);
+    case 7: return (int)dispatch<int32_t, true, true, true>(op, cluster, threads, b, d, q, h, s, n);
+    case 8: return (int)dispatch<int64_t, false, false, false>(op, cluster, threads, b, d, q, h, s, n);
+    case 9: return (int)dispatch<int64_t, false, false, true>(op, cluster, threads, b, d, q, h, s, n);
+    case 10: return (int)dispatch<int64_t, false, true, false>(op, cluster, threads, b, d, q, h, s, n);
+    case 11: return (int)dispatch<int64_t, false, true, true>(op, cluster, threads, b, d, q, h, s, n);
+    case 12: return (int)dispatch<int64_t, true, false, false>(op, cluster, threads, b, d, q, h, s, n);
+    case 13: return (int)dispatch<int64_t, true, false, true>(op, cluster, threads, b, d, q, h, s, n);
+    case 14: return (int)dispatch<int64_t, true, true, false>(op, cluster, threads, b, d, q, h, s, n);
+    case 15: return (int)dispatch<int64_t, true, true, true>(op, cluster, threads, b, d, q, h, s, n);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1556,22 +1882,40 @@ extern "C" int scan_launch(int kind, int variant, int cluster, int threads,
       || cluster < 1 || smem < 0 || smem > SCAN_MAX_SHARED_BYTES)
     return (int)cudaErrorInvalidValue;
   return by_variant(kind, variant, cluster, threads, (size_t)smem, dims,
-                    ptrs, (cudaStream_t)stream, nullptr);
+                    ptrs, nullptr, (cudaStream_t)stream, nullptr);
+}
+
+// the sharded K1 (K7 inside): clusters of `cluster` CTAs for shards
+// shard[SHARD_FIRST] .. + shard[SHARD_RUN] - 1 of a mesh of
+// shard[SHARD_SHARDS] (enum ShardArg); variant as scan_launch's. Every
+// shard's cluster must be resident at once: scan_max_clusters with bit
+// 5 of its variant set says how many the card holds
+// (scan_kernel.launch_plan(..., shards=) checks before it launches).
+extern "C" int shard_launch(int variant, int cluster, int threads,
+                            long long smem, const long long* dims,
+                            const unsigned long long* ptrs,
+                            const long long* shard, void* stream) {
+  if (dims[DIM_P] <= 0 || dims[DIM_N] <= 0 || cluster < 1 || smem < 0
+      || smem > SCAN_MAX_SHARED_BYTES)
+    return (int)cudaErrorInvalidValue;
+  return by_variant(4, variant, cluster, threads, (size_t)smem, dims, ptrs,
+                    shard, (cudaStream_t)stream, nullptr);
 }
 
 // how many clusters of `cluster` CTAs of `threads` threads and `smem`
 // bytes of dynamic shared memory each the card can run at once for the
-// instantiation `variant` of K1, or of K5 with bit 4 of `variant` set
-// (cudaOccupancyMaxActiveClusters): 0 when it cannot schedule one. ->
-// the CUDA error code.
+// instantiation `variant` of K1, of K5 with bit 4 of `variant` set, or
+// of the sharded K1 with bit 5 set (cudaOccupancyMaxActiveClusters): 0
+// when it cannot schedule one. -> the CUDA error code.
 extern "C" int scan_max_clusters(int variant, int cluster, int threads,
                                  long long smem, int* count) {
   *count = 0;
   if (cluster < 1 || smem < 0 || smem > SCAN_MAX_SHARED_BYTES
-      || variant < 0 || variant > 31)
+      || variant < 0 || variant > 63 || (variant & 48) == 48)
     return (int)cudaErrorInvalidValue;
-  return by_variant(variant & 16 ? 3 : 2, variant & 15, cluster, threads,
-                    (size_t)smem, nullptr, nullptr, nullptr, count);
+  const int op = variant & 32 ? 5 : variant & 16 ? 3 : 2;
+  return by_variant(op, variant & 15, cluster, threads, (size_t)smem,
+                    nullptr, nullptr, nullptr, nullptr, count);
 }
 
 // K6: kind 0 launches the pass (K6a) over pods [k0, k0 + count), a block

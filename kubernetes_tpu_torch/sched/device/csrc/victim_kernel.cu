@@ -93,6 +93,10 @@ struct VictimParams {
   int64_t* block_score;   // [gridDim.x] scratch
   int64_t* block_index;   // [gridDim.x] scratch
   unsigned int* done;     // [1], zero before the launch and after it
+  // the sharded search: shards, rows a shard, the shards' winners
+  int shards, B;
+  int64_t* shard_score;   // [shards] scratch
+  int64_t* shard_index;   // [shards] scratch
 };
 
 // int64 addition that wraps as the tensors' does
@@ -277,6 +281,122 @@ victim_kernel(const VictimParams a) {
   }
 }
 
+// The sharded search (K4 over a node-axis mesh, the JAX engine's
+// find_victims under a mesh: kstar and score split by row, pick
+// reduced across the shards): the grid is `shards` runs of the same
+// number of blocks, run k over the rows [k * B, min(N, (k + 1) * B)).
+// Each block posts its winner as above; the last block of a shard to
+// finish (its own counter, done[1 + k]) reduces the shard's blocks and
+// posts the shard's winner, and the last shard to finish (done[0])
+// reduces the shards' winners (K7) and writes pick. Every counter is
+// set back to 0 by the block that read it last.
+__device__ __forceinline__ bool count_done(unsigned int* counter,
+                                           unsigned int total) {
+  unsigned prev;
+  asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;"
+               : "=r"(prev) : "l"(counter) : "memory");
+  return prev == total - 1;
+}
+
+__global__ void __launch_bounds__(VICTIM_BLOCK_THREADS)
+victim_sharded_kernel(const VictimParams a) {
+  const int G = a.G;
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (G - 1), base = lane & ~(G - 1);
+  const int per = (int)gridDim.x / a.shards;
+  const int shard = (int)blockIdx.x / per, local = (int)blockIdx.x % per;
+  const int lo = shard * a.B;
+  const int hi = min(a.N, lo + a.B);
+  const int j = lo + (int)((local * blockDim.x + threadIdx.x) >> 5)
+                         * (32 / G) + base / G;
+  const bool act = j < hi;
+  int64_t ks, sc;
+  search_node(a, j, act, g, base, ks, sc);
+  __shared__ bool last;
+  int64_t best = LLONG_MIN;
+  int best_j = INT_MAX;
+  if (act && g == 0) { best = sc; best_j = j; }
+  block_best(best, best_j);
+  if (threadIdx.x == 0) {
+    a.block_score[blockIdx.x] = best;
+    a.block_index[blockIdx.x] = best_j;
+    last = count_done(a.done + 1 + shard, per);
+  }
+  if (act && g == 0) {    // after the count: its release orders none
+    a.kstar[j] = ks;
+    a.score[j] = sc;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the shard's winner over its blocks
+  best = LLONG_MIN;
+  best_j = INT_MAX;
+  for (int b = threadIdx.x; b < per; b += blockDim.x) {
+    const int64_t s = __ldcg(a.block_score + shard * per + b);
+    const int i = (int)__ldcg(a.block_index + shard * per + b);
+    if (beats(s, i, best, best_j)) { best = s; best_j = i; }
+  }
+  block_best(best, best_j);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    a.done[1 + shard] = 0;
+    a.shard_score[shard] = best;
+    a.shard_index[shard] = best_j;
+    last = count_done(a.done, a.shards);
+  }
+  __syncthreads();
+  if (!last) return;
+  // the mesh's winner over the shards' (K7)
+  best = LLONG_MIN;
+  best_j = INT_MAX;
+  for (int r = threadIdx.x; r < a.shards; r += blockDim.x) {
+    const int64_t s = __ldcg(a.shard_score + r);
+    const int i = (int)__ldcg(a.shard_index + r);
+    if (beats(s, i, best, best_j)) { best = s; best_j = i; }
+  }
+  block_best(best, best_j);
+  if (threadIdx.x == 0) {
+    a.done[0] = 0;
+    a.pick[0] = best_j;
+  }
+}
+
+// the sharded search: `shards` runs of grid / shards blocks, `B` rows a
+// shard (the last may hold fewer); the output buffer as
+// victim_search_launch's, then shard_score and shard_index [shards];
+// `done` holds 1 + shards counters
+extern "C" int victim_sharded_launch(
+    int grid, int threads, int group, int shards, int B, int N, int V,
+    const void* cand, const void* cpu_cap, const void* mem_cap,
+    const void* pod_cap, const void* cpu_used, const void* mem_used,
+    const void* pod_count, const void* tie_rank, const void* v_prio,
+    const void* v_cpu, const void* v_mem, const void* v_valid,
+    long long prio, long long req_cpu, long long req_mem, int zero_req,
+    void* out, void* done, void* stream) {
+  if (N <= 0 || V < 0 || grid <= 0 || shards < 1 || grid % shards != 0
+      || B < 1 || (long long)B * shards < N || group < 1 || group > 32
+      || (group & (group - 1)) != 0
+      || (long long)(grid / shards) * threads < (long long)B * group)
+    return (int)cudaErrorInvalidValue;
+  int64_t* o = (int64_t*)out;
+  int64_t* blocks = o + 1 + 2 * (size_t)N;
+  VictimParams a = {
+      N, V, group, (const uint8_t*)cand, (const int64_t*)cpu_cap,
+      (const int64_t*)mem_cap, (const int64_t*)pod_cap,
+      (const int64_t*)cpu_used, (const int64_t*)mem_used,
+      (const int64_t*)pod_count, (const int64_t*)tie_rank,
+      (const int64_t*)v_prio, (const int64_t*)v_cpu, (const int64_t*)v_mem,
+      (const uint8_t*)v_valid, (int64_t)prio, (int64_t)req_cpu,
+      (int64_t)req_mem, zero_req, o, o + 1, o + 1 + N, blocks,
+      blocks + grid, (unsigned int*)done};
+  a.shards = shards;
+  a.B = B;
+  a.shard_score = blocks + 2 * (size_t)grid;
+  a.shard_index = a.shard_score + shards;
+  victim_sharded_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // group: lanes a node (a power of two, 1..32); the grid's groups must
 // cover the N nodes. The outputs and scratch are one int64 buffer:
 // pick, kstar [N], score [N], block_score and block_index [grid].
@@ -301,7 +421,8 @@ extern "C" int victim_search_launch(
       (const int64_t*)v_prio, (const int64_t*)v_cpu, (const int64_t*)v_mem,
       (const uint8_t*)v_valid, (int64_t)prio, (int64_t)req_cpu,
       (int64_t)req_mem, zero_req, o, o + 1, o + 1 + N, o + 1 + 2 * (size_t)N,
-      o + 1 + 2 * (size_t)N + grid, (unsigned int*)done};
+      o + 1 + 2 * (size_t)N + grid, (unsigned int*)done,
+      0, 0, nullptr, nullptr};
   victim_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

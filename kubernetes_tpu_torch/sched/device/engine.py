@@ -55,6 +55,7 @@ import torch
 from ..preemption import OracleResult
 from . import (filter_kernel, scan_kernel, scatter_kernel, spec_kernel,
                victim_kernel)
+from .mesh import NodeMesh
 from .tables import ClusterSnapshot, EncodeResult, encode_snapshot
 
 DEFAULT_WEIGHTS = (1, 1, 1)  # LeastRequested, Balanced, SelectorSpread
@@ -273,12 +274,28 @@ class PendingAssignment:
 
 class BatchEngine:
     """Batch scheduler on one device. `device=None` means the card; the
-    tests pass device="cpu"."""
+    tests pass device="cpu".
+
+    `mesh` (a NodeMesh) splits the node axis into mesh.size blocks, as
+    the JAX engine's `mesh=` does: the scan runs as the sharded K1 (a
+    cluster a shard, the cross-shard reductions inside it, K7) and the
+    victim search as the sharded K4; on a CPU mesh their plain versions
+    run shard by shard. The node axis must be a multiple of the mesh
+    size (`schedule` pads it; the incremental encoder rounds its
+    capacity with `mesh_devices=engine.n_shards`). A one-shard mesh runs
+    the unsharded kernels, the same function. The shards share the
+    mesh's one device: a mesh over several cards is refused here (its
+    per-card placement and launches are not written; ROADMAP.md)."""
 
     def __init__(self, weights: Tuple[int, int, int] = DEFAULT_WEIGHTS,
                  policy=None, device=None,
-                 speculative: Optional[bool] = None):
-        self.device = resolve_device(device)
+                 speculative: Optional[bool] = None,
+                 mesh: Optional[NodeMesh] = None):
+        self.device = self._mesh_device(mesh, device)
+        self.mesh = mesh
+        # the sharded scan's replicas and exchange buffer, by shape
+        # (scan_kernel.ShardSpace), kept from launch to launch
+        self.shard_spaces = {}
         self.weights = tuple(int(w) for w in weights)
         self.policy = policy
         self._anti_weight = (policy.anti_affinity_weight
@@ -327,11 +344,26 @@ class BatchEngine:
                              "pull_s": 0.0, "upload_ms": 0.0,
                              "kernel_ms": 0.0}
 
+    @staticmethod
+    def _mesh_device(mesh: Optional[NodeMesh], device) -> torch.device:
+        if mesh is None:
+            return resolve_device(device)
+        if not mesh.one_device:
+            raise NotImplementedError(
+                f"BatchEngine: {mesh} spans several devices; the engine "
+                f"places a mesh's tables on one device (ROADMAP.md)")
+        if device is not None and torch.device(device).type \
+                != mesh.device.type:
+            raise ValueError(f"BatchEngine: device={device} is not the "
+                             f"mesh's {mesh.device}")
+        return mesh.device
+
     @property
     def speculative(self) -> bool:
-        """Whether eligible chunks take the speculative engine (the port
-        has no mesh, under which the JAX engine turns it off)."""
-        return bool(self._speculative)
+        """Whether eligible chunks take the speculative engine: never
+        under a mesh (the JAX engine's rule: its repair would gather
+        across shards)."""
+        return self.mesh is None and bool(self._speculative)
 
     def _spec_route(self, has_aff: bool) -> bool:
         """The JAX engine's route (`_get_run`): the speculative engine
@@ -342,8 +374,32 @@ class BatchEngine:
 
     @property
     def n_shards(self) -> int:
-        """Devices the node axis is split over: one (no mesh yet)."""
-        return 1
+        """Shards the node axis is split over (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.size
+
+    def reshard(self, mesh: Optional[NodeMesh]) -> None:
+        """Rebuild the engine over a survivor mesh after a shard owner
+        died (sched/device/shardfail.py): the table mirror's rows lie on
+        the old block partition and the shard spaces are sized for the
+        old mesh, so both drop; the next dispatch reseeds the mirror
+        with one full upload, the journal replay landing every row on
+        its new owner. The survivors stay on the engine's device."""
+        if mesh is not None and self._mesh_device(mesh, None) != self.device:
+            raise ValueError(f"BatchEngine.reshard: {mesh} is not on the "
+                             f"engine's {self.device}")
+        self.mesh = mesh
+        self._table_cache = None
+        self.shard_spaces = {}
+
+    def _space(self, args: scan_kernel.ScanArgs) -> scan_kernel.ShardSpace:
+        """The shard space of this mesh and these sizes (made once)."""
+        d = args.dims()
+        key = (self.n_shards,) + tuple(d[k] for k in ("t", "d", "s", "z"))
+        space = self.shard_spaces.get(key)
+        if space is None:
+            space = scan_kernel.ShardSpace(self.n_shards, d, self.device)
+            self.shard_spaces[key] = space
+        return space
 
     @staticmethod
     def _enc_flags(enc: EncodeResult) -> Tuple[bool, bool]:
@@ -578,6 +634,10 @@ class BatchEngine:
         if spec:
             out = spec_kernel.spec_chunk(args, self.weights, has_spread)
             self.scan_stats["spec_chunks"] += 1
+        elif self.n_shards > 1:
+            out = scan_kernel.scan_chunk_sharded(
+                args, self.weights, self._anti_weight, has_aff, has_spread,
+                self._space(args))
         else:
             out = scan_kernel.scan_chunk(args, self.weights,
                                          self._anti_weight, has_aff,
@@ -615,9 +675,11 @@ class BatchEngine:
         state (the extender Filter verb). The all-integer predicate tier
         runs as the hand-written filter kernel when the encoding
         qualifies (i32-narrowed, no affinity terms, no policy — see
-        filter_kernel.supports); anything else takes the probe. A kernel
-        that fails raises."""
-        if self.policy is None and filter_kernel.supports(enc):
+        filter_kernel.supports) and there is no mesh (the JAX engine's
+        rule); anything else takes the probe. A kernel that fails
+        raises."""
+        if self.mesh is None and self.policy is None \
+                and filter_kernel.supports(enc):
             node, state, pods = self.device_args(enc)
             mask = filter_kernel.filter_masks(
                 filter_kernel.FilterArgs.from_engine(node, state, pods))
@@ -716,11 +778,12 @@ class BatchEngine:
 
     def find_victims(self, table) -> OracleResult:
         """Run the preemption victim search for one VictimTable
-        (incremental.victim_table) through the victim kernel. Returns an
-        OracleResult whose fields must be bit-equal to
-        sched.preemption.oracle_find_victims(table) at every shape. One
-        upload of the packed table, one launch, one pull of pick, kstar
-        and score together. A refused launch raises."""
+        (incremental.victim_table) through the victim kernel (the
+        sharded K4 under a mesh). Returns an OracleResult whose fields
+        must be bit-equal to sched.preemption.oracle_find_victims(table)
+        at every shape. One upload of the packed table, one launch, one
+        pull of pick, kstar and score together. A refused launch
+        raises."""
         stats = self.victim_stats
         events = None
         if self.device.type == "cuda":
@@ -735,7 +798,10 @@ class BatchEngine:
         t1 = time.monotonic()
         if events:
             events[1].record()
-        res = victim_kernel.victim_search(args)
+        if self.n_shards == 1:
+            res = victim_kernel.victim_search(args)
+        else:
+            res = victim_kernel.victim_search_sharded(args, self.n_shards)
         if events:
             events[2].record()
         t2 = time.monotonic()
@@ -760,8 +826,8 @@ class BatchEngine:
                  chunk: Optional[int] = None
                  ) -> Tuple[List[Optional[str]], EncodeResult]:
         """Encode + run + decode: one host name (or None) per pending pod."""
-        enc = encode_snapshot(snap, pod_pad_to=pod_pad_to,
-                              policy=self.policy)
+        enc = encode_snapshot(snap, node_pad_to=self.n_shards,
+                              pod_pad_to=pod_pad_to, policy=self.policy)
         if chunk:
             assigned, _ = self.run_chunked(enc, chunk)
         else:
@@ -775,7 +841,8 @@ class BatchEngine:
 
 def schedule_batch(snap: ClusterSnapshot,
                    weights: Tuple[int, int, int] = DEFAULT_WEIGHTS,
-                   policy=None, device=None) -> List[Optional[str]]:
+                   policy=None, device=None,
+                   mesh: Optional[NodeMesh] = None) -> List[Optional[str]]:
     """One-shot helper (tests, extender sidecar)."""
-    return BatchEngine(weights, policy=policy, device=device).schedule(
-        snap)[0]
+    return BatchEngine(weights, policy=policy, device=device,
+                       mesh=mesh).schedule(snap)[0]

@@ -42,6 +42,16 @@ instructions an element). K1 runs on C SMs of the card's 132, so it is
 read against that bound and the launch floor as it is: the pods are a
 chain.
 
+Under a node-axis mesh (`mesh.NodeMesh`, the JAX engine's `_get_run`
+with `_node_shardings`) the scan runs as the sharded K1,
+`scan_chunk_sharded(a, ..., ShardSpace(S, a.dims(), device))`: a
+cluster a shard over its block of slots, all S clusters in one launch
+and resident at once, each pod's cross-shard reductions (K7: the
+group max, the zone histogram, the best candidate) exchanged as
+sequence-numbered records in the ShardSpace's buffer; shards 1..S-1
+keep their own copies of the replicated counts there. Its plain twin
+`scan_chunk_sharded_plain` runs the same shard by shard.
+
 On CPU tensors the wrappers compute the plain versions,
 `scan_chunk_plain` (the per-pod loop of tensor ops the port ran before
 the kernel) and `probe_plain` (the batch in blocks of PROBE_BLOCK pods,
@@ -58,6 +68,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .mesh import NODE_SPLIT, STATE_SPLIT, block_view
+# the State counts every shard holds whole and commits alike
+from .mesh import STATE_REPLICATED as REPLICATED
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "scan_kernel.cu")
@@ -101,6 +115,21 @@ _STATE_PTRS = PTR_FIELDS[16:29]
 _POD_RENAMED = {"valid": "pod_valid", "nz_cpu": "pod_nz_cpu",
                 "nz_mem": "pod_nz_mem"}
 SCAN, PROBE = 0, 1         # scan_launch's `kind`
+SHARDED = 2                # LaunchPlan.kind of the sharded K1 (shard_launch)
+# bit of the instantiation code that asks scan_max_clusters about the
+# sharded K1
+SHARD_CODE = 32
+# the order of shard_launch's shard arguments (enum ShardArg in the
+# source): the mesh's shards, the slots a shard owns, the spin budget in
+# cycles (0: the kernel's default), the shard that withholds its first
+# candidate record (-1: none; a check that the kernel raises rather than
+# hangs), the exchange buffer's int64 words, and the addresses of that
+# buffer and of the replicas
+SHARD_FIELDS = ("shards", "block", "budget", "withhold", "xwords", "xchg",
+                "replica")
+# the most shards the sharded K1 takes: a warp's lanes read the shards'
+# records (K7_MAX_SHARDS in the source)
+MAX_SHARDS = 32
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +199,8 @@ def mask_and_score(node, aux: NodeAux, weights: Tuple[int, int, int],
                    anti_weight: int, state, pod, has_aff: bool = True,
                    has_spread: bool = True,
                    iota: Optional[torch.Tensor] = None,
-                   spread_max_override: Optional[torch.Tensor] = None
+                   spread_max_override: Optional[torch.Tensor] = None,
+                   zones_override: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Predicate mask + priority totals for a block of B pods, each
     against the same `state`: -> (bool[B, N], total[B, N]).
@@ -185,7 +215,11 @@ def mask_and_score(node, aux: NodeAux, weights: Tuple[int, int, int],
     `spread_max_override` (i32[G]) the spread group's max count: the
     speculative repair (spec_kernel) rescores a GATHERED lane set, where
     lane i is node iota[i] and the lanes' own max is not the group's
-    (JAX `_mask_and_score`'s two arguments of the same names)."""
+    (JAX `_mask_and_score`'s two arguments of the same names).
+    `zones_override` (i32[B, Z]) is the pods' ServiceAntiAffinity zone
+    histogram in place of the one over these lanes: a shard of the
+    sharded scan scores its block against the histogram summed over
+    every shard (scan_chunk_sharded_plain)."""
     sdt = node.cpu_cap.dtype
     if iota is None:
         iota = aux.iota
@@ -279,11 +313,8 @@ def mask_and_score(node, aux: NodeAux, weights: Tuple[int, int, int],
         # nodes that passed THIS pod's predicates (the zone reduction
         # happens under `mask`)
         g = torch.clamp(pod.svc_group, min=0).long()                 # [B]
-        row = state.svc_count.index_select(0, g)                     # [B, N]
-        contrib = torch.where(mask & aux.labeled, row, 0)
-        zc = torch.zeros((mask.shape[0], node.zone_scratch.shape[0]),
-                         dtype=contrib.dtype, device=contrib.device)
-        zc.index_add_(1, aux.zidx, contrib)                          # [B, Z]
+        zc = (zone_histogram(node, aux, state, pod, mask)
+              if zones_override is None else zones_override)         # [B, Z]
         count_n = zc.index_select(1, aux.zidx)                       # [B, N]
         svc_total = torch.where(pod.svc_group >= 0,
                                 state.svc_total.index_select(0, g), 0)
@@ -296,6 +327,21 @@ def mask_and_score(node, aux: NodeAux, weights: Tuple[int, int, int],
         total = total + anti_weight * sa
 
     return mask, total
+
+
+def zone_histogram(node, aux: NodeAux, state, pod,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """ServiceAntiAffinity's zone histogram of a block of B pods: per
+    zone, the pod's service count over the lanes that pass its
+    predicates (`mask`, bool[B, N]) and carry the zone label ->
+    i32[B, Z]."""
+    g = torch.clamp(pod.svc_group, min=0).long()
+    row = state.svc_count.index_select(0, g)                         # [B, N]
+    contrib = torch.where(mask & aux.labeled, row, 0)
+    zc = torch.zeros((mask.shape[0], node.zone_scratch.shape[0]),
+                     dtype=contrib.dtype, device=contrib.device)
+    zc.index_add_(1, aux.zidx, contrib)
+    return zc
 
 
 def commit_node_local(state, pod, j: torch.Tensor,
@@ -575,7 +621,7 @@ def probe_threads(n: int, cluster: int) -> int:
 def launch_plan(kind: int, d: dict, wide: bool, has_spread: bool,
                 has_aff: bool, anti: bool,
                 max_clusters: Optional[Callable[[int, int, int, int], int]]
-                = None, sms: int = CARD_SMS) -> LaunchPlan:
+                = None, sms: int = CARD_SMS, shards: int = 0) -> LaunchPlan:
     """The plan for K1 (one cluster over the chunk's slots) or K5 (a
     cluster of probe_cluster(P, sms) CTAs a pod, the spread tier always
     on) over sizes `d` (ScanArgs.dims). Each takes the first cluster size
@@ -584,7 +630,17 @@ def launch_plan(kind: int, d: dict, wide: bool, has_spread: bool,
     smem)` (default: the card's own answer, `max_active_clusters`; K5's
     code carries PROBE_CODE; a K5 block a pod asks nothing). K1's
     candidates are CLUSTERS; K5's its cluster size, and 8 where that is
-    16. Raises ValueError when none fits."""
+    16. Raises ValueError when none fits.
+
+    `shards` > 0 plans the sharded K1 (kind SCAN) instead: one cluster a
+    shard over its block of d["n"] // shards slots, the first of
+    CLUSTERS of which the card can hold all `shards` clusters at once
+    (their exchange spins on every shard's record, so a shard that
+    waited for an SM would wedge the others); kind SHARDED, grid
+    shards x cluster."""
+    if shards:
+        return _sharded_plan(d, wide, has_spread, has_aff, anti,
+                             max_clusters or max_active_clusters, shards)
     if kind == PROBE:
         has_spread = True
     code = variant(wide, has_spread, has_aff, anti)
@@ -621,6 +677,38 @@ def launch_plan(kind: int, d: dict, wide: bool, has_spread: bool,
     what = "scan" if kind == SCAN else "probe"
     raise ValueError(f"{what}: no cluster fits {d['n']} slots: "
                      + "; ".join(refused))
+
+
+def _sharded_plan(d: dict, wide: bool, has_spread: bool, has_aff: bool,
+                  anti: bool, max_clusters, shards: int) -> LaunchPlan:
+    if not 1 <= shards <= MAX_SHARDS:
+        raise ValueError(f"sharded scan: {shards} shards, 1 .. {MAX_SHARDS} "
+                         f"supported")
+    if d["n"] % shards:
+        raise ValueError(f"sharded scan: {d['n']} slots do not split over "
+                         f"{shards} shards")
+    block = {**d, "n": d["n"] // shards}
+    code = variant(wide, has_spread, has_aff, anti) | SHARD_CODE
+    refused = []
+    for cluster in CLUSTERS:
+        slots = -(-block["n"] // cluster)
+        threads = cta_threads(slots)
+        smem = shared_bytes(SCAN, block, wide, has_spread, has_aff, anti,
+                            cluster)
+        if smem > MAX_SHARED_BYTES:
+            refused.append(f"{cluster} CTAs: {smem} bytes of shared memory "
+                           f"a CTA exceed {MAX_SHARED_BYTES}")
+            continue
+        held = max_clusters(code, cluster, threads, smem)
+        if held < shards:
+            refused.append(f"{cluster} CTAs of {threads} threads and {smem} "
+                           f"bytes: the card holds {held} such clusters at "
+                           f"once, not {shards}")
+            continue
+        return LaunchPlan(SHARDED, code & 15, shards * cluster, threads,
+                          smem, cluster, slots)
+    raise ValueError(f"sharded scan: no cluster fits {shards} shards of "
+                     f"{block['n']} slots: " + "; ".join(refused))
 
 
 def pack(a: ScanArgs, weights: Tuple[int, int, int], anti_weight: int,
@@ -668,6 +756,12 @@ def _library() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p]
     lib.spec_launch.restype = ctypes.c_int
+    # the sharded K1 (K7 inside): variant, cluster, threads, shared
+    # bytes, sizes, addresses, shard arguments (SHARD_FIELDS), stream
+    lib.shard_launch.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.shard_launch.restype = ctypes.c_int
     lib.scan_error_name.argtypes = [ctypes.c_int]
     lib.scan_error_name.restype = ctypes.c_char_p
     return lib
@@ -710,13 +804,19 @@ def _card_sms(device: int) -> int:
 
 
 def _launch(plan: LaunchPlan, dims: np.ndarray, ptrs: np.ndarray,
-            device: torch.device) -> int:
+            device: torch.device, shard: Optional[np.ndarray] = None) -> int:
     """Queue one kernel on the current stream -> the CUDA error code of
-    the launch (0 = launched). Module-level so that a check can swap in
-    a launch the card refuses (chip_smoke: a cluster larger than the
-    card takes) and show that the engine raises."""
+    the launch (0 = launched); `shard`: the sharded K1's shard arguments
+    (SHARD_FIELDS). Module-level so that a check can swap in a launch the
+    card refuses (chip_smoke: a cluster larger than the card takes) and
+    show that the engine raises."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
+        if plan.kind == SHARDED:
+            return _library().shard_launch(
+                plan.variant, plan.cluster, plan.threads, plan.smem,
+                dims.ctypes.data, ptrs.ctypes.data, shard.ctypes.data,
+                stream)
         return _library().scan_launch(
             plan.kind, plan.variant, plan.cluster, plan.threads, plan.smem,
             dims.ctypes.data, ptrs.ctypes.data, stream)
@@ -832,3 +932,201 @@ def probe_plain(a: ScanArgs, weights: Tuple[int, int, int],
         return (torch.zeros((0, n), dtype=torch.bool, device=a.device),
                 torch.zeros((0, n), dtype=a.dtype, device=a.device))
     return torch.cat(masks), torch.cat(totals)
+
+
+# ---------------------------------------------------------------------------
+# the sharded scan (K1 over a node-axis mesh, K7 inside it)
+
+
+def replica_words(d: dict) -> int:
+    """int32 words of one shard's copy of the replicated counts:
+    aff_count [T, D], aff_total [T], svc_total [S], in that order."""
+    return d["t"] * d["d"] + d["t"] + d["s"]
+
+
+def exchange_words(shards: int, z: int) -> int:
+    """int64 words of K7's exchange buffer (the source's xchg_layout):
+    a header (the launch generation), a done record a shard, and, two by
+    parity, a candidate record (sequence, composite, slot, pad), a
+    group-max record (sequence, max) and a zone record (sequence, Z
+    int32 sums) a shard."""
+    return 16 + shards + 2 * shards * (4 + 2 + 1 + (z + 1) // 2)
+
+
+class ShardSpace:
+    """What the sharded scan keeps on its device from launch to launch:
+    the copies of the replicated counts (aff_count, aff_total,
+    svc_total) of shards 1 .. S - 1, one int32 row each (shard 0's are
+    the State's own), and on a card K7's exchange buffer. Its records
+    carry the launch's generation and the exchange's count, so it is
+    zeroed once and never reset: a launch reads the generation from its
+    header and shard 0 advances it once every shard is done."""
+
+    def __init__(self, shards: int, d: dict, device: torch.device):
+        self.shards = shards
+        self.key = (shards, replica_words(d), d["t"], d["d"], d["s"],
+                    d["z"])
+        self.replicas = torch.zeros((shards - 1, replica_words(d)),
+                                    dtype=torch.int32, device=device)
+        self.xchg = (torch.zeros(exchange_words(shards, d["z"]),
+                                 dtype=torch.int64, device=device)
+                     if device.type == "cuda" else None)
+
+    def fits(self, shards: int, d: dict) -> bool:
+        return self.key == (shards, replica_words(d), d["t"], d["d"],
+                            d["s"], d["z"])
+
+    def replica(self, k: int, d: dict) -> dict:
+        """Shard k's (k >= 1) copies of the replicated counts, as views
+        of its row."""
+        row = self.replicas[k - 1]
+        td, t = d["t"] * d["d"], d["t"]
+        return {"aff_count": row[:td].view(t, d["d"]),
+                "aff_total": row[td:td + t], "svc_total": row[td + t:]}
+
+
+def scan_chunk_sharded(a: ScanArgs, weights: Tuple[int, int, int],
+                       anti_weight: int, has_aff: bool, has_spread: bool,
+                       space: ShardSpace, budget: int = 0,
+                       withhold: int = -1) -> torch.Tensor:
+    """scan_chunk over a node axis split into space.shards blocks ->
+    i32[P], committing into a.state; the same assignment and State.
+    CPU tensors take scan_chunk_sharded_plain; CUDA tensors launch the
+    sharded K1 on the current stream (a cluster a shard, all resident at
+    once, exchanging each pod's records through K7's buffer) and raise
+    if the launch is refused or the card cannot hold every shard's
+    cluster. `budget` (cycles a spin may take before the kernel traps;
+    0: the source's default) and `withhold` (the shard that skips its
+    first candidate record) exist for the check that a wedged exchange
+    raises instead of hanging."""
+    shards = space.shards
+    if a.device.type == "cpu":
+        return scan_chunk_sharded_plain(a, weights, anti_weight, has_aff,
+                                        has_spread, space)
+    _require_cuda(a, "sharded scan")
+    d = a.dims()
+    if not space.fits(shards, d) or space.xchg is None \
+            or space.xchg.device != a.device:
+        raise ValueError(f"sharded scan: the shard space does not fit "
+                         f"{shards} shards of {d} on {a.device}")
+    out = torch.empty(d["p"], dtype=torch.int32, device=a.device)
+    if d["p"] == 0:
+        return out
+    outputs = {"assigned": out}
+    if anti_weight:
+        outputs["work_total"] = torch.empty(d["n"], dtype=a.dtype,
+                                            device=a.device)
+        outputs["work_mask"] = torch.empty(d["n"], dtype=torch.uint8,
+                                           device=a.device)
+    with torch.cuda.device(a.device):
+        plan = launch_plan(SCAN, d, a.dtype == torch.int64, has_spread,
+                           has_aff, bool(anti_weight), shards=shards)
+    dims, ptrs = pack(a, weights, anti_weight, outputs)
+    shard = np.array([shards, d["n"] // shards, budget, withhold,
+                      space.xchg.numel(), space.xchg.data_ptr(),
+                      space.replicas.data_ptr() if shards > 1 else 0],
+                     dtype=np.int64)
+    err = _launch(plan, dims, ptrs, a.device, shard)
+    if err != 0:
+        raise RuntimeError(f"sharded scan kernel launch failed: CUDA error "
+                           f"{err} ({error_name(err)})")
+    scan_chunk_sharded.launches += 1
+    return out
+
+
+scan_chunk_sharded.launches = 0
+
+
+def scan_chunk_sharded_plain(a: ScanArgs, weights: Tuple[int, int, int],
+                             anti_weight: int, has_aff: bool,
+                             has_spread: bool, space: ShardSpace
+                             ) -> torch.Tensor:
+    """The sharded K1's function as tensor ops, shard by shard: shard k
+    scores the pod over its block of slots [k * B, (k + 1) * B) (views
+    of the tables, `mesh.block_view`) against its own copy of the
+    replicated counts, and the S records the kernel exchanges a pod are
+    reduced here the same way: the group max by max (then the off-table
+    max), the zone histogram by sum, the candidates (composite, slot) by
+    the larger composite, then the smaller slot, -1 when none is >= 0.
+    The winner's owner commits its rows and group columns; every shard
+    commits the replicated counts into its own copy. Shards 1 .. S - 1
+    copy shard 0's counts (the State's) at the start, as the kernel does
+    -> i32[P]."""
+    shards = space.shards
+    d = a.dims()
+    p, n = d["p"], d["n"]
+    b = n // shards
+    if b * shards != n or not space.fits(shards, d):
+        raise ValueError(f"sharded scan: {n} slots over {shards} shards "
+                         f"with a space for {space.key}")
+    copies = [{f: getattr(a.state, f) for f in REPLICATED}]
+    for k in range(1, shards):
+        rep = space.replica(k, d)
+        for f in REPLICATED:
+            rep[f].copy_(getattr(a.state, f))
+        copies.append(rep)
+    blocks = []
+    for k in range(shards):
+        lo = k * b
+        node = block_view(a.node, NODE_SPLIT, lo, lo + b)
+        blocks.append((lo, node, node_aux(node),
+                       block_view(a.state, STATE_SPLIT, lo, lo + b,
+                                  copies[k]),
+                       torch.arange(lo, lo + b, dtype=torch.int32,
+                                    device=a.device)))
+    out = torch.full((p,), -1, dtype=torch.int32, device=a.device)
+    for k in range(p):
+        pod = type(a.pods)(*(t[k:k + 1] for t in a.pods))
+        if not bool(pod.valid[0]):
+            continue
+        gid = int(pod.group_id[0])
+        override = None
+        if has_spread:
+            maxc = 0
+            if gid >= 0:
+                recs = [int(st.spread[gid].max()) for _, _, _, st, _ in blocks]
+                maxc = max(max(recs), int(a.node.offgrid_max[gid]))
+            override = torch.full((d["g"],), maxc, dtype=torch.int32,
+                                  device=a.device)
+        zones = None
+        if anti_weight:
+            zones = sum(zone_histogram(
+                node, aux, st, pod,
+                mask_and_score(node, aux, weights, 0, st, pod, has_aff,
+                               has_spread, iota=iota,
+                               spread_max_override=override)[0])
+                for _, node, aux, st, iota in blocks)
+        recs = []
+        for lo, node, aux, st, iota in blocks:
+            mask, total = mask_and_score(node, aux, weights, anti_weight, st,
+                                         pod, has_aff, has_spread, iota=iota,
+                                         spread_max_override=override,
+                                         zones_override=zones)
+            comp = torch.where(mask[0], total[0] * n + node.tie_rank, -1)
+            c, i = comp.max(dim=0)
+            recs.append((int(c), lo + int(i)))
+        best = max(c for c, _ in recs)
+        if best < 0:
+            continue
+        j = min(jj for c, jj in recs if c == best)
+        out[k] = j
+        lo, node, _, st, _ = blocks[j // b]
+        jl = torch.tensor([j - lo], dtype=torch.long, device=a.device)
+        fit = torch.ones(1, dtype=torch.bool, device=a.device)
+        commit_node_local(st, pod, jl, fit)
+        if has_spread:
+            st.spread.index_add_(1, jl, pod.member.T)
+        if anti_weight:
+            st.svc_count.index_add_(1, jl, pod.svc_member.T)
+        for rep in copies:
+            if has_aff:
+                dom = a.node.aff_dom[:, j]
+                t = torch.arange(d["t"], device=a.device)
+                rep["aff_count"].index_put_(
+                    (t, torch.clamp(dom, min=0).long()),
+                    torch.where(dom >= 0, pod.aff_member[0], 0),
+                    accumulate=True)
+                rep["aff_total"].add_(pod.aff_member[0])
+            if anti_weight:
+                rep["svc_total"].add_(pod.svc_member[0])
+    return out

@@ -26,6 +26,12 @@ the kernel is read against the launch floor. `bounds.victim_bound`
 counts what the function needs (`walk`), not the whole rows the kernel
 reads.
 
+Under a node-axis mesh `victim_search_sharded(args, S)` is the sharded
+search (the JAX engine's `find_victims` with row shardings): each
+shard's blocks over its ceil(N / S) rows, the last block of a shard
+reducing the shard's winner and the last shard the shards' winners
+(K7), in one launch; `victim_search_sharded_plain` is its twin.
+
 On CPU tensors the wrapper computes `victim_search_plain`, the JAX
 kernel's own tensor formulation (prefix sums, a [N, V+1] feasibility
 matrix, a first-True argmax); on CUDA tensors it launches the kernel or
@@ -190,11 +196,12 @@ def _first_true(m: torch.Tensor) -> torch.Tensor:
     return torch.argmax(m.to(torch.int8), dim=1)
 
 
-def victim_search_plain(a: VictimArgs
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The JAX kernel's formulation in PyTorch -> (pick i64[], kstar
-    i64[N], score i64[N])."""
-    n, v = a.shape
+def _search_rows(a: VictimArgs, n_total: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (kstar i64[rows], score i64[rows]) of a's rows, the score's
+    composite over a node axis of n_total slots (the whole table's,
+    when a is one shard's block of it)."""
+    _, v = a.shape
     vm, res_ok = _release_fits(a)
     nv = vm.to(torch.int64).sum(dim=1)
     k = torch.arange(v + 1, dtype=torch.int64, device=vm.device)[None, :]
@@ -204,9 +211,49 @@ def victim_search_plain(a: VictimArgs
     senior = torch.gather(a.v_prio, 1, torch.clamp(kstar - 1, min=0)[:, None]
                           )[:, 0] if v else torch.zeros_like(kstar)
     senior = torch.where(kstar > 0, senior, SENIOR_NONE)
-    score = ((v - kstar) * SCORE_STRIDE + (PMAX - senior)) * n + a.tie_rank
-    score = torch.where(any_k, score, -1)
+    score = ((v - kstar) * SCORE_STRIDE + (PMAX - senior)) * n_total \
+        + a.tie_rank
+    return kstar, torch.where(any_k, score, -1)
+
+
+def victim_search_plain(a: VictimArgs
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The JAX kernel's formulation in PyTorch -> (pick i64[], kstar
+    i64[N], score i64[N])."""
+    kstar, score = _search_rows(a, a.shape[0])
     return torch.argmax(score), kstar, score
+
+
+def shard_rows(a: VictimArgs, lo: int, hi: int) -> VictimArgs:
+    """The table's node rows [lo, hi) (views), the preemptor's scalars
+    as they are."""
+    return a._replace(packed=None, **{
+        f: getattr(a, f)[lo:hi] for f in _NODE_FIELDS + _VICTIM_FIELDS})
+
+
+def victim_search_sharded_plain(a: VictimArgs, shards: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The sharded K4's function shard by shard: shard k searches its
+    block of ceil(N / shards) rows (kstar and score stay split by row)
+    and posts its first largest (score, row); the records reduce to the
+    larger score, then the smaller row, which is np.argmax's pick over
+    the whole table -> (pick i64[], kstar i64[N], score i64[N])."""
+    n, _ = a.shape
+    b = -(-n // shards)
+    kstar = torch.empty(n, dtype=torch.int64, device=a.cand.device)
+    score = torch.empty_like(kstar)
+    recs = []
+    for k in range(shards):
+        lo, hi = k * b, min(n, (k + 1) * b)
+        if lo >= hi:
+            continue
+        kstar[lo:hi], score[lo:hi] = _search_rows(shard_rows(a, lo, hi), n)
+        c, i = score[lo:hi].max(dim=0)
+        recs.append((int(c), lo + int(i)))
+    best = max(c for c, _ in recs)
+    pick = min(j for c, j in recs if c == best)
+    return torch.tensor(pick, dtype=torch.int64), kstar, score
 
 
 def walk(a: VictimArgs) -> Tuple[int, int]:
@@ -304,6 +351,13 @@ def _result(out: torch.Tensor, n: int) -> VictimResult:
 def _library() -> ctypes.CDLL:
     from ._build import load_library
     lib = load_library(SOURCE)
+    # the sharded search: grid, threads, group, shards, rows a shard, N,
+    # V, then as victim_search_launch
+    lib.victim_sharded_launch.argtypes = (
+        [ctypes.c_int] * 7 + [ctypes.c_void_p] * 12
+        + [ctypes.c_longlong] * 3 + [ctypes.c_int]
+        + [ctypes.c_void_p] * 3)
+    lib.victim_sharded_launch.restype = ctypes.c_int
     # grid, threads, group, N, V, 12 input pointers, prio, req_cpu,
     # req_mem, zero_req, the output buffer, the counter, stream
     lib.victim_search_launch.argtypes = (
@@ -377,3 +431,83 @@ def victim_search(a: VictimArgs) -> VictimResult:
 
 # kernel launches since the count was last set to 0
 victim_search.launches = 0
+
+
+# the most shards the sharded search takes (its counters a device)
+MAX_SHARDS = 64
+
+
+@functools.cache
+def _shard_counters(device: torch.device) -> torch.Tensor:
+    """The sharded search's counts on `device`: [0] the shards done,
+    [1 + k] shard k's blocks done; zeroed once here, each set back to 0
+    by the launch's last arriver that reads it."""
+    return torch.zeros(1 + MAX_SHARDS, dtype=torch.int32, device=device)
+
+
+def sharded_plan(n: int, v: int, shards: int,
+                 sms: int = CARD_SMS) -> Tuple[LaunchPlan, int]:
+    """-> (the plan of the whole grid, the rows a shard): each shard's
+    ceil(N / shards) rows planned as launch_plan plans a table over its
+    share of the SMs, the shards' blocks side by side in one grid."""
+    b = -(-n // shards)
+    per = launch_plan(b, v, max(1, sms // shards))
+    return per._replace(grid=per.grid * shards), b
+
+
+def sharded_out_words(n: int, plan: LaunchPlan, shards: int) -> int:
+    """out_words, then the shards' winners (score, row)."""
+    return out_words(n, plan) + 2 * shards
+
+
+def _sharded_launch(a: VictimArgs, out: torch.Tensor, plan: LaunchPlan,
+                    shards: int, b: int) -> int:
+    n, v = a.shape
+    dev = a.cand.device
+    done = _shard_counters(dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        return _library().victim_sharded_launch(
+            plan.grid, plan.threads, plan.group, shards, b, n, v,
+            *(getattr(a, f).data_ptr()
+              for f in _NODE_FIELDS + _VICTIM_FIELDS),
+            a.prio, a.req_cpu, a.req_mem, int(a.zero_req),
+            out.data_ptr(), done.data_ptr(), stream)
+
+
+def victim_search_sharded(a: VictimArgs, shards: int) -> VictimResult:
+    """victim_search over a node axis split into `shards` blocks of rows
+    (the JAX engine's find_victims under a mesh: kstar and score split
+    by row, pick reduced across shards) -> the same (pick, kstar,
+    score). CPU tensors take victim_search_sharded_plain; CUDA tensors
+    launch the sharded K4 (each shard's blocks over its rows, the last
+    block of a shard reducing the shard's winner, the last shard the
+    shards' winners: K7) and raise if the launch is refused."""
+    device = a.cand.device
+    n, v = a.shape
+    if not 1 <= shards <= MAX_SHARDS:
+        raise ValueError(f"sharded victim search: {shards} shards, 1 .. "
+                         f"{MAX_SHARDS} supported")
+    if device.type == "cpu":
+        out = torch.empty(1 + 2 * n, dtype=torch.int64)
+        pick, kstar, score = victim_search_sharded_plain(a, shards)
+        out[0], out[1:1 + n], out[1 + n:] = pick, kstar, score
+        return _result(out, n)
+    if device.type != "cuda":
+        raise ValueError(f"victim kernel runs on cuda, not {device}")
+    _check(a)
+    if n == 0:
+        raise ValueError("victim search over an empty node table")
+    with torch.cuda.device(device):
+        plan, b = sharded_plan(n, v, shards, card_sms())
+    out = torch.empty(sharded_out_words(n, plan, shards), dtype=torch.int64,
+                      device=device)
+    err = _sharded_launch(a, out, plan, shards, b)
+    if err != 0:
+        raise RuntimeError(f"sharded victim kernel launch failed: CUDA "
+                           f"error {err} ({error_name(err)})")
+    victim_search_sharded.launches += 1
+    return _result(out, n)
+
+
+victim_search_sharded.launches = 0

@@ -342,7 +342,8 @@ class ConfigFactory:
                     "create_batch: cannot combine an explicit engine with "
                     "a policy that needs engine configuration")
             kw["engine"] = BatchEngine(weights, policy=device_policy,
-                                       device=kw.get("device"))
+                                       device=kw.get("device"),
+                                       mesh=kw.get("mesh"))
         return BatchSchedulerConfig(self, **kw)
 
     def create_mixed(self, policy: Optional[Policy], device=None):

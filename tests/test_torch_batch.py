@@ -213,10 +213,36 @@ def test_carry_compatible_for_chained_tile():
 
 @pytest.mark.parametrize("option", ["mesh", "shard_monitor"])
 def test_config_refuses_unported_options(option):
+    """Both options were refused until the mesh was ported; now each is
+    accepted and binds: `mesh=` builds the engine over it (an explicit
+    engine's own mesh wins) and sizes the encoder to it, `shard_monitor=`
+    is polled between tiles (tests/test_torch_shardfail.py)."""
+    from kubernetes_tpu_torch.sched.device import NodeMesh
+    from kubernetes_tpu_torch.sched.device.shardfail import ShardLeaseMonitor
+    from kubernetes_tpu_torch.utils.clock import FakeClock
     factory = ConfigFactory(InProcClient(Registry()), rate_limit=False)
-    with pytest.raises(NotImplementedError, match=option):
-        BatchSchedulerConfig(factory, engine=BatchEngine(device="cpu"),
-                             **{option: object()})
+    value = (NodeMesh(["cpu"] * 4) if option == "mesh" else
+             ShardLeaseMonitor(InProcClient(Registry()), ["mesh-shard-0"],
+                               clock=FakeClock()))
+    config = BatchSchedulerConfig(
+        factory, **{option: value},
+        **({} if option == "mesh" else {"device": "cpu"}))
+    if option == "mesh":
+        assert config.engine.mesh is value and config.engine.n_shards == 4
+        assert config.shard_monitor is None
+        own = BatchEngine(device="cpu")
+        assert BatchSchedulerConfig(factory, engine=own,
+                                    mesh=value).engine is own
+    else:
+        assert config.shard_monitor is value and config.engine.mesh is None
+        assert config.engine.device.type == "cpu"
+    sched = BatchScheduler(config)
+    factory.start()
+    try:
+        inc = sched._incremental()
+        assert inc.mesh_devices == config.engine.n_shards
+    finally:
+        factory.stop()
 
 
 def test_store_refuses_wal_dir(tmp_path):

@@ -17,6 +17,7 @@ from kubernetes_tpu_torch.core.quantity import Quantity
 from kubernetes_tpu_torch.kubemark.fixtures import (CLUSTER_EDGES, MI,
                                                     SCAN_DEGENERATE,
                                                     SCAN_EDGES, SCAN_TIERS,
+                                                    SHARD_CASES,
                                                     mixed_snapshot,
                                                     scan_cases)
 from kubernetes_tpu_torch.sched.device import (BatchEngine, ClusterSnapshot,
@@ -1025,3 +1026,75 @@ def test_refused_spec_launches_raise_through_run_chunked(cuda):
     got, _ = engine.run_chunked(enc, 8)
     want, _ = BatchEngine(device="cpu", speculative=True).run_chunked(enc, 8)
     assert (got == want).all()
+
+
+# ---------------------------------------------------------------- the mesh
+
+
+SHARD_CASE_NAMES = sorted(name for name in scan_cases()
+                          if name.split("/")[0] in SHARD_CASES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("name", SHARD_CASE_NAMES)
+def test_sharded_scan_kernel_matches_its_twin_and_k1(cuda, name, shards):
+    """The sharded K1 (K7 inside) on the scan cases' tables: the
+    assignment and every State field bit-equal to the unsharded K1 and
+    to the sharded plain twin, every shard's replicas equal to the
+    State's after the chunk."""
+    from kubernetes_tpu_torch.kubemark import gpu_evidence
+    from kubernetes_tpu_torch.kubemark.fixtures import scan_tables, shard_pad
+    from kubernetes_tpu_torch.sched.device import engine as eng_mod
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    case = scan_cases()[name]
+    tables = shard_pad(scan_tables(**case["tables"]), shards)
+    a = gpu_evidence.scan_args(*(eng_mod._upload(t, cuda) for t in tables))
+    before = sk.scan_chunk_sharded.launches
+    got = gpu_evidence.shard_parity(a, case["weights"], case["anti_weight"],
+                                    case["has_aff"], case["has_spread"],
+                                    shards)
+    assert sk.scan_chunk_sharded.launches == before + 1
+    assert got["equal"], [f for f, ok in got["fields"].items() if not ok]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_sharded_victim_kernel_matches_its_twin(cuda, shards):
+    from kubernetes_tpu_torch.kubemark import gpu_evidence
+    from kubernetes_tpu_torch.kubemark.fixtures import (preempt_encoder,
+                                                        preempt_pods,
+                                                        preempt_spec)
+    from kubernetes_tpu_torch.sched.device import victim_kernel as vk
+    spec = preempt_spec(n_nodes=600, n_preemptors=4)
+    inc = preempt_encoder(spec)
+    for pod in preempt_pods(spec):
+        args = vk.VictimArgs.from_table(inc.victim_table(pod), cuda)
+        got = gpu_evidence.victim_shard_parity(args, shards)
+        assert got["equal"], got
+
+
+@pytest.mark.gpu
+def test_mesh_engine_on_card_matches_cpu_mesh(cuda):
+    """BatchEngine(mesh=NodeMesh(["cuda:0"] * 4)) on a smoke-sized fixture
+    equals the CPU mesh and the unsharded card engine."""
+    from kubernetes_tpu_torch.kubemark.fixtures import engine_snapshot
+    from kubernetes_tpu_torch.sched.device import NodeMesh
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    snap = engine_snapshot(400, 900, plain=False)
+    before = sk.scan_chunk_sharded.launches
+    card = BatchEngine(mesh=NodeMesh(["cuda:0"] * 4)).schedule(snap,
+                                                               chunk=512)[0]
+    assert sk.scan_chunk_sharded.launches > before
+    assert card == BatchEngine(mesh=NodeMesh(["cpu"] * 4)).schedule(
+        snap, chunk=512)[0]
+    assert card == BatchEngine(device=cuda).schedule(snap, chunk=512)[0]
+
+
+@pytest.mark.gpu
+def test_wedged_exchange_raises(cuda):
+    """A shard that withholds a record traps the launch (in a process of
+    its own): the synchronize raises instead of hanging."""
+    from kubernetes_tpu_torch.kubemark import gpu_evidence
+    got = gpu_evidence.shard_wedge_child()
+    assert got["raised"] and got["rc"] == 0, got

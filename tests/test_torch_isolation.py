@@ -1,7 +1,8 @@
 """The port stands alone: importing and running it (scheduling a batch,
 one extender round trip, the live pipeline under the kubemark
 benchmark and the evidence tool's e2e section, a victim search, a
-scatter through the table mirror, and a mixed-mode config, all on the
+scatter through the table mirror, a mixed-mode config, a batch on a
+node-axis mesh and the shard-failure drill over the leases, all on the
 CPU) loads neither jax nor any module of the JAX package, and its entry
 points refuse to run without a CUDA device unless a device is named. Run in a subprocess, because this test
 process has jax loaded (tests/conftest.py)."""
@@ -73,6 +74,16 @@ factory = ConfigFactory(InProcClient(Registry()), rate_limit=False)
 policy = Policy(extenders=[ExtenderConfig(url_prefix="http://x",
                                           filter_verb="filter")])
 mixed = type(factory.create_mixed(policy, device="cpu").algorithm).__name__
+# the node-axis mesh (a CPU mesh of four shards) and shard-failure
+# tolerance over the leases (the survivor drill)
+from kubernetes_tpu_torch.sched.device import NodeMesh
+meshed = schedule_batch(snap, mesh=NodeMesh(["cpu"] * 4)) == names
+drill = fx.shard_survivor_drill(n_nodes=16, n_pods=16, shards=4, dead=1,
+                                device="cpu")
+loaded = sorted(m for m in sys.modules if m in (
+    "kubernetes_tpu_torch.sched.device.mesh",
+    "kubernetes_tpu_torch.sched.device.shardfail",
+    "kubernetes_tpu_torch.utils.leaderelection"))
 
 torch.cuda.is_available = lambda: False
 errors = []
@@ -90,7 +101,9 @@ print(json.dumps({"foreign": sorted(m for m in sys.modules if is_foreign(m)),
                   "bench": [bench.scheduled, bench.running],
                   "e2e": e2e["scheduled"], "feasible": feasible,
                   "delta": engine.upload_stats["delta_tiles"],
-                  "mixed": mixed}))
+                  "mixed": mixed, "meshed": meshed,
+                  "drill": [drill["mesh_after"], drill["second_half_bound"]],
+                  "loaded": loaded}))
 """
 
 
@@ -109,6 +122,8 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert res["delta"] == 1 and res["mixed"] == "DeviceAssistedAlgorithm"
     assert len(res["errors"]) == 5
     assert all("no CUDA device" in e for e in res["errors"])
+    assert res["meshed"] and res["drill"] == [3, True]
+    assert len(res["loaded"]) == 3
 
 
 def _imports(path):
