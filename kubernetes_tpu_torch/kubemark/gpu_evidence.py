@@ -827,7 +827,8 @@ def load_wrappers(root: str) -> dict:
     sys.modules[f"{parent}.preemption"] = preemption
     mods = {}
     for mod_name in ("_build", "bounds", "filter_kernel", "reject_kernel",
-                     "scan_kernel", "victim_kernel", "scatter_kernel"):
+                     "scan_kernel", "spec_kernel", "victim_kernel",
+                     "scatter_kernel"):
         path = os.path.join(pkg_dir, f"{mod_name}.py")
         if not os.path.exists(path):
             continue

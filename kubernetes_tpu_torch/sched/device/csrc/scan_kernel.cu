@@ -119,7 +119,7 @@ namespace cg = cooperative_groups;
 #define PROBE_BLOCK_THREADS 512
 #define SCAN_MAX_SHARED_BYTES 232448
 #define SCAN_MAX_CLUSTER 16
-#define SPEC_REPAIR_THREADS 512
+#define SPEC_REPAIR_THREADS 384
 
 // the addresses the wrapper packs (scan_kernel.PTR_FIELDS, same order)
 enum ScanPtr {
@@ -411,6 +411,138 @@ struct GlobalSlots {
   }
 };
 
+// The block's commits to the slots its pods take (K6b), one record a
+// taken slot and a last one of zeros: the resources, count, port and
+// disk bits and spread counts the commits add.
+template <typename T>
+struct Deltas {
+  T *cpu_used, *mem_used, *nz_cpu, *nz_mem;
+  int* pod_count;
+  uint32_t *ports, *dany, *drw;
+  int* spread;     // [records][groups]
+  int groups;      // G on the spread tier, else 0
+};
+
+// carve `r` records from `base` (T first, then 32-bit words) -> the
+// first byte after them (spec_kernel.repair_bytes)
+template <typename T>
+__device__ uint8_t* carve(Deltas<T>& d, uint8_t* base, int r, int PW,
+                          int K, int G) {
+  T* t = (T*)base;
+  d.cpu_used = t; d.mem_used = t + r; d.nz_cpu = t + 2 * r;
+  d.nz_mem = t + 3 * r;
+  uint32_t* w = (uint32_t*)(t + 4 * r);
+  d.pod_count = (int*)w; w += r;
+  d.ports = w; w += r * PW;
+  d.dany = w; w += r * K;
+  d.drw = w; w += r * K;
+  d.spread = (int*)w; w += r * G;
+  d.groups = G;
+  return (uint8_t*)w;
+}
+
+// Slot n's fields as the block's commits left them: the tables' plus
+// record i of `d`, and with PLUS pod *c's commit on top (as if the pod
+// were committed there); GlobalSlots' accessors, index n.
+template <typename T, bool PLUS = false>
+struct LiveSlot {
+  const Params<T>& a;
+  const Deltas<T>& d;
+  int i;
+  const Pod<T>* c;
+  __device__ bool ok(int n) const {
+    return a.valid[n] & a.sched_ok[n] & a.static_mask[n];
+  }
+  __device__ bool exceed(int n) const {
+    return a.exceed_cpu[n] | a.exceed_mem[n];
+  }
+  __device__ T cpu_cap(int n) const { return a.cpu_cap[n]; }
+  __device__ T mem_cap(int n) const { return a.mem_cap[n]; }
+  __device__ int pod_cap(int n) const { return a.pod_cap[n]; }
+  __device__ int tie_rank(int n) const { return a.tie_rank[n]; }
+  __device__ int zone_id(int n) const { return a.zone_id[n]; }
+  __device__ T static_score(int n) const { return a.static_score[n]; }
+  __device__ double inv_cpu(int n) const { return a.inv_cpu[n]; }
+  __device__ double inv_mem(int n) const { return a.inv_mem[n]; }
+  __device__ uint32_t label(int n, int w) const {
+    return a.labels[(size_t)n * a.L + w];
+  }
+  __device__ T plus(T v, T add) const { return PLUS ? wadd(v, add) : v; }
+  __device__ T cpu_used(int n) const {
+    return plus(wadd(a.cpu_used[n], d.cpu_used[i]), PLUS ? c->req_cpu : 0);
+  }
+  __device__ T mem_used(int n) const {
+    return plus(wadd(a.mem_used[n], d.mem_used[i]), PLUS ? c->req_mem : 0);
+  }
+  __device__ T nz_cpu(int n) const {
+    return plus(wadd(a.nz_cpu[n], d.nz_cpu[i]), PLUS ? c->nz_cpu : 0);
+  }
+  __device__ T nz_mem(int n) const {
+    return plus(wadd(a.nz_mem[n], d.nz_mem[i]), PLUS ? c->nz_mem : 0);
+  }
+  __device__ int pod_count(int n) const {
+    return a.pod_count[n] + d.pod_count[i] + PLUS;
+  }
+  // commit_slot's words of pod *c: ports at L, disks at L + PW + 2K
+  // (any) and L + PW + 3K (rw)
+  __device__ uint32_t port(int n, int w) const {
+    return a.port_bits[(size_t)n * a.PW + w] | d.ports[i * a.PW + w]
+           | (PLUS ? c->words[a.L + w] : 0u);
+  }
+  __device__ uint32_t disk_any(int n, int w) const {
+    return a.disk_any[(size_t)n * a.K + w] | d.dany[i * a.K + w]
+           | (PLUS ? c->words[a.L + a.PW + 2 * a.K + w] : 0u);
+  }
+  __device__ uint32_t disk_rw(int n, int w) const {
+    return a.disk_rw[(size_t)n * a.K + w] | d.drw[i * a.K + w]
+           | (PLUS ? c->words[a.L + a.PW + 3 * a.K + w] : 0u);
+  }
+};
+
+template <typename T, bool PLUS>
+__device__ __forceinline__ int spread_count(const Params<T>& a,
+                                            const LiveSlot<T, PLUS>& s,
+                                            int g, int n) {
+  return a.spread[(size_t)g * a.N + n] + s.d.spread[s.i * a.G + g]
+         + (PLUS ? s.c->member[g] : 0);
+}
+
+// One slot's fields for pod p in registers (K6b): every load issued at
+// once, the label, port and disk words already reduced to the pod's
+// clash and the spread counts to its group's. A rescore's latency is
+// K6b's step, and node_total and fits, reading their fields between
+// their branches, would send the loads out a few at a time. The
+// accessors of GlobalSlots, the index ignored.
+template <typename T>
+struct RegSlot {
+  T cpu_cap_, mem_cap_, static_score_, cpu_used_, mem_used_, nz_cpu_,
+      nz_mem_;
+  double inv_cpu_, inv_mem_;
+  int pod_cap_, pod_count_, tie_rank_, spread_;
+  uint32_t clash_;
+  bool ok_, exceed_;
+  __device__ bool ok(int) const { return ok_; }
+  __device__ bool exceed(int) const { return exceed_; }
+  __device__ T cpu_cap(int) const { return cpu_cap_; }
+  __device__ T mem_cap(int) const { return mem_cap_; }
+  __device__ int pod_cap(int) const { return pod_cap_; }
+  __device__ int tie_rank(int) const { return tie_rank_; }
+  __device__ T static_score(int) const { return static_score_; }
+  __device__ double inv_cpu(int) const { return inv_cpu_; }
+  __device__ double inv_mem(int) const { return inv_mem_; }
+  __device__ T cpu_used(int) const { return cpu_used_; }
+  __device__ T mem_used(int) const { return mem_used_; }
+  __device__ T nz_cpu(int) const { return nz_cpu_; }
+  __device__ T nz_mem(int) const { return nz_mem_; }
+  __device__ int pod_count(int) const { return pod_count_; }
+};
+
+template <typename T>
+__device__ __forceinline__ int spread_count(const Params<T>&,
+                                            const RegSlot<T>& r, int, int) {
+  return r.spread_;
+}
+
 // A CTA's copy of its S slots in shared memory (K1), index i = the
 // slot's place in the CTA's range. Carved f64 first, then T, then
 // 32-bit, then bytes, so every array is aligned; 8 bytes a slot of
@@ -478,9 +610,7 @@ __device__ uint8_t* carve(SharedSlots<T>& s, uint8_t* base, int S, int L,
   return (uint8_t*)u;   // the flags go last, after the ring and zones
 }
 
-// slot n's fields from the tables into index i of a SharedSlots copy (K1
-// for its slots at the start, K6b for a slot the first time a pod of its
-// block is committed there)
+// slot n's fields from the tables into index i of K1's SharedSlots copy
 template <typename T>
 __device__ __forceinline__ void load_slot(const Params<T>& a,
                                           SharedSlots<T>& s, int i, int n) {
@@ -581,6 +711,14 @@ __device__ __forceinline__ T tenths_below(int top, int x) {
   return (T)floor(f);
 }
 
+// the count of spread group g on slot n (K6b's LiveSlot adds the block's
+// commits)
+template <typename T, typename Slots>
+__device__ __forceinline__ int spread_count(const Params<T>& a, const Slots&,
+                                            int g, int n) {
+  return a.spread[(size_t)g * a.N + n];
+}
+
 // the priority total of pod p on slot n, ServiceAntiAffinity aside
 template <typename T, bool HAS_SPREAD, typename Slots>
 __device__ __forceinline__ T node_total(const Params<T>& a,
@@ -617,10 +755,55 @@ __device__ __forceinline__ T node_total(const Params<T>& a,
   if (HAS_SPREAD) {
     T spread = (T)10;
     if (p.group_id >= 0 && p.maxc != 0)
-      spread = tenths_below<T>(p.maxc, a.spread[(size_t)p.gid * a.N + n]);
+      spread = tenths_below<T>(p.maxc, spread_count(a, s, p.gid, n));
     total = wadd(total, wmul(a.w_spread, spread));
   }
   return total;
+}
+
+// slot n's fields for pod p from `s` into registers (RegSlot)
+template <typename T, bool HAS_SPREAD, typename Slots>
+__device__ __forceinline__ RegSlot<T> reg_slot(const Params<T>& a,
+                                               const Pod<T>& p,
+                                               const Slots& s, int n) {
+  RegSlot<T> r;
+  r.ok_ = s.ok(n);
+  r.exceed_ = s.exceed(n);
+  r.cpu_cap_ = s.cpu_cap(n);
+  r.mem_cap_ = s.mem_cap(n);
+  r.static_score_ = s.static_score(n);
+  r.cpu_used_ = s.cpu_used(n);
+  r.mem_used_ = s.mem_used(n);
+  r.nz_cpu_ = s.nz_cpu(n);
+  r.nz_mem_ = s.nz_mem(n);
+  r.inv_cpu_ = s.inv_cpu(n);
+  r.inv_mem_ = s.inv_mem(n);
+  r.pod_cap_ = s.pod_cap(n);
+  r.pod_count_ = s.pod_count(n);
+  r.tie_rank_ = s.tie_rank(n);
+  r.spread_ = HAS_SPREAD && p.group_id >= 0 ? spread_count(a, s, p.gid, n)
+                                            : 0;
+  uint32_t clash = 0;
+  for (int w = 0; w < a.L; ++w) clash |= p.words[w] & ~s.label(n, w);
+  for (int w = 0; w < a.PW; ++w) clash |= s.port(n, w) & p.words[a.L + w];
+  for (int w = 0; w < a.K; ++w)
+    clash |= (s.disk_any(n, w) & p.words[a.L + a.PW + w])
+             | (s.disk_rw(n, w) & p.words[a.L + a.PW + a.K + w]);
+  r.clash_ = clash;
+  return r;
+}
+
+// fits() without the affinity tier on a RegSlot
+template <typename T>
+__device__ __forceinline__ bool fits_reg(const Pod<T>& p,
+                                         const RegSlot<T>& r, int n) {
+  const bool cpu = (r.cpu_cap_ == 0)
+                   | (wsub(r.cpu_cap_, r.cpu_used_) >= p.req_cpu);
+  const bool mem = (r.mem_cap_ == 0)
+                   | (wsub(r.mem_cap_, r.mem_used_) >= p.req_mem);
+  return p.valid & r.ok_ & ((p.host_idx == -1) | (p.host_idx == n))
+         & (r.pod_count_ < r.pod_cap_)
+         & (p.zero_req | (!r.exceed_ & cpu & mem)) & (r.clash_ == 0);
 }
 
 // ServiceAntiAffinity's score on slot n, from the pod's zone histogram
@@ -726,7 +909,8 @@ __device__ __forceinline__ void offer(const Params<T>& a, T total, int tie,
 
 // the node-local half of the commit (JAX _commit_node_local) into one
 // slot's fields wherever they live (K1: the CTA's shared copy; K6b: the
-// State in global memory): the pod's requests, count, ports and disks
+// slot's record of the block's commits): the pod's requests, count,
+// ports and disks
 template <typename T>
 __device__ __forceinline__ void commit_slot(const Params<T>& a,
                                             const Pod<T>& p, T* cpu_used,
@@ -1295,39 +1479,60 @@ probe_kernel_2(const Params<T> a) {
   probe_block<T, HAS_AFF, ANTI>(a);
 }
 
-// K6a: the speculative pass over pods [k0, k0 + gridDim.x), a block a
-// pod: the pod's composites against the block-start State (K5's body,
-// into shared memory), then its top list: pod k of the block (k =
-// blockIdx.x) needs only its k + 1 largest fitting composites (at most
-// k slots are touched when it is repaired, and composites are injective
-// per slot, so its largest untouched fitting slot ranks among them).
-// They are drawn one at a time: each thread keeps the best of its own
-// slots not yet drawn; the CTA reduces those (beats(): the largest
-// composite, then the smaller slot); the drawing slot's owner marks it
-// drawn and looks again among its own. Row blockIdx.x of `total` and
-// `spec_nodes` ([count] each) gets the k + 1 composites and slots in
-// that order, -1 past them and past the fitting slots.
-// The composites are K5's block-a-pod body (probe_block) for pod k0 +
-// blockIdx.x with no affinity and no ANTI, the spread tier as the run
-// has it, written as where(mask, total * N + tie_rank, -1) into shared
-// memory: the same helpers (read_pod, block_max, node_total, fits), in
-// a function of its own so that K5's instantiations compile as they did
+// K6a: the speculative pass over pods [k0, k0 + count), a block a pod:
+// the pod's composites against the block-start State (K5's body, into
+// shared memory), then its top list. Pod q of the block needs only its
+// K = min(q + 1, count) largest fitting composites (at most q slots are
+// touched when it is repaired, and composites are injective per slot,
+// so its largest untouched fitting slot ranks among them). They are
+// selected in a time that does not grow with q: a radix select, 8 bits
+// a pass from the highest bit any composite sets, finds the K-th
+// largest key (the composite, then the slot, smaller first, as beats()
+// orders them: the slot digits are read only where composites tie),
+// each pass a histogram of the keys still matching the digits chosen
+// so far (a shared atomic a digit a warp) and one warp's scan of it,
+// stopping once the chosen digit's bin holds exactly the entries still
+// wanted; the selected entries are compacted and each is put at its
+// rank (the selected entries that beat it). The grid runs the pods of
+// the block backwards (CTA c takes pod count - 1 - c), so the CTAs with
+// the longest lists start first. Row q of `total` and `spec_nodes` ([count]
+// each) gets the K composites and slots, largest first, -1 past them
+// and past the fitting slots (spec_kernel.spec_top_plain).
+// The composites are K5's block-a-pod body (probe_block) for pod k0 + q
+// with no affinity and no ANTI, the spread tier as the run has it,
+// written as where(mask, total * N + tie_rank, -1) into shared memory:
+// the same helpers (read_pod, block_max, node_total, fits), in a
+// function of its own so that K5's instantiations compile as they did
 // (a template shared with K5 cost K5's node-local int32 instantiation
 // two registers and so a block an SM, PERF.md section 6).
+#define SPEC_TOP_MAX 256   // the longest top list: SPEC_BLOCK
+
 template <typename T, bool HAS_SPREAD>
-__global__ void __launch_bounds__(PROBE_BLOCK_THREADS)
-spec_pass_kernel(const Params<T> a, int k0, int count) {
+__device__ __forceinline__ void spec_pass_block(const Params<T>& a, int k0,
+                                                int count) {
+  using U = typename std::make_unsigned<T>::type;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int red_max[33];
-  __shared__ long long red_c[2][32];
-  __shared__ int red_j[2][32];
+  __shared__ int red_n[32];
+  __shared__ unsigned red_or[2][32];
+  // the radix state: the digits chosen (prefix under mask, the slot
+  // digits' under smask), the entries still wanted, done
+  __shared__ U s_prefix, s_mask;
+  __shared__ int s_sprefix, s_smask, s_left, s_done, s_sel;
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = count - 1 - (int)blockIdx.x;
   const int E = pod_words<T, HAS_SPREAD, false, false>(a);
   uint32_t* row = (uint32_t*)smem;
+  // spec_kernel.pass_bytes: the pod's row, its N composites, the
+  // selected entries, the histogram
   T* vals = (T*)(smem + (((size_t)4 * E + 7) & ~(size_t)7));   // [N]
+  T* sel_c = vals + a.N;                                        // [256]
+  int* sel_n = (int*)(sel_c + SPEC_TOP_MAX);                    // [256]
+  int* hist = sel_n + SPEC_TOP_MAX;                             // [256]
   for (int e = threadIdx.x; e < E; e += nthreads)
-    row[e] = pod_word<T, HAS_SPREAD, false, false>(a, k0 + blockIdx.x, e);
+    row[e] = pod_word<T, HAS_SPREAD, false, false>(a, k0 + q, e);
+  for (int i = threadIdx.x; i < 256; i += nthreads) hist[i] = 0;
   __syncthreads();
   Pod<T> p = read_pod<T, HAS_SPREAD, false, false>(a, row);
   if (HAS_SPREAD && p.group_id >= 0) {
@@ -1337,81 +1542,242 @@ spec_pass_kernel(const Params<T> a, int k0, int count) {
     p.maxc = max(block_max(m, red_max), a.offgrid_max[p.gid]);
   }
   const GlobalSlots<T> s{a};
+  int fit = 0;
+  U bits = 0;
   for (int n = threadIdx.x; n < a.N; n += nthreads) {
     const T t = node_total<T, HAS_SPREAD>(a, p, s, n, n);
-    vals[n] = fits<T, false>(a, p, s, n, n)
-                  ? wadd(wmul(t, (T)a.N), (T)s.tie_rank(n)) : (T)-1;
+    const T v = fits<T, false>(a, p, s, n, n)
+                    ? wadd(wmul(t, (T)a.N), (T)s.tie_rank(n)) : (T)-1;
+    vals[n] = v;
+    if (v >= 0) {
+      ++fit;
+      bits |= (U)v;
+    }
+  }
+  // the fitting slots and the bits their composites set
+  fit = __reduce_add_sync(~0u, fit);
+  const unsigned lo = __reduce_or_sync(~0u, (unsigned)bits);
+  const unsigned hi = sizeof(T) == 8
+      ? __reduce_or_sync(~0u, (unsigned)((unsigned long long)bits >> 32))
+      : 0u;
+  if (lane == 0) {
+    red_n[warp] = fit;
+    red_or[0][warp] = lo;
+    red_or[1][warp] = hi;
+  }
+  if (threadIdx.x == 0) {
+    s_prefix = 0;
+    s_mask = 0;
+    s_sprefix = 0;
+    s_smask = 0;
+    s_sel = 0;
   }
   __syncthreads();
-  T mine = (T)-1;
-  int mine_j = INT_MAX;
-  for (int n = threadIdx.x; n < a.N; n += nthreads) {
-    const T v = vals[n];
-    if (v >= 0 && beats(v, n, mine, mine_j)) { mine = v; mine_j = n; }
+  int M = 0;
+  unsigned long long any = 0;
+  for (int w = 0; w < nwarps; ++w) {
+    M += red_n[w];
+    any |= ((unsigned long long)red_or[1][w] << 32) | red_or[0][w];
   }
-  T* out_c = a.total + (size_t)blockIdx.x * count;
-  int* out_n = a.spec_nodes + (size_t)blockIdx.x * count;
-  const int L = min((int)blockIdx.x + 1, count);
-  int r = 0;
-  for (; r < L; ++r) {
-    T c = mine;
-    int j = mine_j;
-    warp_best(c, j);
-    const int b = r & 1;
-    if (lane == 0) {
-      red_c[b][warp] = (long long)c;
-      red_j[b][warp] = j;
+  const int K = min(q + 1, count);
+  if (M > K) {
+    // radix select of the K-th largest key: the composite's digits from
+    // the highest set bit down, then the slot's (N - 1 - n, two digits),
+    // where composites tie
+    const int top = 63 - __clzll((long long)any);   // any > 0: M > 0
+    int left = K;
+    for (int level = top / 8 + 2; level >= 0; --level) {
+      const bool slot_level = level < 2;
+      const int shift = slot_level ? 8 * level : 8 * (level - 2);
+      const U prefix = s_prefix, mask = s_mask;
+      const int sprefix = s_sprefix, smask = s_smask;
+      for (int base = 0; base < a.N; base += nthreads) {
+        // one atomic a digit a warp: the lanes holding it counted
+        const int n = base + threadIdx.x;
+        int digit = -1;
+        if (n < a.N) {
+          const T v = vals[n];
+          const int key2 = a.N - 1 - n;
+          if (v >= 0 && ((U)v & mask) == prefix
+              && (key2 & smask) == sprefix)
+            digit = slot_level ? (key2 >> shift) & 255
+                               : (int)(((U)v >> shift) & 255);
+        }
+        const unsigned same = __match_any_sync(~0u, digit);
+        if (digit >= 0 && lane == __ffs(same) - 1)
+          atomicAdd(&hist[digit], __popc(same));
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // lane l holds bins 255 - 8l .. 248 - 8l, the largest digit first
+        int h[8], sum = 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          h[i] = hist[255 - 8 * lane - i];
+          hist[255 - 8 * lane - i] = 0;
+          sum += h[i];
+        }
+        int cum = sum;   // inclusive scan over the lanes
+        for (int o = 1; o < 32; o <<= 1) {
+          const int x = __shfl_up_sync(~0u, cum, o);
+          if (lane >= o) cum += x;
+        }
+        const unsigned hit = __ballot_sync(~0u, cum >= left);
+        const int src = __ffs(hit) - 1;
+        if (lane == src) {
+          // the bin the wanted entry falls in (constant indices: h stays
+          // in registers)
+          int above = cum - sum, i = -1, hi = 0;
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            if (i < 0 && above + h[t] >= left) {
+              i = t;
+              hi = h[t];
+            } else if (i < 0) {
+              above += h[t];
+            }
+          }
+          const int d = 255 - 8 * lane - i;
+          const int want = left - above;
+          if (slot_level) {
+            s_sprefix = sprefix | (d << shift);
+            s_smask = smask | (255 << shift);
+          } else {
+            s_prefix = prefix | ((U)d << shift);
+            s_mask = mask | ((U)255 << shift);
+          }
+          s_left = want;
+          s_done = hi == want;
+        }
+      }
+      __syncthreads();
+      left = s_left;
+      if (s_done) break;
     }
-    __syncthreads();
-    c = lane < nwarps ? (T)red_c[b][lane] : (T)-1;
-    j = lane < nwarps ? red_j[b][lane] : INT_MAX;
-    warp_best(c, j);
-    if (c < 0) break;                 // no fitting slot is left (uniform)
-    if (threadIdx.x == 0) {
-      out_c[r] = c;
-      out_n[r] = j;
-    }
-    if ((int)threadIdx.x == j % nthreads) {
-      // the owner draws its slot and looks again among its own
-      vals[j] = (T)-1;
-      mine = (T)-1;
-      mine_j = INT_MAX;
-      for (int n = threadIdx.x; n < a.N; n += nthreads) {
-        const T v = vals[n];
-        if (v >= 0 && beats(v, n, mine, mine_j)) { mine = v; mine_j = n; }
+  }
+  // the selected entries: above the chosen digits, or on them
+  {
+    const U prefix = s_prefix, mask = s_mask;
+    const int sprefix = s_sprefix, smask = s_smask;
+    for (int n = threadIdx.x; n < a.N; n += nthreads) {
+      const T v = vals[n];
+      if (v < 0) continue;
+      const U m = (U)v & mask;
+      if (m > prefix || (m == prefix && ((a.N - 1 - n) & smask) >= sprefix)) {
+        const int at = atomicAdd(&s_sel, 1);
+        sel_c[at] = v;
+        sel_n[at] = n;
       }
     }
   }
-  for (int q = r + threadIdx.x; q < count; q += nthreads) {
-    out_c[q] = (T)-1;
-    out_n[q] = -1;
+  __syncthreads();
+  // each entry at its rank: two threads an entry, each counting half
+  const int S = s_sel;
+  T* out_c = a.total + (size_t)q * count;
+  int* out_n = a.spec_nodes + (size_t)q * count;
+  for (int base = 0; base < S; base += nthreads >> 1) {
+    const int e = base + (threadIdx.x >> 1), half = threadIdx.x & 1;
+    T c = (T)-1;
+    int j = INT_MAX, rank = 0;
+    if (e < S) {
+      c = sel_c[e];
+      j = sel_n[e];
+      for (int x = half; x < S; x += 2)
+        rank += beats(sel_c[x], sel_n[x], c, j);
+    }
+    rank += __shfl_xor_sync(~0u, rank, 1);
+    if (e < S && half == 0) {
+      out_c[rank] = c;
+      out_n[rank] = j;
+    }
+  }
+  for (int r = S + threadIdx.x; r < count; r += nthreads) {
+    out_c[r] = (T)-1;
+    out_n[r] = -1;
   }
 }
 
+template <typename T, bool HAS_SPREAD>
+__global__ void __launch_bounds__(PROBE_BLOCK_THREADS)
+spec_pass_kernel(const Params<T> a, int k0, int count) {
+  spec_pass_block<T, HAS_SPREAD>(a, k0, count);
+}
+
+// the same at one block an SM (the int64 instantiation on the spread
+// tier, which spills at two blocks' 64 registers; off the timed paths:
+// the e2e chunk and the engine fixtures narrow to int32)
+template <typename T, bool HAS_SPREAD>
+__global__ void __launch_bounds__(PROBE_BLOCK_THREADS, 1)
+spec_pass_kernel_1(const Params<T> a, int k0, int count) {
+  spec_pass_block<T, HAS_SPREAD>(a, k0, count);
+}
+
+// record i of `src` into `dst`, the lanes of a warp over its words
+template <typename T>
+__device__ __forceinline__ void copy_record(const Params<T>& a,
+                                            Deltas<T>& dst,
+                                            const Deltas<T>& src, int i,
+                                            int lane) {
+  if (lane == 0) {
+    dst.cpu_used[i] = src.cpu_used[i];
+    dst.mem_used[i] = src.mem_used[i];
+    dst.nz_cpu[i] = src.nz_cpu[i];
+    dst.nz_mem[i] = src.nz_mem[i];
+    dst.pod_count[i] = src.pod_count[i];
+  }
+  for (int w = lane; w < a.PW; w += 32)
+    dst.ports[i * a.PW + w] = src.ports[i * a.PW + w];
+  for (int w = lane; w < a.K; w += 32) {
+    dst.dany[i * a.K + w] = src.dany[i * a.K + w];
+    dst.drw[i * a.K + w] = src.drw[i * a.K + w];
+  }
+  for (int g = lane; g < dst.groups; g += 32)
+    dst.spread[i * dst.groups + g] = src.spread[i * dst.groups + g];
+}
+
 // K6b: the speculative repair of pods [k0, k0 + count), one CTA walking
-// them in order (JAX _spec_step). For pod k the frozen side is its top
-// list from K6a (row k of `total` / `spec_nodes`): its first k + 1
-// entries, each offered where no earlier pod of the block took its slot
-// (the largest of those is the pod's largest untouched composite); the
-// rescored side is the slots the earlier pods took, each rescored
-// against the live State with the group max overridden by the block-
-// start max_start (exact while the group's latch is unset). A slot is
-// copied into shared memory (K1's SharedSlots, load_slot) the first time
-// a pod of the block is committed there, into index k, and rescored and
-// committed there from then on, then written back at the end
-// (store_slot); slot_of[n] names its index, node_of[k] its slot. Thread
-// t reads list entry t (the next pod's entry is loaded while this pod
-// is reduced) and thread blockDim.x - 1 - i rescores copy i, so at 256
-// pods a block (SPEC_BLOCK) each does at most one of each. A pod whose
-// group has latched rescores every slot with the live group max (the
-// scan step's selection). The CTA reduces the best (composite, slot) as
-// beats() orders them (composites are injective per slot, so frozen and
-// rescored values never tie), every thread reads the winner, thread 0
-// commits (commit_slot, the spread counts, the latch against max_start
-// read before the commit), and a barrier publishes the commit before
-// the next pod. Invalid (padded) pods commit nothing and write -1;
-// `work_mask`, where given, marks the pods that took the full-width
-// rescore.
+// them in order (JAX _spec_step), as a pipeline one pod deep. Between
+// pod k - 1's pick and pod k's, only slot j(k-1) changes, so each of pod
+// k's candidates but that one is known once commit k - 2 is in: its
+// frozen entries (row k of `total` / `spec_nodes`, K6a's top list) on
+// the slots no earlier pod took, and its rescores of the slots pods 0 ..
+// k - 2 took. And pod k's score on j(k-1) can be taken before j(k-1) is
+// known: j(k-1) is one of the few candidates of pod k - 1's pick, and
+// the State there after commit k - 1 is the State before it plus pod
+// k - 1's request, whichever it is. Step k runs two roles at once:
+//   the chain (warp 0)   pod k: from each producer warp its best less
+//                        the entry on j(k-1), the best of those against
+//                        pod k's as-if score on j(k-1) -> j(k); its
+//                        outputs and the spread latch; the commit, into
+//                        the other of two sets of records (below);
+//   the producers (the   pod k + 1: its frozen entries on the slots no
+//   warps on the other   pod before k took and its rescores of the
+//   three schedulers)    slots pods 0 .. k - 1 took (one a thread), each
+//                        warp's best two; the last producer warp: pod
+//                        k + 1's as-if scores on the candidates of pod
+//                        k's pick (every producer warp's two and j(k-1))
+//                        with pod k committed there;
+// and one __syncthreads publishes commit k and pod k + 1's pairs. The
+// producers read slot_of[j(k)] while the chain marks it taken: whatever
+// they make of it, the entry on j(k) is the one the chain drops at step
+// k + 1, and composites are injective per slot, so each warp's best two
+// less one slot hold its best of the rest. So no f64 score is left on
+// the chain: it rescores j(k-1) itself only where no as-if score was
+// taken (after a pod that took the full width). A slot's State is the
+// tables' plus the block's commits to it (Deltas: one record a taken
+// slot, in the order they were taken; the record `count` stays zero for
+// the others), so a commit is a few adds in shared memory and no load:
+// the tables are written once, at the end. The records come in two
+// sets: step k reads one (the commits before pod k) while the chain
+// makes the other from it, which differs only in commit k - 1's record
+// and commit k's, so no reader waits for the commit. Unflagged spread
+// pods score with the block-start group max (max_start); a pod whose
+// group has latched (a commit lifted a count past max_start; the chain
+// decides it for pod k + 1 after the latch of commit k) takes the
+// full-width rescore against the live State and the live group max in
+// its step, every warp, then the chain commits as usual. Invalid
+// (padded) pods commit nothing and write -1; `work_mask`, where given,
+// marks the pods that took the full-width rescore.
 template <typename T, bool HAS_SPREAD>
 __global__ void __launch_bounds__(SPEC_REPAIR_THREADS, 1)
 spec_repair_kernel(const Params<T> a, int k0, int count) {
@@ -1419,23 +1785,49 @@ spec_repair_kernel(const Params<T> a, int k0, int count) {
   __shared__ long long red_c[2][32];
   __shared__ int red_j[2][32];
   __shared__ int red_m[33];
+  // by the parity of the pod they serve: each producer warp's best two;
+  // the as-if scores (pod k's composite on each candidate of pod k - 1's
+  // pick, as if pod k - 1 were committed there) and their slots; the
+  // records the pods before pod k took; j(k-1); whether pod k takes the
+  // full width
+  __shared__ long long two_c[2][32][2];
+  __shared__ int two_j[2][32][2];
+  __shared__ long long asif_c[2][32];
+  __shared__ int asif_j[2][32];
+  __shared__ int taken_at[2];
+  __shared__ int pick_at[2];
+  __shared__ int slow_at[2];
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int tid = threadIdx.x;
   const int E = pod_words<T, HAS_SPREAD, false, false>(a);
-  // spec_need_bytes: the taken slots' copies, the pod rows, two words a
-  // group, a slot a pod, an index a slot
-  SharedSlots<T> c;
-  c.flags_ = carve(c, smem, count, a.L, a.PW, a.K);
-  const long long cbytes =
-      ((long long)count * slot_bytes<T>(a.L, a.PW, a.K) + 3) & ~3LL;
-  uint32_t* rows = (uint32_t*)(smem + cbytes);        // [count][E]
-  int* max_start = (int*)(rows + (size_t)count * E);  // [G]
-  int* flag = max_start + a.G;                        // [G]
-  int* node_of = flag + a.G;                          // [count]
-  uint16_t* slot_of = (uint16_t*)(node_of + count);   // [N] index + 1
-  for (int e = tid; e < count * E; e += nthreads)
-    rows[e] = pod_word<T, HAS_SPREAD, false, false>(a, k0 + e / E, e % E);
+  // spec_kernel.repair_bytes: two sets of count + 1 records (step k
+  // reads d0 or d1 by its parity, the commits before pod k, and makes
+  // the other from it), the pod rows, two words a group, a slot a
+  // record, a record a slot
+  Deltas<T> d0, d1;
+  uint8_t* end = carve(d0, smem, count + 1, a.PW, a.K, HAS_SPREAD ? a.G : 0);
+  end = smem + ((end - smem + 7) & ~(ptrdiff_t)7);   // the T arrays
+  end = carve(d1, end, count + 1, a.PW, a.K, HAS_SPREAD ? a.G : 0);
+  uint32_t* rows = (uint32_t*)end;                      // [count][E]
+  int* max_start = (int*)(rows + (size_t)count * E);   // [G]
+  int* flag = max_start + a.G;                          // [G]
+  int* node_of = flag + a.G;                            // [count]
+  uint16_t* slot_of = (uint16_t*)(node_of + count);     // [N] record + 1
+  for (uint32_t* w = (uint32_t*)smem + tid; w < (uint32_t*)end;
+       w += nthreads)
+    *w = 0;
+  // the pod rows, a word of every pod at a time: the lanes read one field
+  // of 32 pods (one type, neighbouring addresses) and the loads go out
+  // together
+  for (int e = warp; e < E; e += nwarps)
+    for (int k = lane; k < count; k += 32) {
+      bool byte;
+      const void* src =
+          pod_src<T, HAS_SPREAD, false, false>(a, k0 + k, e, &byte);
+      rows[(size_t)k * E + e] = byte ? (uint32_t)*(const uint8_t*)src
+                                     : *(const uint32_t*)src;
+    }
   for (int n = tid; n < a.N; n += nthreads) slot_of[n] = 0;
   for (int i = tid; i < count; i += nthreads) node_of[i] = -1;
   if (HAS_SPREAD)
@@ -1449,109 +1841,269 @@ spec_repair_kernel(const Params<T> a, int k0, int count) {
         flag[g] = 0;
       }
     }
-  const GlobalSlots<T> s{a};
-  // list entry `tid` of the pod being repaired (one ahead)
-  T nc = tid < count ? a.total[tid] : (T)-1;
-  int nn = tid < count ? a.spec_nodes[tid] : -1;
-  __syncthreads();
-  for (int k = 0; k < count; ++k) {
-    Pod<T> p = read_pod<T, HAS_SPREAD, false, false>(a, rows + (size_t)k * E);
-    const T fc = nc;
-    const int fn = nn;
-    if (tid < count && k + 1 < count) {
-      nc = a.total[(size_t)(k + 1) * count + tid];
-      nn = a.spec_nodes[(size_t)(k + 1) * count + tid];
-    }
-    T best = (T)-1;
-    int best_j = INT_MAX;
-    bool slow = false;
-    if (p.valid) {
-      slow = HAS_SPREAD && p.group_id >= 0 && flag[p.gid] != 0;
-      if (slow) {
-        // the group max moved since the block start: every slot against
-        // the live State and the live group max
-        const int* srow = a.spread + (size_t)p.gid * a.N;
-        int m = INT_MIN;
-        for (int n = tid; n < a.N; n += nthreads) m = max(m, srow[n]);
-        p.maxc = max(block_max(m, red_m), a.offgrid_max[p.gid]);
-        for (int n = tid; n < a.N; n += nthreads) {
-          const int i = (int)slot_of[n] - 1;
-          if (i >= 0) {
-            const T total = node_total<T, true>(a, p, c, i, n);
-            if (fits<T, false>(a, p, c, i, n))
-              offer(a, total, c.tie_rank(i), n, best, best_j);
-          } else {
-            const T total = node_total<T, true>(a, p, s, n, n);
-            if (fits<T, false>(a, p, s, n, n))
-              offer(a, total, s.tie_rank(n), n, best, best_j);
-          }
-        }
-      } else {
-        if (HAS_SPREAD && p.group_id >= 0) p.maxc = max_start[p.gid];
-        if (tid <= k && fc >= 0 && slot_of[fn] == 0 &&
-            beats(fc, fn, best, best_j)) {
-          best = fc;
-          best_j = fn;
-        }
-        for (int r = tid + nthreads; r <= k; r += nthreads) {
-          const T v = a.total[(size_t)k * count + r];
-          const int n = a.spec_nodes[(size_t)k * count + r];
-          if (v >= 0 && slot_of[n] == 0 && beats(v, n, best, best_j)) {
-            best = v;
-            best_j = n;
-          }
-        }
-        for (int i = nthreads - 1 - tid; i < k; i += nthreads) {
-          const int n = node_of[i];
-          if (n < 0) continue;
-          const T total = node_total<T, HAS_SPREAD>(a, p, c, i, n);
-          if (fits<T, false>(a, p, c, i, n))
-            offer(a, total, c.tie_rank(i), n, best, best_j);
-        }
-      }
-    }
-    // the CTA's best, read by every thread
-    warp_best(best, best_j);
-    const int b = k & 1;
-    if (lane == 0) {
-      red_c[b][warp] = (long long)best;
-      red_j[b][warp] = best_j;
-    }
-    __syncthreads();
-    T cb = lane < nwarps ? (T)red_c[b][lane] : (T)-1;
-    int j = lane < nwarps ? red_j[b][lane] : INT_MAX;
-    warp_best(cb, j);
-    if (tid == 0) {
-      if (cb >= 0) {
-        // the commit, into the slot's copy (taken into index k the first
-        // time), latching the groups whose count passes the block-start
-        // max
-        int i = (int)slot_of[j] - 1;
-        if (i < 0) {
-          i = k;
-          load_slot(a, c, i, j);
-          slot_of[j] = (uint16_t)(k + 1);
-          node_of[k] = j;
-        }
-        commit_slot(a, p, &c.cpu_used_[i], &c.mem_used_[i], &c.nz_cpu_[i],
-                    &c.nz_mem_[i], &c.pod_count_[i], &c.ports_[i * a.PW],
-                    &c.dany_[i * a.K], &c.drw_[i * a.K]);
-        if (HAS_SPREAD)
-          for (int g = 0; g < a.G; ++g) {
-            const int before = a.spread[(size_t)g * a.N + j];
-            const int add = p.member[g];
-            if (add > 0 && before + add > max_start[g]) flag[g] = 1;
-            a.spread[(size_t)g * a.N + j] = before + add;
-          }
-      }
-      a.assigned[k0 + k] = cb >= 0 ? j : -1;
-      if (a.work_mask != nullptr) a.work_mask[k0 + k] = slow;
-    }
-    __syncthreads();                  // the commit, published
+  if (tid < 2) {
+    taken_at[tid] = 0;
+    pick_at[tid] = -1;
+    slow_at[tid] = 0;
   }
-  // the taken slots' State back, once
-  for (int i = tid; i < count; i += nthreads)
-    if (node_of[i] >= 0) store_slot(a, c, i, node_of[i]);
+  for (int i = tid; i < 64; i += nthreads) asif_j[i >> 5][i & 31] = -1;
+  // The chain is warp 0, the producers the warps on the SM's other three
+  // schedulers (a CTA's warp w issues from scheduler w % 4), so none
+  // takes the chain's issue slots; the chain's other warps only meet the
+  // barriers.
+  // Producer thread pt: list entry pt of the pod it prepares, read one
+  // pod ahead, and record pt's rescore; the last producer warp (no entry
+  // and no record: spec_dispatch) takes the as-if scores.
+  const bool producer = (warp & 3) != 0;
+  const int nprod = nwarps - (nwarps + 3) / 4;        // producer warps
+  const int pw = warp - 1 - (warp >> 2);              // this one's index
+  const int pt = 32 * pw + lane;
+  const int ncand = 2 * nprod + 1;                    // a pick's candidates
+  T nc = (T)-1;
+  int nn = -1;
+  if (producer && pt < count) {
+    nc = a.total[pt];
+    nn = a.spec_nodes[pt];
+  }
+  int jprev = -1;                   // the chain's j(k - 1)
+  int iprev = -1;                   // the record commit k - 1 changed
+  int taken = 0;                    // the chain's records in use
+  __syncthreads();
+  for (int k = -1; k < count; ++k) {
+    const int m = k + 1;            // the pod the producers prepare
+    const Deltas<T> cur = k & 1 ? d1 : d0;
+    bool slow = false;
+    Pod<T> p;
+    T fb = (T)-1;
+    int fj = INT_MAX;
+    if (k >= 0) {
+      p = read_pod<T, HAS_SPREAD, false, false>(a, rows + (size_t)k * E);
+      slow = HAS_SPREAD && slow_at[k & 1];
+      if (HAS_SPREAD && slow) {
+        // the group max moved since the block start: every slot against
+        // the live State and the live group max, every warp
+        int mx = INT_MIN;
+        for (int n = tid; n < a.N; n += nthreads) {
+          const int i = slot_of[n] ? slot_of[n] - 1 : count;
+          mx = max(mx, a.spread[(size_t)p.gid * a.N + n]
+                           + cur.spread[i * a.G + p.gid]);
+        }
+        p.maxc = max(block_max(mx, red_m), a.offgrid_max[p.gid]);
+        for (int n = tid; n < a.N; n += nthreads) {
+          const RegSlot<T> r = reg_slot<T, true>(
+              a, p, LiveSlot<T>{a, cur, slot_of[n] ? slot_of[n] - 1 : count,
+                                nullptr}, n);
+          const T total = node_total<T, true>(a, p, r, n, n);
+          if (fits_reg(p, r, n)) offer(a, total, r.tie_rank_, n, fb, fj);
+        }
+        warp_best(fb, fj);
+        if (lane == 0) {
+          red_c[k & 1][warp] = (long long)fb;
+          red_j[k & 1][warp] = fj;
+        }
+        __syncthreads();
+        fb = lane < nwarps ? (T)red_c[k & 1][lane] : (T)-1;
+        fj = lane < nwarps ? red_j[k & 1][lane] : INT_MAX;
+        warp_best(fb, fj);
+      }
+    }
+    if (warp == 0) {
+      int j = -1, i = -1;
+      if (k >= 0) {
+        // the chain: pod k's pick
+        T best = (T)-1;
+        int bj = INT_MAX;
+        if (p.valid) {
+          if (slow) {
+            best = fb;
+            bj = fj;
+          } else {
+            if (HAS_SPREAD && p.group_id >= 0) p.maxc = max_start[p.gid];
+            // each producer warp's best less the entry on j(k-1), then
+            // the best of those and of pod k's score on j(k-1): the
+            // as-if score where one was taken, else its own rescore
+            const int par = k & 1;
+            if (lane < nprod) {
+              const int x = two_j[par][lane][0] == jprev;
+              best = (T)two_c[par][lane][x];
+              bj = two_j[par][lane][x];
+            }
+            warp_best(best, bj);
+            if (jprev >= 0) {
+              const unsigned hit = __ballot_sync(
+                  ~0u, lane < ncand && asif_j[par][lane] == jprev);
+              T c = (T)-1;
+              if (hit) {
+                c = (T)asif_c[par][__ffs(hit) - 1];
+              } else {
+                const RegSlot<T> r = reg_slot<T, HAS_SPREAD>(
+                    a, p, LiveSlot<T>{a, cur, slot_of[jprev] - 1, nullptr},
+                    jprev);
+                const T total = node_total<T, HAS_SPREAD>(a, p, r, jprev,
+                                                          jprev);
+                if (fits_reg(p, r, jprev))
+                  c = wadd(wmul(total, (T)a.N), (T)r.tie_rank_);
+              }
+              if (c >= 0 && beats(c, jprev, best, bj)) {
+                best = c;
+                bj = jprev;
+              }
+            }
+          }
+        }
+        j = best >= 0 ? bj : -1;
+        if (j >= 0) {
+          // slot j's record (the next free one the first time); the
+          // groups whose count the commit lifts past the block-start max
+          // latch
+          i = (int)slot_of[j] - 1;
+          if (i < 0) {
+            i = taken++;
+            if (lane == 0) {
+              slot_of[j] = (uint16_t)(i + 1);
+              node_of[i] = j;
+            }
+          }
+          if (HAS_SPREAD)
+            for (int g = lane; g < a.G; g += 32) {
+              const int add = p.member[g];
+              if (add > 0 && a.spread[(size_t)g * a.N + j]
+                                 + cur.spread[i * a.G + g] + add
+                             > max_start[g])
+                flag[g] = 1;
+            }
+        }
+        if (lane == 0) {
+          a.assigned[k0 + k] = j;
+          if (a.work_mask != nullptr) a.work_mask[k0 + k] = slow;
+        }
+        jprev = j;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        taken_at[m & 1] = taken;
+        pick_at[m & 1] = jprev;
+        if (HAS_SPREAD && m < count) {
+          // whether pod k + 1 takes the full width, after commit k
+          const uint32_t* r = rows + (size_t)m * E;
+          const int gid = (int)r[3];
+          slow_at[m & 1] = r[0] != 0 && gid >= 0 && flag[gid] != 0;
+        }
+      }
+      // the commit into the other set of records, which the producers
+      // do not read: it differs from this step's by commit k - 1's record
+      // and commit k's
+      Deltas<T> nxt = k & 1 ? d0 : d1;
+      if (iprev >= 0 && iprev != i) copy_record(a, nxt, cur, iprev, lane);
+      if (j >= 0) {
+        copy_record(a, nxt, cur, i, lane);
+        __syncwarp();
+        if (lane == 0)
+          commit_slot(a, p, &nxt.cpu_used[i], &nxt.mem_used[i],
+                      &nxt.nz_cpu[i], &nxt.nz_mem[i], &nxt.pod_count[i],
+                      &nxt.ports[i * a.PW], &nxt.dany[i * a.K],
+                      &nxt.drw[i * a.K]);
+        if (HAS_SPREAD)
+          for (int g = lane; g < a.G; g += 32)
+            nxt.spread[i * a.G + g] += p.member[g];
+      }
+      iprev = i;
+    } else if (producer && m < count) {
+      // the producers: pod m's candidates as commit k - 1 left them, its
+      // frozen entries on the slots no pod before k took and its
+      // rescores of the records those pods took; each warp's best two
+      Pod<T> q = read_pod<T, HAS_SPREAD, false, false>(
+          a, rows + (size_t)m * E);
+      if (HAS_SPREAD && q.group_id >= 0) q.maxc = max_start[q.gid];
+      T c1 = (T)-1, c2 = (T)-1;
+      int j1 = INT_MAX, j2 = INT_MAX;
+      if (pt <= m && nc >= 0 && slot_of[nn] == 0) {
+        c1 = nc;
+        j1 = nn;
+      }
+      if (pt < taken_at[k & 1]) {
+        const int n = node_of[pt];
+        const RegSlot<T> r = reg_slot<T, HAS_SPREAD>(
+            a, q, LiveSlot<T>{a, cur, pt, nullptr}, n);
+        const T total = node_total<T, HAS_SPREAD>(a, q, r, n, n);
+        if (fits_reg(q, r, n)) {
+          T c = (T)-1;
+          int cj = INT_MAX;
+          offer(a, total, r.tie_rank_, n, c, cj);
+          if (c >= 0) {
+            if (beats(c, cj, c1, j1)) {
+              c2 = c1; j2 = j1; c1 = c; j1 = cj;
+            } else {
+              c2 = c; j2 = cj;
+            }
+          }
+        }
+      }
+      if (pw == nprod - 1) {
+        // pod m's composite on each candidate x of pod k's pick (each
+        // producer warp's two, and j(k-1)), as if pod k were committed
+        // there: its score on j(k) at step m whatever j(k) turns out
+        int x = -1;
+        if (k >= 0 && p.valid && !slow && lane < ncand)
+          x = lane < 2 * nprod ? two_j[k & 1][lane >> 1][lane & 1]
+                               : pick_at[k & 1];
+        T c = (T)-1;
+        if (x >= 0 && x < a.N) {
+          const RegSlot<T> r = reg_slot<T, HAS_SPREAD>(
+              a, q, LiveSlot<T, true>{a, cur,
+                                      slot_of[x] ? slot_of[x] - 1 : count,
+                                      &p}, x);
+          const T total = node_total<T, HAS_SPREAD>(a, q, r, x, x);
+          if (fits_reg(q, r, x))
+            c = wadd(wmul(total, (T)a.N), (T)r.tie_rank_);
+        } else {
+          x = -1;
+        }
+        if (lane < ncand) {
+          asif_c[m & 1][lane] = (long long)c;
+          asif_j[m & 1][lane] = x;
+        }
+      }
+      // list entry pt of pod m + 1, for the next step
+      if (pt < count && m + 1 < count) {
+        nc = a.total[(size_t)(m + 1) * count + pt];
+        nn = a.spec_nodes[(size_t)(m + 1) * count + pt];
+      }
+      T b1 = c1;
+      int bj1 = j1;
+      warp_best(b1, bj1);
+      T b2 = j1 == bj1 ? c2 : c1;
+      int bj2 = j1 == bj1 ? j2 : j1;
+      warp_best(b2, bj2);
+      if (lane == 0) {
+        two_c[m & 1][pw][0] = (long long)b1;
+        two_j[m & 1][pw][0] = bj1;
+        two_c[m & 1][pw][1] = (long long)b2;
+        two_j[m & 1][pw][1] = bj2;
+      }
+    }
+    __syncthreads();                  // commit k and pod k + 1's pairs
+  }
+  // the taken slots' State back, once: the tables' plus the records
+  const Deltas<T> fin = count & 1 ? d1 : d0;
+  for (int i = tid; i < count; i += nthreads) {
+    const int n = node_of[i];
+    if (n < 0) continue;
+    a.cpu_used[n] = wadd(a.cpu_used[n], fin.cpu_used[i]);
+    a.mem_used[n] = wadd(a.mem_used[n], fin.mem_used[i]);
+    a.nz_cpu[n] = wadd(a.nz_cpu[n], fin.nz_cpu[i]);
+    a.nz_mem[n] = wadd(a.nz_mem[n], fin.nz_mem[i]);
+    a.pod_count[n] += fin.pod_count[i];
+    for (int w = 0; w < a.PW; ++w)
+      a.port_bits[(size_t)n * a.PW + w] |= fin.ports[i * a.PW + w];
+    for (int w = 0; w < a.K; ++w) {
+      a.disk_any[(size_t)n * a.K + w] |= fin.dany[i * a.K + w];
+      a.disk_rw[(size_t)n * a.K + w] |= fin.drw[i * a.K + w];
+    }
+    if (HAS_SPREAD)
+      for (int g = 0; g < a.G; ++g)
+        a.spread[(size_t)g * a.N + n] += fin.spread[i * a.G + g];
+  }
 }
 
 // barrier.cluster split in two: this CTA is done reading the others'
@@ -1932,27 +2484,55 @@ static cudaError_t spec_dispatch(int kind, int k0, int count, int threads,
     return cudaErrorInvalidValue;
   const long long E = 5 + 4 * (long long)(sizeof(T) / 4) + a.L + a.PW
                       + 4LL * a.K + (HAS_SPREAD ? a.G : 0);
+  // the dynamic shared memory each kernel is opened to, at any size: a
+  // launch whose static and dynamic shared memory together pass 48 KB
+  // needs it too (set_attributes opens only past 48 KB of dynamic)
   static long long set[2] = {-1, -1};   // K6a's, K6b's
+  auto open_smem = [&](auto kernel, int which) {
+    cudaError_t e = cudaSuccess;
+    if ((long long)smem > set[which]) {
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e == cudaSuccess) set[which] = (long long)smem;
+    }
+    return e;
+  };
   cudaError_t err;
+  if (count > SPEC_TOP_MAX) return cudaErrorInvalidValue;
   if (kind == 0) {
-    // the pod's row and its N composites
-    if ((long long)smem < ((4 * E + 7) & ~7LL) + (long long)sizeof(T) * a.N)
+    // spec_kernel.pass_bytes: the pod's row, its N composites, the
+    // selected entries and the histogram; the slot digits are two bytes
+    if (a.N > 65536
+        || (long long)smem < ((4 * E + 7) & ~7LL)
+                             + (long long)sizeof(T) * (a.N + SPEC_TOP_MAX)
+                             + 4LL * (SPEC_TOP_MAX + 256))
       return cudaErrorInvalidValue;
-    auto kernel = spec_pass_kernel<T, HAS_SPREAD>;
-    err = set_attributes(kernel, smem, false, &set[0]);
-    if (err != cudaSuccess) return err;
-    kernel<<<count, threads, smem, stream>>>(a, k0, count);
-    return cudaGetLastError();
+    auto launch = [&](auto kernel) {
+      cudaError_t e = open_smem(kernel, 0);
+      if (e != cudaSuccess) return e;
+      kernel<<<count, threads, smem, stream>>>(a, k0, count);
+      return cudaGetLastError();
+    };
+    if constexpr (sizeof(T) == 8 && HAS_SPREAD)
+      return launch(spec_pass_kernel_1<T, HAS_SPREAD>);
+    else
+      return launch(spec_pass_kernel<T, HAS_SPREAD>);
   }
-  // spec_need_bytes: the taken slots' copies, the pod rows, two words a
-  // group, a slot a pod, an index a slot
-  const long long cbytes =
-      ((long long)count * slot_bytes<T>(a.L, a.PW, a.K) + 3) & ~3LL;
-  if ((long long)smem < cbytes + 4 * count * E + 8LL * a.G + 4LL * count
-                            + 2LL * a.N)
+  // spec_kernel.repair_bytes: two sets of count + 1 records, the pod
+  // rows, two words a group, a slot a pod, a record a slot; a producer
+  // thread (but the last producer warp's) a list entry and a record
+  const long long gs = HAS_SPREAD ? a.G : 0;
+  const long long set_bytes = (count + 1LL)
+      * (4LL * (long long)sizeof(T) + 4 * (1 + a.PW + 2LL * a.K + gs));
+  const long long rec = ((set_bytes + 7) & ~7LL) + set_bytes;
+  const int warps = threads / 32;
+  if (threads % 32 != 0 || threads > SPEC_REPAIR_THREADS
+      || 32 * (warps - (warps + 3) / 4 - 1) < count
+      || (long long)smem < rec + 4 * count * E + 8LL * a.G + 4LL * count
+                               + 2LL * a.N)
     return cudaErrorInvalidValue;
   auto kernel = spec_repair_kernel<T, HAS_SPREAD>;
-  err = set_attributes(kernel, smem, false, &set[1]);
+  err = open_smem(kernel, 1);
   if (err != cudaSuccess) return err;
   kernel<<<1, threads, smem, stream>>>(a, k0, count);
   return cudaGetLastError();

@@ -34,11 +34,20 @@ tier stays eligible (BatchEngine's route, as JAX `_get_run`).
     assigned = spec_chunk(a, weights, has_spread)          # both, a chunk
 
 Source: `csrc/scan_kernel.cu` (beside K1 and K5, whose device helpers
-fits / node_total / beats / offer / commit_slot it shares). K6b is one
-CTA that walks the block and reads each pod's whole composite row: the
-top-(b + 1) list a pod would need (pod k sees at most k touched nodes)
-is not built; the slots the block's pods take are rescored from a copy in
-shared memory (K1's SharedSlots). Bound: operations and bytes
+fits / node_total / beats / offer / commit_slot it shares). K6a draws
+each pod's top list (its k + 1 largest fitting composites: pod k sees
+at most k touched slots, so its largest untouched one is among them) by
+a radix select of the (k + 1)-th largest key and a rank placement, in a
+time that does not grow with k. K6b is one CTA run as a pipeline one pod
+deep: while its chain warp picks and commits pod k, the producer warps
+take pod k + 1's best two over its candidates as commit k - 1 left them
+(its list's entries on untouched slots, its rescores of the taken ones)
+and its score on each slot pod k may take, as if pod k were committed
+there; the chain then drops the entry on pod k's slot and reads its
+as-if score, so no f64 score stays on the chain. The block's commits
+stay in shared memory as a record a taken slot (added to the tables'
+State when read, in two sets so that no reader waits for a commit, and
+written back once at the end). Bound: operations and bytes
 (bounds.spec_bound).
 
 On CPU tensors the wrappers compute the plain versions (`spec_pass_plain`,
@@ -59,9 +68,9 @@ from . import scan_kernel as sk
 # its repair steps rescore at most this many touched nodes. (JAX's
 # SPEC_UNROLL unrolls the repair lax.scan for XLA; a loop here or in the
 # kernel has no counterpart to it.)
-SPEC_BLOCK = 256
+SPEC_BLOCK = 256                   # SPEC_TOP_MAX: the longest top list
 PASS_THREADS = sk.PROBE_THREADS   # K6a runs K5's block-a-pod body
-REPAIR_THREADS = 512               # SPEC_REPAIR_THREADS
+REPAIR_THREADS = 384               # SPEC_REPAIR_THREADS
 PASS, REPAIR = 0, 1                # spec_launch's `kind`
 
 
@@ -290,14 +299,17 @@ def spec_run_plain(a: sk.ScanArgs, weights: Tuple[int, int, int],
 
 def plan(kind: int, d: dict, wide: bool, has_spread: bool,
          count: int) -> sk.LaunchPlan:
-    """K6a (PASS: a block of PASS_THREADS a pod, `count` pods, the pod's
-    row and its N composites in shared memory) or K6b (REPAIR: one CTA
-    of REPAIR_THREADS with repair_bytes of shared memory). Raises
-    ValueError where either's shared memory exceeds the card's."""
-    e = sk.pod_words(d, wide, has_spread, False, False)
+    """K6a (PASS: a block of PASS_THREADS a pod, `count` pods, pass_bytes
+    of shared memory) or K6b (REPAIR: one CTA of REPAIR_THREADS with
+    repair_bytes). Raises ValueError for more than SPEC_BLOCK pods (the
+    longest top list) or where either's shared memory exceeds the
+    card's."""
+    if count > SPEC_BLOCK:
+        raise ValueError(f"speculative block of {count} pods: at most "
+                         f"{SPEC_BLOCK}")
     code = sk.variant(wide, has_spread, False, False)
     if kind == PASS:
-        smem = -(-4 * e // 8) * 8 + (8 if wide else 4) * d["n"]
+        smem = pass_bytes(d, wide, has_spread)
         what = f"speculative pass: {smem} bytes of shared memory for " \
             f"{d['n']} slots"
         p = sk.LaunchPlan(PASS, code, count, PASS_THREADS, smem, 1, 0)
@@ -311,15 +323,30 @@ def plan(kind: int, d: dict, wide: bool, has_spread: bool,
     return p
 
 
-def repair_bytes(d: dict, wide: bool, has_spread: bool, count: int) -> int:
-    """K6b's dynamic shared memory (spec_need_bytes in the source): a
-    copy of each slot a pod of the block takes (K1's SharedSlots, in
-    whole words), the block's pod rows, two words a spread group, a word
-    a pod (the slot its copy holds) and a half-word a slot (the index of
-    its copy)."""
+def pass_bytes(d: dict, wide: bool, has_spread: bool) -> int:
+    """K6a's dynamic shared memory (spec_dispatch in the source): the
+    pod's row (rounded to 8 bytes), its N composites, the selected
+    entries (SPEC_BLOCK composites and slots) and a 256-bin histogram."""
     e = sk.pod_words(d, wide, has_spread, False, False)
-    copies = -(-count * sk.slot_bytes(d, wide) // 4) * 4
-    return copies + 4 * count * e + 8 * d["g"] + 4 * count + 2 * d["n"]
+    t = 8 if wide else 4
+    return -(-4 * e // 8) * 8 + t * (d["n"] + SPEC_BLOCK) \
+        + 4 * (SPEC_BLOCK + 256)
+
+
+def repair_bytes(d: dict, wide: bool, has_spread: bool, count: int) -> int:
+    """K6b's dynamic shared memory (spec_dispatch in the source): two
+    sets of count + 1 records of the block's commits, the second on an
+    8-byte boundary (a record: four resources in the carried type; the
+    pod count, port and disk words and, on the spread tier, the group
+    counts in 32-bit words; the last record stays zero), the block's pod
+    rows, two words a spread group, a word a pod (the slot its record
+    holds) and a half-word a slot (its record)."""
+    e = sk.pod_words(d, wide, has_spread, False, False)
+    g = d["g"] if has_spread else 0
+    record = 4 * (8 if wide else 4) + 4 * (1 + d["pw"] + 2 * d["k"] + g)
+    one = (count + 1) * record          # the second set 8-byte aligned
+    return -(-one // 8) * 8 + one + 4 * count * e + 8 * d["g"] \
+        + 4 * count + 2 * d["n"]
 
 
 class Top(NamedTuple):

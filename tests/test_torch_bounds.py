@@ -398,11 +398,17 @@ def test_profile_kernels_edits_apply_to_the_sources(tmp_path, monkeypatch):
                               pk._phase_edits())).read()
     assert phases.count("victim_dbg[blockIdx.x * 8 +") == 9
     assert "victim_dbg_read" in phases
+    # the K6 probe's anchors match the committed design's kernels
+    assert pk.spec_design(open(scan_kernel.SOURCE).read()) == "pipeline"
     spec = open(pk._variant("spec", scan_kernel.SOURCE,
-                            pk._spec_edits())).read()
-    assert spec.count("spec_dbg[") == 7 and "spec_dbg_read" in spec
-    assert all(f"const long long c{i} = clock64();" in spec
-               for i in range(4))
+                            pk._spec_edits("pipeline"))).read()
+    assert "spec_dbg_read" in spec and "long long dbg[16] = {0};" in spec
+    assert spec.count("atomicAdd((unsigned long long*)&spec_dbg[q]") == 1
+    assert spec.count("k6a_dbg + blockIdx.x * 8") == 1
+    assert all(f"c{i} = clock64();" in spec for i in range(6))
+    latency = open(pk._variant("latency", scan_kernel.SOURCE, [
+        (pk._ERRNAME, pk._LATENCY + pk._ERRNAME)])).read()
+    assert latency.count("score_latency_launch(") == 1
     copies = pk._bounds_variants(scan_kernel.SOURCE)
     assert sorted(copies) == sorted(
         f"{o}_min{m}" for o in ("total_first", "mask_first")

@@ -1028,6 +1028,37 @@ def test_refused_spec_launches_raise_through_run_chunked(cuda):
     assert (got == want).all()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("wide", [False, True])
+def test_spec_latch_mid_block_hands_off_and_back(cuda, wide):
+    """A spread group latches in the middle of a block: its later pods
+    take the full-width rescore while the other groups' pods stay on
+    K6b's pipeline, so the pipeline hands a step to the full width and
+    takes the next one back within the block (the plain run's slow marks
+    show it). The chunk at blocks of 256 equals its plain version
+    (picks, slow marks, State) and K1."""
+    from kubernetes_tpu_torch.kubemark.fixtures import scan_tables
+    from kubernetes_tpu_torch.kubemark.gpu_evidence import (scan_args,
+                                                            spec_parity)
+    from kubernetes_tpu_torch.sched.device import engine as eng
+    from kubernetes_tpu_torch.sched.device import spec_kernel as spk
+    tables = scan_tables(seed=23, p=512, n=5120, wide=wide, groups=3,
+                         terms=0, services=0)
+    w = eng.DEFAULT_WEIGHTS
+    plain = scan_args(*(eng._upload(t, "cpu") for t in tables))
+    slow = torch.zeros(512, dtype=torch.bool)
+    spk.spec_run_plain(plain, w, True, 256, slow)
+    valid = plain.pods.valid.tolist()
+    back = [i for i in range(511) if slow[i] and not slow[i + 1]
+            and valid[i + 1] and (i + 1) % 256]
+    assert back, "no pod returns to the pipeline after a slow one"
+    a = scan_args(*(eng._upload(t, cuda) for t in tables))
+    got = spec_parity(a, w, True, blocks=(256,))
+    assert got["slow"] == int(slow.sum()) > 0
+    assert got["equal"], [f for f, ok in got["fields"].items() if not ok]
+    assert got["max_abs_err"] == 0
+
+
 # ---------------------------------------------------------------- the mesh
 
 

@@ -285,28 +285,48 @@ def test_spec_work_counts_the_repairs_rescores():
 
 
 def test_repair_plan_and_its_shared_memory():
-    """K6b's shared memory: a copy of each slot the block takes, the
-    block's pod rows, two words a spread group, a word a pod, a
-    half-word a slot; K6a's: the pod's row and its N composites; past
-    the card's limit either plan raises."""
+    """K6b's shared memory: two sets of count + 1 records of the block's
+    commits (four resources in the carried type; pod count, port and disk
+    words and, on the spread tier, the group counts), the block's pod
+    rows, two words a spread group, a word a pod, a half-word a slot; one
+    CTA of a chain warp and a producer thread for each list entry; K6a's:
+    the pod's row, its N composites, the selected entries and a
+    histogram; past the card's limit, or past SPEC_BLOCK pods, either
+    plan raises."""
     d = {"p": 256, "n": 5120, "l": 1, "pw": 1, "k": 1, "g": 1, "t": 1,
          "d": 1, "s": 1, "z": 1}
     e = sk.pod_words(d, False, True, False, False)
     assert e == 5 + 4 + 1 + 1 + 4 + 1
     p = spk.plan(spk.REPAIR, d, False, True, 256)
     assert (p.kind, p.grid, p.threads) == (spk.REPAIR, 1, spk.REPAIR_THREADS)
-    copies = 256 * sk.slot_bytes(d, False)
-    assert copies % 4 == 0
-    assert p.smem == copies + 4 * 256 * e + 8 + 4 * 256 + 2 * 5120
+    # a producer thread a list entry and a record: the warps off the
+    # chain warp's scheduler (warp % 4 != 0) but the last (the as-if
+    # scores) cover the longest block (spec_dispatch checks the same)
+    warps = spk.REPAIR_THREADS // 32
+    assert spk.REPAIR_THREADS % 32 == 0
+    assert 32 * (warps - (warps + 3) // 4 - 1) >= spk.SPEC_BLOCK
+    record = 4 * 4 + 4 * (1 + 1 + 2 * 1 + 1)
+    assert 257 * record % 8 == 4   # the second set starts 4 bytes on
+    assert p.smem == 257 * record + 4 + 257 * record + 4 * 256 * e + 8 \
+        + 4 * 256 + 2 * 5120
     assert p.variant == sk.variant(False, True, False, False)
+    # the node-local tier keeps no group counts in its records
+    e0 = sk.pod_words(d, True, False, False, False)
+    r = spk.plan(spk.REPAIR, d, True, False, 7)
+    assert r.smem == 2 * 8 * (4 * 8 + 4 * (1 + 1 + 2)) + 4 * 7 * e0 + 8 \
+        + 4 * 7 + 2 * 5120
     q = spk.plan(spk.PASS, d, True, False, 100)
     e64 = sk.pod_words(d, True, False, False, False)
     assert (q.grid, q.threads, q.smem) == (
-        100, sk.PROBE_THREADS, -(-4 * e64 // 8) * 8 + 8 * 5120)
+        100, sk.PROBE_THREADS,
+        -(-4 * e64 // 8) * 8 + 8 * (5120 + 256) + 4 * (256 + 256))
     with pytest.raises(ValueError, match="shared memory"):
         spk.plan(spk.REPAIR, {**d, "n": 300_000}, False, True, 256)
     with pytest.raises(ValueError, match="shared memory"):
         spk.plan(spk.PASS, {**d, "n": 30_000}, True, True, 256)
+    for kind in (spk.PASS, spk.REPAIR):
+        with pytest.raises(ValueError, match="at most 256"):
+            spk.plan(kind, d, False, True, 257)
 
 
 # --- the top-(k + 1) rule K6a and K6b are built on
@@ -371,3 +391,216 @@ def test_top_lists_hold_each_pods_first_k_plus_one():
     assert n.tolist() == [[2, -1, -1], [1, 0, -1], [3, -1, -1]]
     c, n = spk.spec_top_plain(rows[:, :2], 3)     # fewer slots than pods
     assert c.tolist() == [[5, -1, -1], [8, 3, -1], [-1, -1, -1]]
+
+
+# --- the exactness steps of K6a's selection and K6b's pipeline
+
+
+def _radix_top_model(row, count, q):
+    """K6a's selection as the kernel runs it, in numpy: pod q's K =
+    min(q + 1, count) largest fitting entries of `row` (-1 where not
+    fitting) by a radix select of the K-th largest key (8-bit digits of
+    the composite from its highest set bit, then two of N - 1 - slot
+    where composites tie; a pass stops once the chosen digit's bin holds
+    exactly the entries still wanted), the entries above or on the
+    chosen digits, each put at its rank -> (composites, slots) [count],
+    -1 past them."""
+    n = row.shape[0]
+    valid = row >= 0
+    k = min(q + 1, count)
+    u = np.where(valid, row, 0).astype(np.uint64)
+    key2 = (n - 1 - np.arange(n)).astype(np.int64)
+    prefix = mask = np.uint64(0)
+    sprefix = smask = 0
+    m = int(valid.sum())
+    if m > k:
+        top = int(np.bitwise_or.reduce(u[valid])).bit_length() - 1
+        left = k
+        for level in range(max(top, 0) // 8 + 2, -1, -1):
+            slot_level = level < 2
+            shift = 8 * level if slot_level else 8 * (level - 2)
+            match = valid & ((u & mask) == prefix) \
+                & ((key2 & smask) == sprefix)
+            dig = ((key2 >> shift) & 255) if slot_level else (
+                (u >> np.uint64(shift)) & np.uint64(255)).astype(np.int64)
+            hist = np.bincount(dig[match], minlength=256)
+            above, d = 0, 255
+            while above + hist[d] < left:
+                above += hist[d]
+                d -= 1
+            if slot_level:
+                sprefix |= d << shift
+                smask |= 255 << shift
+            else:
+                prefix |= np.uint64(d) << np.uint64(shift)
+                mask |= np.uint64(255) << np.uint64(shift)
+            left -= above
+            if hist[d] == left:
+                break
+    mu = u & mask
+    sel = valid & ((mu > prefix)
+                   | ((mu == prefix) & ((key2 & smask) >= sprefix)))
+    idx = np.flatnonzero(sel)
+    assert idx.size == min(m, k)
+    c = row[idx]
+    rank = np.array([np.sum((c > c[e]) | ((c == c[e]) & (idx < idx[e])))
+                     for e in range(idx.size)], dtype=np.int64)
+    out_c = np.full(count, -1, np.int64)
+    out_n = np.full(count, -1, np.int64)
+    out_c[rank], out_n[rank] = c, idx
+    return out_c, out_n
+
+
+def test_threshold_select_numpy_model_equals_the_top_lists():
+    """K6a's radix select and rank placement give exactly spec_top_plain's
+    lists: random rows with many -1 entries, fewer slots than pods
+    (n < count), count == 1, all-invalid rows, composites up to 2^62,
+    and composites that tie (the slot digits break them, as the stable
+    sort does)."""
+    rng = np.random.default_rng(3)
+    for trial in range(1500):
+        n = int(rng.integers(1, 80))
+        b = 1 if trial % 10 == 0 else int(rng.integers(1, 40))
+        rows = np.full((b, n), -1, np.int64)
+        for q in range(b):
+            fit = rng.random(n) < rng.random() * (trial % 7 != 0)
+            hi = (n * 7, 5, 2 ** 40, 2 ** 62)[trial % 4]
+            vals = rng.permutation(n * 7)[:int(fit.sum())] if hi == n * 7 \
+                else rng.integers(0, hi, int(fit.sum()))
+            rows[q, fit] = vals
+        want_c, want_n = spk.spec_top_plain(torch.from_numpy(rows), b)
+        for q in range(b):
+            c, s = _radix_top_model(rows[q], b, q)
+            assert np.array_equal(c, want_c[q].numpy()), (trial, q)
+            assert np.array_equal(s, want_n[q].numpy()), (trial, q)
+
+
+def _best_two(cands):
+    """The best two (composite, slot) of distinct slots, as beats()
+    orders them (the larger composite, then the smaller slot)."""
+    out = sorted(cands, key=lambda e: (-e[0], e[1]))[:2]
+    return out + [(-1, -1)] * (2 - len(out))
+
+
+def test_pipeline_best_two_rule_numpy_model():
+    """K6b's pipeline one pod deep against the sequential repair. Pod
+    k + 1's candidates are taken as commit k - 1 left them (the entries
+    of its top list on the slots pods before k took not, its rescores of
+    the slots they took), split over the producer warps, each keeping
+    its best two; meanwhile the chain marks j(k) taken, so the entry on
+    j(k) is whatever the producers made of it (random here, and a new
+    slot may look taken or not). The as-if thread takes pod k + 1's
+    score on every candidate of pod k's pick (each warp's two and
+    j(k-1)) as if pod k were committed there. At step k + 1 the chain
+    takes from each warp its best less the entry on j(k), the best of
+    those, and against it the as-if score on j(k), which is there
+    whenever pod k took no full-width rescore. The picks equal the
+    sequential repair's for random frozen rows, rescores that move with
+    every commit to a slot (injective per pod), unfit slots, invalid
+    pods and pods that take the full width."""
+    rng = np.random.default_rng(9)
+    for trial in range(400):
+        b = int(rng.integers(1, 24))
+        n = int(rng.integers(1, 12))
+        warps = int(rng.integers(1, 5))
+        tie = rng.permutation(n)
+        # frozen composites, the rescore of slot s after c commits, the
+        # live score of an untouched slot (for the full width)
+        frozen = np.where(rng.random((b, n)) < 0.8,
+                          rng.integers(0, 6, (b, n)) * n + tie, -1)
+        moved = np.where(rng.random((b, n, b + 1)) < 0.8,
+                         rng.integers(0, 6, (b, n, b + 1)) * n + tie[:, None],
+                         -1)
+        live = np.where(rng.random((b, n)) < 0.8,
+                        rng.integers(0, 6, (b, n)) * n + tie, -1)
+        valid = rng.random(b) < 0.9
+        slow = rng.random(b) < 0.15
+        top_c, top_n = (x.numpy() for x in
+                        spk.spec_top_plain(torch.from_numpy(frozen), b))
+
+        def rescore(k, s, commits):
+            return int(moved[k, s, commits[s]])
+
+        def full_width(k, commits, touched):
+            vals = [(rescore(k, s, commits) if touched[s]
+                     else int(live[k, s]), s) for s in range(n)]
+            return _best_two([e for e in vals if e[0] >= 0])[0]
+
+        # the sequential repair
+        commits, touched = np.zeros(n, int), np.zeros(n, bool)
+        want = []
+        for k in range(b):
+            pick = (-1, -1)
+            if valid[k] and slow[k]:
+                pick = full_width(k, commits, touched)
+            elif valid[k]:
+                c = [(int(v), int(s)) for v, s in
+                     zip(top_c[k, :k + 1], top_n[k, :k + 1])
+                     if v >= 0 and not touched[s]]
+                c += [(rescore(k, s, commits), s) for s in range(n)
+                      if touched[s] and rescore(k, s, commits) >= 0]
+                pick = _best_two(c)[0]
+            want.append(pick[1])
+            if pick[1] >= 0:
+                commits[pick[1]] += 1
+                touched[pick[1]] = True
+
+        # the pipeline
+        commits, touched = np.zeros(n, int), np.zeros(n, bool)
+
+        def prepare(m, commits, touched, racy, pairs, jprev):
+            """Pod m's candidates as the producer warps see them (each
+            warp's best two), and its as-if scores on the candidates of
+            pod m - 1's pick (`pairs`, `jprev`)."""
+            if m >= b:
+                return None, {}
+            c = []
+            for v, s in zip(top_c[m, :m + 1], top_n[m, :m + 1]):
+                # a slot taken before is known to be taken; the racy
+                # slot, taken now, may or may not look taken
+                if v >= 0 and not touched[s] \
+                        and not (s == racy and rng.random() < 0.5):
+                    c.append((int(v) if s != racy
+                              else int(rng.integers(-1, 6 * n)), int(s)))
+            for s in range(n):
+                if touched[s] and s != racy:
+                    c.append((rescore(m, s, commits), s))
+                elif touched[s]:
+                    c.append((int(rng.integers(-1, 6 * n)), s))
+            c = [e for e in c if e[0] >= 0]
+            split = rng.integers(0, warps, len(c))
+            two = [_best_two([e for e, w in zip(c, split) if w == x])
+                   for x in range(warps)]
+            asif = {}
+            if m > 0 and valid[m - 1] and not slow[m - 1]:
+                for x in [e[1] for t in pairs for e in t] + [jprev]:
+                    if x >= 0:
+                        asif[x] = int(moved[m, x, commits[x] + 1])
+            return two, asif
+
+        pairs, asif = prepare(0, commits, touched, -1, [], -1)
+        got, jprev = [], -1
+        for k in range(b):
+            pick = (-1, -1)
+            if valid[k] and slow[k]:
+                pick = full_width(k, commits, touched)
+            elif valid[k]:
+                best = [two[1] if two[0][1] == jprev else two[0]
+                        for two in pairs]
+                if jprev >= 0:
+                    # the as-if score, there unless pod k - 1 was slow
+                    assert jprev in asif or slow[k - 1], trial
+                    r = asif[jprev] if jprev in asif \
+                        else rescore(k, jprev, commits)
+                    if r >= 0:
+                        best.append((r, jprev))
+                pick = _best_two([e for e in best if e[0] >= 0])[0]
+            j = pick[1]
+            before = (commits.copy(), touched.copy())
+            if j >= 0:
+                commits[j] += 1
+                touched[j] = True
+            pairs, asif = prepare(k + 1, *before, j, pairs, jprev)
+            got.append(j)
+            jprev = j
+        assert got == want, trial
