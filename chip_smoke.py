@@ -126,7 +126,8 @@ every answer to a reference:
             equal to PREEMPT_DIGEST at every count, and to the unsharded
             kernel and its twin on the widest table; then the sharded
             K1's device ms a chunk against K1's at 1, 2, 4 and 8 shards
-            with the SM clock, beside K7's bound, and the sharded K4's.
+            with the SM clock, beside K7's bound and its latency floor
+            (one relaxed hop through L2 a pod), and the sharded K4's.
   shard_path  the batch loop over NodeMesh([card] * 4) on the e2e fleet
             (the e2e phase's traffic): every pod bound, the per-node
             counts equal to E2E_COUNTS, the sharded K1 launched and K1
@@ -181,7 +182,10 @@ launches a tile and the delta tile's profiler counts and host ms; K6b's
 the chunk's ms against K1's at both fixtures; the sharded K1's its
 ms at 1, 2, 4 and 8 shards against K1's (`by_shards`); K7's the
 sharded K1's ms less K1's on the same chunk, its plain cost the sharded
-twin's less the plain scan's, and its bound (the records' bytes). Needs
+twin's less the plain scan's, its bound (the records' bytes) and its
+latency floor (`hop_floor_ms`: the chunk's pods x one relaxed hop
+through L2, read with profile_kernels.hop_cycles, the L2 hop probe
+built beside the kernels). Needs
 one CUDA device;
 exits non-zero without one, or without the rest of the repository beside
 it.
@@ -211,15 +215,17 @@ def emit(obj) -> None:
 def phase_build():
     import torch
 
+    from kubernetes_tpu_torch.kubemark.profile_kernels import L2_HOP_SOURCE
     from kubernetes_tpu_torch.sched.device import (_build, filter_kernel,
                                                    reject_kernel,
                                                    scan_kernel,
                                                    scatter_kernel,
                                                    victim_kernel)
     t0 = time.monotonic()
+    # the kernels, and the L2 hop probe K7's floor is read with
     records = _build.build_all([filter_kernel.SOURCE, reject_kernel.SOURCE,
                                 scatter_kernel.SOURCE, victim_kernel.SOURCE,
-                                scan_kernel.SOURCE])
+                                scan_kernel.SOURCE, L2_HOP_SOURCE])
     entries = {}
     for r in records:
         for line in r["log"].splitlines():
@@ -1262,6 +1268,16 @@ def phase_shard_kernels(rate, floor_ms, ptables):
                for s in (1,) + tuple(fx.SHARD_COUNTS)}
     for t, s in zip(a.state, init):
         t.copy_(s)
+    # K7's latency floor on the timed chunk: a pod's exchanges in
+    # series, each at least one relaxed hop through L2 between distant
+    # SMs (profile_kernels.hop_cycles)
+    from kubernetes_tpu_torch.kubemark import profile_kernels as pk
+    pair = pk.far_pair(dev)
+    hop = pk.hop_cycles(dev, *pair, 0)
+    valid = int(a.pods.valid.sum())
+    k7_hop = {"relaxed_hop_cycles": hop, "sm_ids": list(pair),
+              "pods": valid,
+              "floor_ms": pk.hop_floor_ms(valid, hop, rate["sm_clock_mhz"])}
     d = a.dims()
     # the engine's digests over a mesh
     digests = {}
@@ -1328,8 +1344,9 @@ def phase_shard_kernels(rate, floor_ms, ptables):
             "ms", "k1_ms", "cluster", "ctas", "slots_per_cta",
             "threads_per_cta", "sm_clock_mhz", "k7_bound_ms", "k7_bytes")}
             for s, t in timings.items()},
-        k4=k4, seconds=time.monotonic() - t0)
+        k4=k4, k7_hop=k7_hop, seconds=time.monotonic() - t0)
     return rec, {"timings": timings, "k4": k4, "plain_ms": plain_ms,
+                 "k7_hop": k7_hop,
                  "unsharded_plain_ms": unsharded_plain_ms,
                  "head_ms": head_ms, "k4_launches": k4_launches}
 
@@ -1961,6 +1978,11 @@ def main() -> int:
         "plain_shape": shard["k1_plain_shape"],
         "bound_ms": sharded["k7_bound_ms"],
         "bound_by": sharded["k7_bound_by"],
+        "hop_floor_ms": shard_t["k7_hop"]["floor_ms"],
+        "hop_floor_is": "the chunk's pods x one relaxed one-way hop "
+                        "through L2 between the lowest and the highest "
+                        "SM id (profile_kernels.hop_cycles)",
+        "hop_cycles": shard_t["k7_hop"]["relaxed_hop_cycles"],
         "library_ms": None, "bytes": sharded["k7_bytes"],
         "launch_floor_ms": floor_ms, **rate}]})
     emit({"ok": True, "device": {

@@ -788,6 +788,8 @@ def profile_counts(fn) -> dict:
 
 
 TURNS = ("other", "this", "this", "other")
+# the mesh the sharded kernels' turns run over (the shard path's)
+SHARD_TURNS = 4
 
 
 def turns(fns: dict, library=None, device=None) -> dict:
@@ -847,15 +849,19 @@ def section_turns(other_root: str, device=None) -> dict:
     5000 and its pod 1 alone (the extender's launch), the argsort on the
     seeded [8, 128]. Each output is first held equal to the other's and
     to the plain version. Where the other checkout has the scan kernels,
-    also K5 at both shapes, K1 on the snapshot's first 256 pods and K1
-    at the e2e's chunk (8192 bench pods on the e2e fleet's 5120 slots),
-    each call restoring the State first. Where it has the victim kernel,
-    also K4 on the preempt fixture's widest table (5120 x 16). Each
+    also K5 at both shapes, K1 on the snapshot's first 256 pods, K1 at
+    the e2e's chunk (8192 bench pods on the e2e fleet's 5120 slots) and
+    the sharded K1 on that chunk over SHARD_TURNS shards (held to the
+    plain scan), each call restoring the State first. Where it has the
+    victim kernel, also K4 on the preempt fixture's widest table (5120 x
+    16) and the sharded K4 on it over SHARD_TURNS shards. Each
     kernel's turns carry the SM clock, power and temperature sampled
     while they ran. The other checkout's wrappers must take the same
     arguments (`filter_masks(FilterArgs)`, `argsort_rows(x)`,
     `probe(ScanArgs, ...)`, `scan_chunk(ScanArgs, ...)`,
-    `victim_search(VictimArgs.from_table(t, device))`)."""
+    `victim_search(VictimArgs.from_table(t, device))`,
+    `ShardSpace(shards, dims, device)`, `scan_chunk_sharded(ScanArgs, ...,
+    space)`, `victim_search_sharded(VictimArgs, shards)`)."""
     from ..sched.device import (BatchEngine, encode_snapshot, filter_kernel,
                                 reject_kernel, scan_kernel)
     from .benchmark import _bench_pod
@@ -908,10 +914,25 @@ def section_turns(other_root: str, device=None) -> dict:
             return mod.scan_chunk(mod.ScanArgs(*a), w, 0, False, False)
 
         p, n = fleet.dims()["p"], fleet.dims()["n"]
+        fleet_plain = e2e_chunk(plain, fleet)
         cases[f"scan_chunk {p}x{n}"] = (
             lambda a: e2e_chunk(scan_kernel, a),
-            lambda a: e2e_chunk(osk, a), lambda a: e2e_chunk(plain, a),
-            fleet, None)
+            lambda a: e2e_chunk(osk, a), lambda a: fleet_plain, fleet, None)
+        # the sharded K1 (K7 inside) on the same chunk over 4 shards, held
+        # to the plain scan (the sharded function is K1's)
+        spaces = {m: m.ShardSpace(SHARD_TURNS, fleet.dims(), d)
+                  for m in (scan_kernel, osk)}
+
+        def sharded_chunk(mod, a):
+            for t, s in zip(a.state, fleet_init):
+                t.copy_(s)
+            return mod.scan_chunk_sharded(mod.ScanArgs(*a), w, 0, False,
+                                          False, spaces[mod])
+
+        cases[f"scan_chunk_sharded {p}x{n}@{SHARD_TURNS}"] = (
+            lambda a: sharded_chunk(scan_kernel, a),
+            lambda a: sharded_chunk(osk, a), lambda a: fleet_plain, fleet,
+            None)
     if "victim_kernel" in other:
         # K4 on the preempt fixture's widest table
         from ..sched.device import victim_kernel as vk
@@ -923,6 +944,13 @@ def section_turns(other_root: str, device=None) -> dict:
         cases[f"victim_search {wide.n}x{wide.v}"] = (
             lambda t: vk.victim_search(ta), lambda t: ovk.victim_search(oa),
             lambda t: vk.victim_search_plain(ta), wide, None)
+        # the sharded K4 (K7 its last step) on the same table over 4
+        # shards, held to its twin
+        cases[f"victim_search_sharded {wide.n}x{wide.v}@{SHARD_TURNS}"] = (
+            lambda t: vk.victim_search_sharded(ta, SHARD_TURNS),
+            lambda t: ovk.victim_search_sharded(oa, SHARD_TURNS),
+            lambda t: tuple(x.to(d) for x in vk.victim_search_sharded_plain(
+                ta, SHARD_TURNS)), wide, None)
     if "scatter_kernel" in other:
         # K3: a delta tile's device prologue on the e2e fleet's tables,
         # both tables dirty, the run's State from the mirror's

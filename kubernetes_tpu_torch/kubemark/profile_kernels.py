@@ -6,9 +6,11 @@ time goes, on the card.
 Prints one JSON object (and writes it to PATH when given):
 
 - ``victim_phases``: the victim kernel (K4) on the preempt fixture's
-  widest table (5120 x 16) and a one-victim table, built from a copy of `csrc/victim_kernel.cu` that records, for
-  thread 0 of every CTA, clock64 at the kernel's start, once the node's
-  fields are in (its k = 0 test), once its victims are scanned, after
+  widest table (5120 x 16) and a one-victim table, and the sharded K4
+  on the widest table at 2, 4 and 8 shards, built from a copy of
+  `csrc/victim_kernel.cu` that records, for thread 0 of every CTA,
+  clock64 at the kernel's start, once the node's fields are in (its
+  k = 0 test), once its victims are scanned, after
   the CTA's first maximum and after the counter, and the globaltimer at
   its start and after the counter; the last CTA also records its final
   reduction. Percentiles (0, 50, 100) of each phase in cycles, and the
@@ -41,14 +43,20 @@ Prints one JSON object (and writes it to PATH when given):
   (a RegSlot), one warp alone and 16 at once (the latency K6b's step is
   made of).
 
-- ``k7_phases``: K7, the exchange between the shards inside the sharded
-  K1, at 2, 4 and 8 shards on one card, on K1's e2e chunk and on the
-  spread fixture's first chunk, built from a copy of
-  `csrc/scan_kernel.cu` that sums clock64 around each exchange for CTA
-  0's thread 0 of each shard (its post, its wait for every shard's
-  record, the reduction): cycles a pod of the candidate exchange, the
-  group max and the zone histogram, each shard's; both builds' device
-  ms (their answers held equal).
+- ``k7_phases`` (also ``--k7-only``, and ``--against DIR`` for another
+  checkout's kernels beside this one's): K7, the exchange between the
+  shards inside the sharded K1, at 1, 2, 4 and 8 shards on one card, on
+  K1's e2e chunk and on the spread fixture's first chunk, built from a
+  copy of `csrc/scan_kernel.cu` with K7's probe points defined: cycles
+  a pod for CTA 0's thread 0 of each shard, split five ways (the post,
+  the first poll, the spin after it, the payload's load, the broadcast
+  barrier) for the candidate exchange, the group max and the zone
+  histogram; both builds' device ms (their answers held equal).
+- ``l2_hop``: one one-way hop through L2 between two SMs
+  (`csrc/l2_hop.cu`, a probe built on its own), with a relaxed
+  flag-in-data word and with st.release / ld.acquire and a payload
+  load, for a near, a middle and the distant pair of SMs: pods x the
+  relaxed hop is K7's latency floor.
 
 Every copy is held equal to the plain version before it is timed.
 Copies are written under `kubernetes_tpu_torch/_build/variants/` and
@@ -59,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import sys
@@ -148,32 +157,82 @@ def _phase_edits():
     ]
 
 
+_SHARDED_HEAD = ("__global__ void __launch_bounds__(VICTIM_BLOCK_THREADS)\n"
+                 "victim_sharded_kernel(const VictimParams a) {\n")
+_SHARDED_MAX = """  block_best(best, best_j);
+  if (threadIdx.x == 0) {
+    a.block_score[blk] = best;"""
+_SHARDED_COUNT = "    last = count_done(a.done, gridDim.x * gridDim.y);\n"
+_SHARDED_END = "      a.pick[0] = best_j;\n      *a.done = 0;"
+
+
+def _sharded_phase_edits():
+    """The same slots in the sharded K4 (applied after _phase_edits):
+    its start, first maximum, counter and the last CTA's end, a block's
+    slots at its place in the 2D grid (shard-major), search_node's slots
+    1 and 2, which both kernels run, moved there too (K4's blockIdx.y is
+    0)."""
+    rec = "victim_dbg[(blockIdx.y * gridDim.x + blockIdx.x) * 8 + %d]"
+    old = "  if (threadIdx.x == 0) victim_dbg[blockIdx.x * 8 + %d] = clock64()"
+    new = "  if (threadIdx.x == 0) %s = clock64()" % rec
+    return [
+        (old % 1, new % 1),
+        (old % 2, new % 2),
+        (_SHARDED_HEAD, _SHARDED_HEAD + "  if (threadIdx.x == 0) {\n"
+         f"    {rec % 0} = clock64();\n    {rec % 6} = gtime();\n"
+         f"    {rec % 5} = 0;\n  }}\n"),
+        (_SHARDED_MAX, "  block_best(best, best_j);\n"
+         f"  if (threadIdx.x == 0) {rec % 3} = clock64();\n"
+         + _SHARDED_MAX.split("\n", 1)[1]),
+        (_SHARDED_COUNT, _SHARDED_COUNT + f"    {rec % 4} = clock64();\n"
+         f"    {rec % 7} = gtime();\n"),
+        (_SHARDED_END, _SHARDED_END + f"\n      {rec % 5} = clock64();"),
+    ]
+
+
 def _pct(x) -> list:
     return [float(v) for v in np.percentile(x, [0, 50, 100])]
 
 
 def victim_phases(device) -> dict:
+    """The phases above for K4 on the widest and a one-victim table, and
+    for the sharded K4 on the widest table at 2, 4 and 8 shards
+    (`wide@S`), from one instrumented copy, so the sharded kernel's
+    phases read beside K4's on one card."""
     tables = fx.preempt_tables()
     wide = fx.widest_table(tables)
     one = min(tables, key=lambda t: (t.v, -int(t.v_valid.sum())))
     real = vk.SOURCE
-    copy = _variant("victim_phases", real, _phase_edits())
+    copy = _variant("victim_phases", real,
+                    _phase_edits() + _sharded_phase_edits())
     _build.build_all([real, copy])
+    # (label, table, shards: 0 for K4)
+    runs = [("wide", wide, 0), ("one_victim", one, 0)] + [
+        (f"wide@{s}", wide, s) for s in (2, 4, 8)]
     out = {}
     try:
-        for label, t in (("wide", wide), ("one_victim", one)):
+        for label, t, s in runs:
             args = vk.VictimArgs.from_table(t, device)
-            plan = vk.launch_plan(t.n, t.v, vk.card_sms())
             want = vk.victim_search_plain(args)
+            if s:
+                plan, _ = vk.sharded_plan(t.n, t.v, s, vk.card_sms())
+
+                def search():
+                    return vk.victim_search_sharded(args, s)
+            else:
+                plan = vk.launch_plan(t.n, t.v, vk.card_sms())
+
+                def search():
+                    return vk.victim_search(args)
             rec = {"shape": [t.n, t.v], "plan": list(plan)}
             for name, path in (("committed", real), ("instrumented", copy)):
                 _with_source(vk, path)
-                if not _same(vk.victim_search(args), want):
-                    raise AssertionError(f"{name} victim kernel differs "
-                                         f"from its plain version")
-                rec[f"{name}_ms"] = device_ms(lambda: vk.victim_search(args))
+                if not _same(search(), want):
+                    raise AssertionError(f"{name} {label} victim kernel "
+                                         f"differs from its plain version")
+                rec[f"{name}_ms"] = device_ms(search)
             torch.cuda.synchronize()
-            vk.victim_search(args)
+            search()
             torch.cuda.synchronize()
             buf = (ctypes.c_longlong * (_SLOTS * plan.grid))()
             err = vk._library().victim_dbg_read(buf, _SLOTS * plan.grid)
@@ -739,106 +798,257 @@ def score_latency(device, iters: int = 64) -> dict:
 
 # --------------------------------------------------------------- K7
 
-_K7_MAX = "      if constexpr (SHARDED) m = k7_max(x, m, n_max, poster, xs_m);\n"
-_K7_ZONES = ("      if constexpr (SHARDED) k7_zones(x, ztot, a.Z, n_zone, "
-             "rank == 0);\n")
-_K7_BEST = """    if constexpr (SHARDED)
-      k7_best(x, best, best_j, n_cand, poster,
-              a.withhold == shard && n_cand == 0, xs_c, xs_j);
+# The probe points' definitions, put at the head of a copy of
+# `csrc/scan_kernel.cu`: CTA 0's thread 0 of each shard (by its cluster
+# rank) takes clock64 at each point of an exchange, 0 before the post,
+# 1 after it, 2 once its first poll is back, 3 once warp 0 (every lane
+# a shard) has every record's flag, 4 once the payload is in and
+# reduced, 5 after the barrier that hands the result to the CTA, and
+# sums the five differences a kind (0 candidate, 1 group max, 2 zone
+# histogram) in shared memory, flushed once a launch into k7_dbg
+# [shard][kind][the five, the exchanges].
+_K7_PROBE = r"""
+__device__ long long k7_dbg[32 * 3 * 6];
+__shared__ long long k7_t[6];
+__shared__ long long k7_acc[3 * 6];
+__shared__ int k7_kind, k7_polled;
+__device__ __forceinline__ bool k7_me() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return threadIdx.x == 0 && r == 0;
+}
+__device__ __forceinline__ void k7_mark(int kind, int phase) {
+  if (phase == 3 || phase == 4) __syncwarp();
+  if (!k7_me()) return;
+  const long long t = clock64();
+  if (phase == 2) {
+    if (k7_polled) return;
+    k7_polled = 1;
+  }
+  if (phase == 0) { k7_kind = kind; k7_polled = 0; }
+  k7_t[phase] = t;
+  if (phase == 5) {
+    if (!k7_polled) k7_t[2] = k7_t[1];
+    for (int i = 0; i < 5; ++i)
+      k7_acc[k7_kind * 6 + i] += k7_t[i + 1] - k7_t[i];
+    k7_acc[k7_kind * 6 + 5] += 1;
+  }
+}
+#define K7_MARK(kind, phase) k7_mark(kind, phase)
+#define K7_PROBE_BEGIN() \
+  do { if (k7_me()) for (int i = 0; i < 18; ++i) k7_acc[i] = 0; } while (0)
+#define K7_PROBE_END(shard) \
+  do { if (k7_me()) for (int i = 0; i < 18; ++i) \
+         k7_dbg[(shard) * 18 + i] += k7_acc[i]; } while (0)
 """
-# per shard: 0 the candidate exchange, 1 the group max, 2 the zone
-# histogram (cycles summed over the chunk), 3 the pods that exchanged
+_K7_READ = r"""
+extern "C" int k7_dbg_read(void* out, int zero) {
+  static const long long zeros[32 * 3 * 6] = {0};
+  if (zero) return (int)cudaMemcpyToSymbol(k7_dbg, zeros, sizeof zeros);
+  return (int)cudaMemcpyFromSymbol(out, k7_dbg, sizeof zeros);
+}
+"""
+_K7_PHASES = ("post", "first_poll", "spin", "payload", "broadcast")
+_K7_KINDS = ("candidate", "group_max", "zones")
 
 
-def _k7_edits():
-    def timed(call, slot, count=False):
-        body = call.replace("if constexpr (SHARDED) ", "").replace(
-            "    if constexpr (SHARDED)\n", "")
-        return ("    if constexpr (SHARDED) {\n"
-                "      const long long c0 = clock64();\n" + body
-                + f"      if (poster) {{\n"
-                f"        k7_dbg[4 * shard + {slot}] += clock64() - c0;\n"
-                + ("        k7_dbg[4 * shard + 3] += 1;\n" if count else "")
-                + "      }\n    }\n")
-    return [
-        ("#define K7_MAX_SHARDS 32\n",
-         "#define K7_MAX_SHARDS 32\n"
-         "__device__ long long k7_dbg[4 * K7_MAX_SHARDS];\n"),
-        (_K7_BEST, timed(_K7_BEST, 0, count=True)),
-        (_K7_MAX, timed(_K7_MAX, 1)),
-        (_K7_ZONES, timed(_K7_ZONES, 2)),
-        ("extern \"C\" const char* scan_error_name(int err) {",
-         "extern \"C\" int k7_dbg_read(void* out, int zero) {\n"
-         "  static const long long zeros[4 * K7_MAX_SHARDS] = {0};\n"
-         "  if (zero) return (int)cudaMemcpyToSymbol(k7_dbg, zeros,"
-         " sizeof zeros);\n"
-         "  return (int)cudaMemcpyFromSymbol(out, k7_dbg, sizeof zeros);"
-         "\n}\n\nextern \"C\" const char* scan_error_name(int err) {"),
-    ]
+def _k7_edits(text: str):
+    """The probe's definitions and reader, for a scan_kernel.cu whose K7
+    carries the probe points (the flag-in-data records do)."""
+    if "#ifndef K7_MARK" not in text:
+        raise ValueError("this scan_kernel.cu's K7 has no probe points")
+    return [("#include <climits>\n", _K7_PROBE + "#include <climits>\n"),
+            (_ERRNAME, _K7_READ + "\n" + _ERRNAME)]
 
 
-def k7_phases(device, shards=(2, 4, 8)) -> dict:
-    """K7's cycles a pod in the sharded K1, as CTA 0's thread 0 of each
-    shard sees them (its post, the wait for every shard's record and the
-    reduction), on K1's e2e chunk (the candidate exchange alone) and on
-    the spread fixture's first chunk (the group max too), from a copy of
-    `csrc/scan_kernel.cu` that sums clock64 around each exchange; both
-    builds' device ms and answers."""
+def _k7_chunks():
     from .benchmark import _bench_pod
-    real = sk.SOURCE
-    copy = _variant("k7_phases", real, _k7_edits())
-    _build.build_all([real, copy])
-    engine = eng.BatchEngine(device=device)
-    chunks = {"e2e_chunk": fx.fleet_encoder().encode_tile(
+    return {"e2e_chunk": fx.fleet_encoder().encode_tile(
         [_bench_pod(i) for i in range(fx.SMOKE_CHUNK)], [], []),
         "spread_chunk": eng.encode_snapshot(
             fx.engine_snapshot(5000, fx.SMOKE_CHUNK, plain=False),
             node_pad_to=8)}
+
+
+def k7_phases(device, shards=(1, 2, 4, 8), against: str = "") -> dict:
+    """K7's cycles a pod in the sharded K1, split five ways for CTA 0's
+    thread 0 of each shard (`_K7_PHASES`: its post, its first poll, the
+    spin after it (the wait for the slowest shard), the payload's load,
+    the barrier that hands the result to the CTA), for each exchange kind
+    (`_K7_KINDS`), at each count of `shards`, on K1's e2e chunk (the
+    candidate exchange alone) and on the spread fixture's first chunk
+    (the group max too), from a copy of `csrc/scan_kernel.cu` with the
+    probe points defined; the uninstrumented and the instrumented builds'
+    device ms, their answers held equal. With `against`, the same for
+    that checkout's kernels (its `sched/device` loaded beside this
+    one's), so one call splits both on one card."""
+    # (label, module, source, instrumented copy)
+    mods = [("this", sk)]
+    if against:
+        from .gpu_evidence import load_wrappers
+        mods.append(("against", load_wrappers(against)["scan_kernel"]))
+    builds = []
+    for label, skm in mods:
+        with open(skm.SOURCE) as f:
+            edits = _k7_edits(f.read())
+        builds.append((label, skm, skm.SOURCE,
+                       _variant(f"k7_phases_{label}", skm.SOURCE, edits)))
+    _build.build_all([p for b in builds for p in b[2:]])
+    engine = eng.BatchEngine(device=device)
+    chunks = _k7_chunks()
     out = {}
-    try:
-        for key, enc in chunks.items():
-            a = scan_args(*engine.device_args(enc))
-            flags = engine._enc_flags(enc)
-            init = [t.clone() for t in a.state]
-            for s in shards:
-                space = sk.ShardSpace(s, a.dims(), device)
-                rec, want = {}, None
-                for name, path in (("committed", real),
-                                   ("instrumented", copy)):
-                    _with_source(sk, path)
+    for label, skm, plain, copy in builds:
+        real = skm.SOURCE
+        rec = {}
+        try:
+            for key, enc in chunks.items():
+                a = scan_args(*engine.device_args(enc))
+                flags = engine._enc_flags(enc)
+                init = [t.clone() for t in a.state]
+                ar = skm.ScanArgs(*a)
+                d = a.dims()
+                for s in shards:
+                    space = skm.ShardSpace(s, d, device)
+                    r, want = {}, None
+                    for name, path in (("committed", plain),
+                                       ("instrumented", copy)):
+                        _with_source(skm, path)
 
-                    def run():
-                        for t, v in zip(a.state, init):
-                            t.copy_(v)
-                        return sk.scan_chunk_sharded(a, engine.weights, 0,
-                                                     *flags, space)
+                        def run():
+                            for t, v in zip(ar.state, init):
+                                t.copy_(v)
+                            return skm.scan_chunk_sharded(
+                                ar, engine.weights, 0, *flags, space)
 
-                    got = run().clone()
-                    want = got if want is None else want
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"{name} sharded K1 differs")
-                    rec[f"{name}_ms"] = device_ms(run, reps=5, trials=3)
-                lib = sk._library()
-                lib.k7_dbg_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-                buf = (ctypes.c_longlong * (4 * sk.MAX_SHARDS))()
-                err = lib.k7_dbg_read(buf, 1)
-                run()
-                torch.cuda.synchronize()
-                err = err or lib.k7_dbg_read(buf, 0)
-                if err:
-                    raise RuntimeError(f"reading K7's cycles: CUDA error "
-                                       f"{err}")
-                d = np.array(list(buf), dtype=np.int64).reshape(-1, 4)[:s]
-                pods = max(int(d[0, 3]), 1)
-                rec.update(pods=int(d[0, 3]), **{
-                    f"{k}_cycles_a_pod": [float(x) for x in d[:, i] / pods]
-                    for i, k in enumerate(("candidate", "group_max",
-                                           "zones"))})
-                out[f"{key}@{s}"] = rec
-                _with_source(sk, real)
-    finally:
-        _with_source(sk, real)
+                        got = run().clone()
+                        want = got if want is None else want
+                        if not torch.equal(got, want):
+                            raise AssertionError(f"{label} {name} sharded "
+                                                 f"K1 differs")
+                        r[f"{name}_ms"] = device_ms(run, reps=5, trials=3)
+                    lib = skm._library()
+                    lib.k7_dbg_read.argtypes = [ctypes.c_void_p,
+                                                ctypes.c_int]
+                    buf = (ctypes.c_longlong * (32 * 3 * 6))()
+                    err = lib.k7_dbg_read(buf, 1)
+                    run()
+                    torch.cuda.synchronize()
+                    err = err or lib.k7_dbg_read(buf, 0)
+                    if err:
+                        raise RuntimeError(f"reading K7's cycles: CUDA "
+                                           f"error {err}")
+                    dbg = np.array(list(buf), dtype=np.int64).reshape(
+                        32, 3, 6)[:s]
+                    for k, kind in enumerate(_K7_KINDS):
+                        n = dbg[:, k, 5]
+                        if not n.any():
+                            continue
+                        per = dbg[:, k, :5] / np.maximum(n, 1)[:, None]
+                        r[kind] = {"exchanges": [int(v) for v in n],
+                                   **{ph: [float(v) for v in per[:, i]]
+                                      for i, ph in enumerate(_K7_PHASES)},
+                                   "whole": [float(v) for v in
+                                             per.sum(axis=1)]}
+                    rec[f"{key}@{s}"] = r
+                for t, v in zip(ar.state, init):
+                    t.copy_(v)
+        finally:
+            _with_source(skm, real)
+        out[label] = rec
     return out
+
+
+# ---------------------------------------------- one hop through L2
+
+L2_HOP_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "csrc", "l2_hop.cu")
+# each CTA's dynamic shared memory: more than half of an SM's, so the
+# grid runs one CTA an SM
+_HOP_SMEM = 120 * 1024
+
+
+@functools.cache
+def _hop_library():
+    lib = ctypes.CDLL(_build.build_all([L2_HOP_SOURCE])[0]["library"])
+    # buf, sms, smem, ping, pong, mode, rounds, budget, out, stream
+    lib.l2_hop_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 \
+        + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    lib.l2_hop_launch.restype = ctypes.c_int
+    return lib
+
+
+def _hop_launch(device, out, ping: int, pong: int, mode: int,
+                rounds: int) -> None:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    buf = torch.zeros(64, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = _hop_library().l2_hop_launch(
+            buf.data_ptr(), sms, _HOP_SMEM, ping, pong, mode, rounds,
+            1 << 30, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"l2_hop launch failed: CUDA error {err}")
+
+
+def sm_ids(device) -> list:
+    """The SM ids a grid of one CTA an SM ran on, sorted (the census:
+    ids need not be contiguous)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = torch.full((sms,), -1, dtype=torch.int64, device=device)
+    _hop_launch(device, out, 0, 1, 2, 1)
+    return sorted(set(out.tolist()) - {-1})
+
+
+def hop_cycles(device, ping: int, pong: int, mode: int,
+               rounds: int = 2000) -> float:
+    """One one-way hop through L2 between the SMs with ids `ping` and
+    `pong`, in the pinger's cycles (csrc/l2_hop.cu: mode 0 a relaxed
+    flag-in-data word, 1 a payload then a st.release sequence, read with
+    ld.acquire then a payload load), the median of three launches of
+    `rounds` round trips each; raises if a side did not run or the
+    payloads differ."""
+    want = 7 * rounds * (rounds + 1) // 2 + rounds
+    got = []
+    for _ in range(3):
+        out = torch.full((4,), -1, dtype=torch.int64, device=device)
+        _hop_launch(device, out, ping, pong, mode, rounds)
+        cycles, total, a, b = out.tolist()
+        if (a, b) != (ping, pong) or cycles <= 0 or total != want:
+            raise AssertionError(f"l2_hop {ping}-{pong} mode {mode}: "
+                                 f"{out.tolist()}")
+        got.append(cycles / (2 * rounds))
+    return float(np.median(got))
+
+
+def far_pair(device) -> tuple:
+    """The lowest and the highest SM id a grid ran on."""
+    ids = sm_ids(device)
+    return ids[0], ids[-1]
+
+
+def l2_hop(device, rounds: int = 2000) -> dict:
+    """The one-way hop through L2 (hop_cycles) both ways, between the
+    lowest SM id and the next, the middle one and the highest (the
+    distant pair, whose relaxed hop sets K7's latency floor: a pod's
+    exchange needs at least one hop), with the card's SM clock."""
+    from ..sched.device import bounds
+    ids = sm_ids(device)
+    pairs = ((ids[0], ids[1]), (ids[0], ids[len(ids) // 2]),
+             (ids[0], ids[-1]))
+    out = {"rounds": rounds, "sm_ids": len(ids),
+           "sm_clock_mhz": bounds.card_rate()["sm_clock_mhz"]}
+    for mode, name in ((0, "relaxed"), (1, "release_acquire")):
+        out[name] = {f"{a}-{b}": hop_cycles(device, a, b, mode, rounds)
+                     for a, b in pairs}
+    far = f"{ids[0]}-{ids[-1]}"
+    out["relaxed_hop_cycles"] = out["relaxed"][far]
+    out["release_acquire_hop_cycles"] = out["release_acquire"][far]
+    return out
+
+
+def hop_floor_ms(pods: int, hop: float, sm_clock_mhz: float) -> float:
+    """K7's latency floor over a chunk: `pods` exchanges in series, each
+    at least one relaxed hop of `hop` cycles."""
+    return pods * hop / (sm_clock_mhz * 1e3)
 
 
 # ------------------------------------------------ K5's block-a-pod route
@@ -930,21 +1140,30 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="", help="also write the JSON here")
     ap.add_argument("--spec-only", action="store_true",
                     help="only spec_phases")
+    ap.add_argument("--k7-only", action="store_true",
+                    help="only k7_phases and l2_hop")
     ap.add_argument("--against", default="",
-                    help="another checkout whose K6 spec_phases also reads")
+                    help="another checkout whose K6 (spec_phases) and K7 "
+                         "(k7_phases) are also read")
     args = ap.parse_args(argv)
     device = _cuda(None)
-    if args.spec_only:
-        doc = {"card": card_line(),
-               "spec_phases": spec_phases(device, args.against),
-               "score_latency": score_latency(device)}
+    if args.spec_only or args.k7_only:
+        doc = {"card": card_line()}
+        if args.spec_only:
+            doc.update(spec_phases=spec_phases(device, args.against),
+                       score_latency=score_latency(device))
+        if args.k7_only:
+            doc.update(k7_phases=k7_phases(device, against=args.against),
+                       l2_hop=l2_hop(device))
         text = json.dumps(doc, default=str)
         if args.out:
             with open(args.out, "w") as f:
                 f.write(text)
         print(text)
         return 0
-    doc = {"card": card_line(), "k7_phases": k7_phases(device),
+    doc = {"card": card_line(),
+           "k7_phases": k7_phases(device, against=args.against),
+           "l2_hop": l2_hop(device),
            "spec_phases": spec_phases(device, args.against),
            "score_latency": score_latency(device),
            "victim_phases": victim_phases(device),

@@ -97,7 +97,8 @@
 // _node_shardings): K1's body with a cluster a shard over the shard's
 // block of slots, and after each of the cluster's reductions a pod the
 // exchange between the shards (K7, below). It computes K1's function
-// (K1's bound); K7 adds a round trip through L2 a reduction a pod.
+// (K1's bound); K7 adds a hop through L2 a reduction a pod (its latency
+// floor: kubemark/profile_kernels.py l2_hop).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC; scan_launch, shard_launch and scan_max_clusters are
@@ -989,47 +990,81 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t phase) {
 }
 
 // K7: the shards' exchange in the sharded K1. S shards (clusters) walk
-// the same pods; for each reduction a pod needs across the node axis,
-// each shard's CTA 0 posts one record into a buffer in global memory
-// and every CTA reads all S records and reduces them alike, so every
-// shard reaches the same group max, zone histogram and winner. A
-// record's payload is written first (relaxed) and its sequence number
-// last (release); a reader spins on the sequence (acquire), then reads
-// the payload (relaxed, past L1). The sequence is the launch's
-// generation (the buffer's header, which shard 0 advances once every
-// shard has posted its done record) in the high word and the
-// exchange's count (by kind) in the low one, so the buffer is zeroed
-// once and never reset. Two records a shard and kind, by the count's
-// parity: a shard cannot post count m + 2 before every shard has read
-// count m, since posting m + 1 needs every CTA of its own shard past
-// reading m (a cluster barrier or its inbox lies between) and posting
-// m + 2 needs every shard's m + 1. Scope .gpu: the shards share one
-// card. A spin that outlasts the budget traps, so a lost record raises
-// in the caller.
+// the same pods; for each reduction a pod needs across the node axis
+// each shard posts a record into a buffer in global memory, and every
+// reader reads all S records and reduces them alike, so every shard
+// reaches the same group max, zone histogram and winner.
+// Records are self-validating (the flag-in-data scheme of NCCL's LL
+// protocol): every 8-byte word holds a 32-bit payload (low half) and a
+// 32-bit flag (high half), is written with one relaxed .gpu store and
+// is polled with relaxed .gpu loads until every word of the record
+// carries the flag its reader expects. An aligned 8-byte access is
+// single-copy atomic, so a word that carries the flag carries its
+// payload: no release, no acquire and no second dependent load on a
+// pod's chain. The reader needs nothing but the record: each shard
+// commits only into its own block and its own replica row. A candidate
+// takes three words (the composite's halves, the slot), a group max one,
+// a zone histogram one a zone.
+// The flag is (generation << 2) | (count & 3): the generation is the
+// launch's, 1 .. K7_GEN_MAX (the buffer's header + 1), the count the
+// exchange's by kind within the launch. Records are kept two a shard and
+// kind, by the count's parity. A shard cannot post count m + 2 before
+// every reader has read count m: posting m + 1 needs every CTA of its
+// own shard past reading m (a cluster barrier or its inbox lies
+// between), and posting m + 2 needs every shard's m + 1. So a slot holds
+// count m, or m - 2 (count & 3 differs), or a word of an earlier launch
+// (its generation differs), or zero (flag 0 matches nothing). The
+// launch of generation K7_GEN_MAX zeroes every record once every shard
+// is done and sets the header back to 0, so a slot left unused for
+// K7_GEN_MAX launches (the zone records in a plain run) never holds a
+// word whose flag a later launch expects.
+// Readers: every CTA's warp 0 polls the S records (one lane a shard)
+// and broadcasts the reduction with __syncthreads. The launch's end
+// keeps one release and one acquire: each shard's done record, which
+// shard 0 waits for before it advances the header. A shard's first
+// candidate record is fenced as well (once a launch): shard 0 commits
+// the replicated counts only after every shard has posted it, and shard
+// k > 0 posts it after copying those counts into its replica row. Scope
+// .gpu: the shards share one card. A spin that outlasts the budget
+// traps, so a lost record raises in the caller.
 // Layout in int64 words (scan_kernel.exchange_words): a header of 16
 // (word 0 the generation), a done record a shard, then by [parity]
-// [shard] the candidates (sequence, composite, slot, pad), the group
-// maxima (sequence, max) and the zone histograms (sequence, Z int32 in
-// ceil(Z / 2) words).
+// [shard] the candidates (3 words, padded to 4), the group maxima (1)
+// and the zone histograms (Z).
+#define K7_GEN_MAX ((1u << 30) - 1)
+#define K7_CAND_WORDS 4
+
+// probe points (profile_kernels.k7_phases defines them in its copy of
+// this file to time each exchange's parts for CTA 0's thread 0 of each
+// shard; here they compile to nothing)
+#ifndef K7_MARK
+#define K7_MARK(kind, phase)
+#define K7_PROBE_BEGIN()
+#define K7_PROBE_END(shard)
+#endif
+
 struct K7 {
   unsigned long long* base;
-  int S, shard, zw;
+  int S, shard, Z;
   long long budget;
-  unsigned long long gen;     // this launch's, in the high word
+  unsigned gen;               // this launch's, 1 .. K7_GEN_MAX
 
   __device__ unsigned long long* done(int r) const { return base + 16 + r; }
   __device__ unsigned long long* cand(int par, int r) const {
-    return base + 16 + S + 4 * (par * S + r);
+    return base + 16 + S + K7_CAND_WORDS * (par * S + r);
   }
   __device__ unsigned long long* gmax(int par, int r) const {
-    return base + 16 + 9 * S + 2 * (par * S + r);
+    return base + 16 + (1 + 2 * K7_CAND_WORDS) * S + (par * S + r);
   }
   __device__ unsigned long long* zone(int par, int r) const {
-    return base + 16 + 13 * S + (size_t)(1 + zw) * (par * S + r);
+    return base + 16 + (3 + 2 * K7_CAND_WORDS) * S
+           + (size_t)Z * (par * S + r);
   }
-  __device__ unsigned long long seq(int m) const {
-    return gen | (unsigned long long)(unsigned)(m + 1);
+  // every word of the buffer (scan_kernel.exchange_words)
+  __device__ size_t words() const {
+    return 16 + (size_t)S * (3 + 2 * K7_CAND_WORDS + 2 * (size_t)Z);
   }
+  __device__ unsigned flag(int m) const { return gen << 2 | (m & 3); }
 };
 
 __device__ __forceinline__ uint64_t gaddr(const void* p) {
@@ -1064,25 +1099,41 @@ __device__ __forceinline__ unsigned long long ld_relaxed64(
   return v;
 }
 
-__device__ __forceinline__ void st_relaxed32(int* p, int v) {
-  asm volatile("st.relaxed.gpu.global.s32 [%0], %1;"
-               :: "l"(gaddr(p)), "r"(v) : "memory");
+// one word of a record: `flag` over the 32-bit payload
+__device__ __forceinline__ void k7_post(unsigned long long* p,
+                                        unsigned flag, unsigned v) {
+  st_relaxed64(p, (unsigned long long)flag << 32 | v);
 }
 
-__device__ __forceinline__ int ld_relaxed32(const int* p) {
-  int v;
-  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];"
-               : "=r"(v) : "l"(gaddr(p)) : "memory");
-  return v;
-}
-
-// wait for record `p` to carry sequence `want`; trap past the budget
-__device__ __forceinline__ void k7_wait(const unsigned long long* p,
-                                       unsigned long long want,
-                                       const K7& x) {
+// the payloads of records p, p + stride, ... (nb of them, NB at most, W
+// words each), polled together until every word carries `flag`: one
+// round trip when they are all there; trap past the budget
+template <int NB, int W>
+__device__ __forceinline__ void k7_read(const unsigned long long* p,
+                                        size_t stride, int nb,
+                                        unsigned flag, const K7& x,
+                                        unsigned (&v)[NB][W]) {
   const long long t0 = clock64();
-  while (ld_acquire(p) != want)
+  for (bool first = true;; first = false) {
+    unsigned long long w[NB][W];
+#pragma unroll
+    for (int q = 0; q < NB; ++q)
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+        if (q < nb) w[q][i] = ld_relaxed64(p + q * stride + i);
+    bool ok = true;
+#pragma unroll
+    for (int q = 0; q < NB; ++q)
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+        if (q < nb) {
+          v[q][i] = (unsigned)w[q][i];
+          ok &= (unsigned)(w[q][i] >> 32) == flag;
+        }
+    if (first) K7_MARK(-1, 2);
+    if (ok) return;
     if (clock64() - t0 > x.budget) __trap();
+  }
 }
 
 // the shards' largest group count, from this shard's `m` (every thread
@@ -1091,51 +1142,51 @@ __device__ __forceinline__ void k7_wait(const unsigned long long* p,
 __device__ __forceinline__ int k7_max(const K7& x, int m, int count,
                                       bool poster, int* slot) {
   const int par = count & 1, lane = threadIdx.x & 31;
-  if (poster) {
-    unsigned long long* r = x.gmax(par, x.shard);
-    st_relaxed64(r + 1, (unsigned long long)(unsigned)m);
-    st_release(r, x.seq(count));
-  }
+  const unsigned f = x.flag(count);
+  K7_MARK(1, 0);
+  if (poster) k7_post(x.gmax(par, x.shard), f, (unsigned)m);
+  K7_MARK(1, 1);
   if ((threadIdx.x >> 5) == 0) {
-    int v = INT_MIN;
-    if (lane < x.S) {
-      const unsigned long long* r = x.gmax(par, lane);
-      k7_wait(r, x.seq(count), x);
-      v = (int)(unsigned)ld_relaxed64(r + 1);
-    }
-    v = warp_max(v);
-    if (lane == 0) slot[par] = v;
+    unsigned v[1][1] = {{(unsigned)INT_MIN}};
+    if (lane < x.S) k7_read<1, 1>(x.gmax(par, lane), 0, 1, f, x, v);
+    K7_MARK(1, 3);
+    K7_MARK(1, 4);
+    const int mx = warp_max((int)v[0][0]);
+    if (lane == 0) slot[par] = mx;
   }
   __syncthreads();
+  K7_MARK(1, 5);
   return slot[par];
 }
 
 // the shards' zone histogram into `ztot` (this CTA's shard's sums on
-// entry, complete for every thread of the CTA on return); CTA 0 posts
+// entry, complete for every thread of the CTA on return); CTA 0 posts.
+// Each thread posts and reads its own zones, eight shards' words at once
 __device__ __forceinline__ void k7_zones(const K7& x, int* ztot, int Z,
                                          int count, bool cta0) {
-  const int par = count & 1, lane = threadIdx.x & 31;
-  if (cta0) {
-    int* w = (int*)(x.zone(par, x.shard) + 1);
+  const int par = count & 1;
+  const unsigned f = x.flag(count);
+  K7_MARK(2, 0);
+  if (cta0)
     for (int z = threadIdx.x; z < Z; z += blockDim.x)
-      st_relaxed32(w + z, ztot[z]);
-    __threadfence();
-  }
-  __syncthreads();
-  if (cta0 && threadIdx.x == 0)
-    st_release(x.zone(par, x.shard), x.seq(count));
-  if ((threadIdx.x >> 5) == 0 && lane < x.S) {
-    k7_wait(x.zone(par, lane), x.seq(count), x);
-    __threadfence();
-  }
-  __syncthreads();
+      k7_post(x.zone(par, x.shard) + z, f, (unsigned)ztot[z]);
+  K7_MARK(2, 1);
   for (int z = threadIdx.x; z < Z; z += blockDim.x) {
     int sum = 0;
-    for (int r = 0; r < x.S; ++r)
-      sum += ld_relaxed32((const int*)(x.zone(par, r) + 1) + z);
+    for (int r0 = 0; r0 < x.S; r0 += 8) {
+      unsigned v[8][1];
+      k7_read<8, 1>(x.zone(par, r0) + z, (size_t)Z, min(8, x.S - r0), f,
+                    x, v);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (r0 + q < x.S) sum += (int)v[q][0];
+    }
     ztot[z] = sum;
   }
+  K7_MARK(2, 3);
+  K7_MARK(2, 4);
   __syncthreads();
+  K7_MARK(2, 5);
 }
 
 // the shards' best (composite, slot) from this shard's (c, j), reduced
@@ -1147,25 +1198,34 @@ __device__ __forceinline__ void k7_best(const K7& x, T& c, int& j,
                                         bool withhold, long long* slot_c,
                                         int* slot_j) {
   const int par = count & 1, lane = threadIdx.x & 31;
+  const unsigned f = x.flag(count);
+  K7_MARK(0, 0);
   if (poster && !withhold) {
     unsigned long long* r = x.cand(par, x.shard);
-    st_relaxed64(r + 1, (unsigned long long)(long long)c);
-    st_relaxed64(r + 2, (unsigned long long)(unsigned)j);
-    st_release(r, x.seq(count));
+    const long long v = (long long)c;
+    if (count == 0) __threadfence();   // after the replica row's copy
+    k7_post(r, f, (unsigned)v);
+    k7_post(r + 1, f, (unsigned)(v >> 32));
+    k7_post(r + 2, f, (unsigned)j);
   }
+  K7_MARK(0, 1);
   if ((threadIdx.x >> 5) == 0) {
     T rc = (T)-1;
     int rj = INT_MAX;
     if (lane < x.S) {
-      const unsigned long long* r = x.cand(par, lane);
-      k7_wait(r, x.seq(count), x);
-      rc = (T)(long long)ld_relaxed64(r + 1);
-      rj = (int)(unsigned)ld_relaxed64(r + 2);
+      unsigned v[1][3];
+      k7_read<1, 3>(x.cand(par, lane), 0, 1, f, x, v);
+      rc = (T)(long long)((unsigned long long)v[0][1] << 32 | v[0][0]);
+      rj = (int)v[0][2];
     }
+    K7_MARK(0, 3);
+    K7_MARK(0, 4);
     warp_best(rc, rj);
     if (lane == 0) { slot_c[par] = (long long)rc; slot_j[par] = rj; }
+    if (count == 0) __threadfence();   // before shard 0's first commit
   }
   __syncthreads();
+  K7_MARK(0, 5);
   c = (T)slot_c[par];
   j = slot_j[par];
 }
@@ -1208,9 +1268,10 @@ __device__ __forceinline__ void scan_body(const Params<T>& a, int shard) {
     x.base = a.xchg;
     x.S = a.shards;
     x.shard = shard;
-    x.zw = (a.Z + 1) / 2;
+    x.Z = a.Z;
     x.budget = a.budget > 0 ? a.budget : K7_BUDGET;
-    x.gen = (ld_relaxed64(a.xchg) + 1) << 32;
+    x.gen = (unsigned)ld_relaxed64(a.xchg) + 1;
+    K7_PROBE_BEGIN();
   }
   const bool poster = SHARDED && rank == 0 && threadIdx.x == 0;
 
@@ -1371,13 +1432,22 @@ __device__ __forceinline__ void scan_body(const Params<T>& a, int shard) {
   for (int i = first; i < ns; i += nscore) store_slot(a, s, i, lo + i);
   cl.sync();                        // no CTA leaves while read remotely
   if constexpr (SHARDED) {
+    K7_PROBE_END(shard);
     // done: shard 0 advances the generation once every shard is past
-    // its last read of the buffer (and of its header)
+    // its last read of the buffer (and of its header); the last
+    // generation zeroes the records and starts the count again
     if (poster) {
       st_release(x.done(shard), x.gen);
       if (shard == 0) {
-        for (int r = 0; r < x.S; ++r) k7_wait(x.done(r), x.gen, x);
-        st_relaxed64(a.xchg, x.gen >> 32);
+        for (int r = 0; r < x.S; ++r) {
+          const long long t0 = clock64();
+          while (ld_acquire(x.done(r)) != x.gen)
+            if (clock64() - t0 > x.budget) __trap();
+        }
+        if (x.gen == K7_GEN_MAX)
+          for (size_t w = 16; w < x.words(); ++w)
+            st_relaxed64(x.base + w, 0);
+        st_relaxed64(a.xchg, x.gen == K7_GEN_MAX ? 0 : x.gen);
       }
     }
   }
@@ -2333,10 +2403,10 @@ static cudaError_t dispatch(int op, int cluster, int threads, size_t smem,
     }
     Params<T> a = unpack<T>(dims, ptrs);
     const long long S = sh[SHARD_SHARDS], B = sh[SHARD_BLOCK];
-    const long long zw = (a.Z + 1) / 2;
     if (S < 1 || S > K7_MAX_SHARDS || B < 1 || B * S != a.N
         || sh[SHARD_XCHG] == 0 || (S > 1 && sh[SHARD_REPLICA] == 0)
-        || sh[SHARD_XWORDS] < 16 + S + 2 * S * (7 + zw)
+        || sh[SHARD_XWORDS] < 16 + S * (3 + 2 * K7_CAND_WORDS
+                                        + 2 * (long long)a.Z)
         || (long long)smem < need_bytes<T, HAS_SPREAD, HAS_AFF, ANTI>(
                                  0, dims, cluster, B))
       return cudaErrorInvalidValue;

@@ -93,10 +93,8 @@ struct VictimParams {
   int64_t* block_score;   // [gridDim.x] scratch
   int64_t* block_index;   // [gridDim.x] scratch
   unsigned int* done;     // [1], zero before the launch and after it
-  // the sharded search: shards, rows a shard, the shards' winners
+  // the sharded search: shards, rows a shard
   int shards, B;
-  int64_t* shard_score;   // [shards] scratch
-  int64_t* shard_index;   // [shards] scratch
 };
 
 // int64 addition that wraps as the tensors' does
@@ -281,15 +279,8 @@ victim_kernel(const VictimParams a) {
   }
 }
 
-// The sharded search (K4 over a node-axis mesh, the JAX engine's
-// find_victims under a mesh: kstar and score split by row, pick
-// reduced across the shards): the grid is `shards` runs of the same
-// number of blocks, run k over the rows [k * B, min(N, (k + 1) * B)).
-// Each block posts its winner as above; the last block of a shard to
-// finish (its own counter, done[1 + k]) reduces the shard's blocks and
-// posts the shard's winner, and the last shard to finish (done[0])
-// reduces the shards' winners (K7) and writes pick. Every counter is
-// set back to 0 by the block that read it last.
+// count this block done on the launch's counter, releasing its record
+// -> whether it is the last, which acquires every other block's
 __device__ __forceinline__ bool count_done(unsigned int* counter,
                                            unsigned int total) {
   unsigned prev;
@@ -298,13 +289,26 @@ __device__ __forceinline__ bool count_done(unsigned int* counter,
   return prev == total - 1;
 }
 
+// The sharded search (K4 over a node-axis mesh, the JAX engine's
+// find_victims under a mesh: kstar and score split by row, pick reduced
+// across the shards): the grid's row k (blockIdx.y) is shard k's
+// blocks, over the rows [k * B, min(N, (k + 1) * B)), so a block finds
+// its shard and rows with no division before its first load. Each block
+// posts its winner and counts itself done on the one counter, as
+// victim_kernel's blocks do, so the launch makes one serial round trip
+// on it. The last block to finish reduces in its registers each shard's
+// blocks first (a warp a shard, lane l its blocks l, l + 32, ...), then
+// the shards' winners (K7): the JAX engine's two levels. beats() is a
+// total order, so the pick is the first maximum over the whole table.
+// It writes pick and sets the counter back to 0 (a graph replays the
+// launch).
 __global__ void __launch_bounds__(VICTIM_BLOCK_THREADS)
 victim_sharded_kernel(const VictimParams a) {
   const int G = a.G;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane & (G - 1), base = lane & ~(G - 1);
-  const int per = (int)gridDim.x / a.shards;
-  const int shard = (int)blockIdx.x / per, local = (int)blockIdx.x % per;
+  const int per = (int)gridDim.x, shard = (int)blockIdx.y;
+  const int local = (int)blockIdx.x, blk = shard * per + local;
   const int lo = shard * a.B;
   const int hi = min(a.N, lo + a.B);
   const int j = lo + (int)((local * blockDim.x + threadIdx.x) >> 5)
@@ -318,9 +322,9 @@ victim_sharded_kernel(const VictimParams a) {
   if (act && g == 0) { best = sc; best_j = j; }
   block_best(best, best_j);
   if (threadIdx.x == 0) {
-    a.block_score[blockIdx.x] = best;
-    a.block_index[blockIdx.x] = best_j;
-    last = count_done(a.done + 1 + shard, per);
+    a.block_score[blk] = best;
+    a.block_index[blk] = best_j;
+    last = count_done(a.done, gridDim.x * gridDim.y);
   }
   if (act && g == 0) {    // after the count: its release orders none
     a.kstar[j] = ks;
@@ -328,43 +332,40 @@ victim_sharded_kernel(const VictimParams a) {
   }
   __syncthreads();
   if (!last) return;
-  // the shard's winner over its blocks
+  // warp w: shard r's winner over its blocks for r = w, w + warps, ...,
+  // and the best of those shards' winners
+  __shared__ int64_t ws[VICTIM_BLOCK_THREADS / 32];
+  __shared__ int wi[VICTIM_BLOCK_THREADS / 32];
+  const int warps = (int)(blockDim.x >> 5);
   best = LLONG_MIN;
   best_j = INT_MAX;
-  for (int b = threadIdx.x; b < per; b += blockDim.x) {
-    const int64_t s = __ldcg(a.block_score + shard * per + b);
-    const int i = (int)__ldcg(a.block_index + shard * per + b);
+  for (int r = warp; r < a.shards; r += warps) {
+    int64_t s = LLONG_MIN;
+    int i = INT_MAX;
+    for (int b = lane; b < per; b += 32) {
+      const int64_t t = __ldcg(a.block_score + r * per + b);
+      const int k = (int)__ldcg(a.block_index + r * per + b);
+      if (beats(t, k, s, i)) { s = t; i = k; }
+    }
+    warp_best(s, i);
     if (beats(s, i, best, best_j)) { best = s; best_j = i; }
   }
-  block_best(best, best_j);
+  if (lane == 0) { ws[warp] = best; wi[warp] = best_j; }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    a.done[1 + shard] = 0;
-    a.shard_score[shard] = best;
-    a.shard_index[shard] = best_j;
-    last = count_done(a.done, a.shards);
-  }
-  __syncthreads();
-  if (!last) return;
-  // the mesh's winner over the shards' (K7)
-  best = LLONG_MIN;
-  best_j = INT_MAX;
-  for (int r = threadIdx.x; r < a.shards; r += blockDim.x) {
-    const int64_t s = __ldcg(a.shard_score + r);
-    const int i = (int)__ldcg(a.shard_index + r);
-    if (beats(s, i, best, best_j)) { best = s; best_j = i; }
-  }
-  block_best(best, best_j);
-  if (threadIdx.x == 0) {
-    a.done[0] = 0;
-    a.pick[0] = best_j;
+  if (warp == 0) {
+    best = lane < warps ? ws[lane] : LLONG_MIN;
+    best_j = lane < warps ? wi[lane] : INT_MAX;
+    warp_best(best, best_j);   // the shards' winners (K7)
+    if (lane == 0) {
+      a.pick[0] = best_j;
+      *a.done = 0;     // ready for the next launch
+    }
   }
 }
 
 // the sharded search: `shards` runs of grid / shards blocks, `B` rows a
-// shard (the last may hold fewer); the output buffer as
-// victim_search_launch's, then shard_score and shard_index [shards];
-// `done` holds 1 + shards counters
+// shard (the last may hold fewer); the output buffer and the counter as
+// victim_search_launch's
 extern "C" int victim_sharded_launch(
     int grid, int threads, int group, int shards, int B, int N, int V,
     const void* cand, const void* cpu_cap, const void* mem_cap,
@@ -391,9 +392,8 @@ extern "C" int victim_sharded_launch(
       blocks + grid, (unsigned int*)done};
   a.shards = shards;
   a.B = B;
-  a.shard_score = blocks + 2 * (size_t)grid;
-  a.shard_index = a.shard_score + shards;
-  victim_sharded_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(a);
+  victim_sharded_kernel<<<dim3(grid / shards, shards), threads, 0,
+                          (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -421,8 +421,7 @@ extern "C" int victim_search_launch(
       (const int64_t*)v_prio, (const int64_t*)v_cpu, (const int64_t*)v_mem,
       (const uint8_t*)v_valid, (int64_t)prio, (int64_t)req_cpu,
       (int64_t)req_mem, zero_req, o, o + 1, o + 1 + N, o + 1 + 2 * (size_t)N,
-      o + 1 + 2 * (size_t)N + grid, (unsigned int*)done,
-      0, 0, nullptr, nullptr};
+      o + 1 + 2 * (size_t)N + grid, (unsigned int*)done, 0, 0};
   victim_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

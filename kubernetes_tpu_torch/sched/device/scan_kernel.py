@@ -48,8 +48,10 @@ with `_node_shardings`) the scan runs as the sharded K1,
 cluster a shard over its block of slots, all S clusters in one launch
 and resident at once, each pod's cross-shard reductions (K7: the
 group max, the zone histogram, the best candidate) exchanged as
-sequence-numbered records in the ShardSpace's buffer; shards 1..S-1
-keep their own copies of the replicated counts there. Its plain twin
+self-validating records in the ShardSpace's buffer (every 8-byte word a
+32-bit payload under a flag of the launch's generation and the
+exchange's count, written and polled relaxed, no fence a pod); shards
+1..S-1 keep their own copies of the replicated counts there. Its plain twin
 `scan_chunk_sharded_plain` runs the same shard by shard.
 
 On CPU tensors the wrappers compute the plain versions,
@@ -944,23 +946,34 @@ def replica_words(d: dict) -> int:
     return d["t"] * d["d"] + d["t"] + d["s"]
 
 
+# K7's records (the source's struct K7): int64 words a candidate record
+# (the composite's two halves and the slot, padded to four), and the
+# last launch generation, after which the kernel zeroes the records and
+# counts from 1 again
+K7_CAND_WORDS = 4
+K7_GEN_MAX = (1 << 30) - 1
+
+
 def exchange_words(shards: int, z: int) -> int:
-    """int64 words of K7's exchange buffer (the source's xchg_layout):
-    a header (the launch generation), a done record a shard, and, two by
-    parity, a candidate record (sequence, composite, slot, pad), a
-    group-max record (sequence, max) and a zone record (sequence, Z
-    int32 sums) a shard."""
-    return 16 + shards + 2 * shards * (4 + 2 + 1 + (z + 1) // 2)
+    """int64 words of K7's exchange buffer (the source's K7::words): a
+    header of 16 (word 0 the generation), a done record a shard, and,
+    two by parity, a shard's candidate record, its group-max word and
+    its Z zone words. Every record word is a 32-bit payload under a
+    32-bit flag."""
+    return 16 + shards * (3 + 2 * K7_CAND_WORDS + 2 * z)
 
 
 class ShardSpace:
     """What the sharded scan keeps on its device from launch to launch:
     the copies of the replicated counts (aff_count, aff_total,
     svc_total) of shards 1 .. S - 1, one int32 row each (shard 0's are
-    the State's own), and on a card K7's exchange buffer. Its records
-    carry the launch's generation and the exchange's count, so it is
-    zeroed once and never reset: a launch reads the generation from its
-    header and shard 0 advances it once every shard is done."""
+    the State's own), and on a card K7's exchange buffer. Every word of
+    its records carries a flag made of the launch's generation and the
+    exchange's count, so it is zeroed here and never by the host: a
+    launch reads the generation from its header, shard 0 advances it
+    once every shard is done, and the launch of generation K7_GEN_MAX
+    zeroes the records itself and sets the header back to 0 (a CUDA
+    graph's replays wrap alike)."""
 
     def __init__(self, shards: int, d: dict, device: torch.device):
         self.shards = shards

@@ -28,9 +28,10 @@ reads.
 
 Under a node-axis mesh `victim_search_sharded(args, S)` is the sharded
 search (the JAX engine's `find_victims` with row shardings): each
-shard's blocks over its ceil(N / S) rows, the last block of a shard
-reducing the shard's winner and the last shard the shards' winners
-(K7), in one launch; `victim_search_sharded_plain` is its twin.
+shard's blocks over its ceil(N / S) rows, counted on one counter as K4
+counts its blocks; the last block reduces each shard's blocks, then the
+shards' winners (K7), in one launch; `victim_search_sharded_plain` is
+its twin.
 
 On CPU tensors the wrapper computes `victim_search_plain`, the JAX
 kernel's own tensor formulation (prefix sums, a [N, V+1] feasibility
@@ -376,10 +377,11 @@ def error_name(err: int) -> str:
 
 @functools.cache
 def _done_counter(device: torch.device) -> torch.Tensor:
-    """The kernel's count of finished blocks on `device`: zeroed
-    once here, and set back to 0 by each launch's last block. Launches
-    share it, so they must not overlap: each is queued on the current
-    stream, and the port queues them all on one."""
+    """The count of finished blocks on `device` of both searches
+    (unsharded and sharded): zeroed once here, and set back to 0 by each
+    launch's last block. Launches share it, so they must not overlap:
+    each is queued on the current stream, and the port queues them all
+    on one."""
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
@@ -433,38 +435,26 @@ def victim_search(a: VictimArgs) -> VictimResult:
 victim_search.launches = 0
 
 
-# the most shards the sharded search takes (its counters a device)
+# the most shards the sharded search takes
 MAX_SHARDS = 64
-
-
-@functools.cache
-def _shard_counters(device: torch.device) -> torch.Tensor:
-    """The sharded search's counts on `device`: [0] the shards done,
-    [1 + k] shard k's blocks done; zeroed once here, each set back to 0
-    by the launch's last arriver that reads it."""
-    return torch.zeros(1 + MAX_SHARDS, dtype=torch.int32, device=device)
 
 
 def sharded_plan(n: int, v: int, shards: int,
                  sms: int = CARD_SMS) -> Tuple[LaunchPlan, int]:
     """-> (the plan of the whole grid, the rows a shard): each shard's
     ceil(N / shards) rows planned as launch_plan plans a table over its
-    share of the SMs, the shards' blocks side by side in one grid."""
+    share of the SMs; `grid` counts every shard's blocks, launched as a
+    row of the grid a shard."""
     b = -(-n // shards)
     per = launch_plan(b, v, max(1, sms // shards))
     return per._replace(grid=per.grid * shards), b
-
-
-def sharded_out_words(n: int, plan: LaunchPlan, shards: int) -> int:
-    """out_words, then the shards' winners (score, row)."""
-    return out_words(n, plan) + 2 * shards
 
 
 def _sharded_launch(a: VictimArgs, out: torch.Tensor, plan: LaunchPlan,
                     shards: int, b: int) -> int:
     n, v = a.shape
     dev = a.cand.device
-    done = _shard_counters(dev)
+    done = _done_counter(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         return _library().victim_sharded_launch(
@@ -481,8 +471,8 @@ def victim_search_sharded(a: VictimArgs, shards: int) -> VictimResult:
     by row, pick reduced across shards) -> the same (pick, kstar,
     score). CPU tensors take victim_search_sharded_plain; CUDA tensors
     launch the sharded K4 (each shard's blocks over its rows, the last
-    block of a shard reducing the shard's winner, the last shard the
-    shards' winners: K7) and raise if the launch is refused."""
+    block of the grid reducing each shard's winner, then the shards':
+    K7) and raise if the launch is refused."""
     device = a.cand.device
     n, v = a.shape
     if not 1 <= shards <= MAX_SHARDS:
@@ -500,8 +490,7 @@ def victim_search_sharded(a: VictimArgs, shards: int) -> VictimResult:
         raise ValueError("victim search over an empty node table")
     with torch.cuda.device(device):
         plan, b = sharded_plan(n, v, shards, card_sms())
-    out = torch.empty(sharded_out_words(n, plan, shards), dtype=torch.int64,
-                      device=device)
+    out = torch.empty(out_words(n, plan), dtype=torch.int64, device=device)
     err = _sharded_launch(a, out, plan, shards, b)
     if err != 0:
         raise RuntimeError(f"sharded victim kernel launch failed: CUDA "

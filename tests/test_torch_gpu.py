@@ -320,14 +320,17 @@ def test_turns_against_this_checkout(cuda):
                                    "probe 8192x5000", "probe 1x5000",
                                    "scan_chunk 256x5000",
                                    "scan_chunk 8192x5120",
+                                   "scan_chunk_sharded 8192x5120@4",
                                    "victim_search 5120x16",
+                                   "victim_search_sharded 5120x16@4",
                                    "prologue 500+1274",
                                    "prologue 5000+5000"}
     for name, rec in out["kernels"].items():
         assert rec["order"] == list(TURNS)
         assert len(rec["ms"]) == len(rec["launch_floor_ms"]) == len(TURNS)
-        # K1 at the e2e chunk takes tens of ms; the rest under 10
-        top = 1000.0 if name.endswith("8192x5120") else 10.0
+        # K1 (sharded or not) at the e2e chunk takes tens of ms; the
+        # rest under 10
+        top = 1000.0 if "8192x5120" in name else 10.0
         assert all(0.0 < t < top for t in rec["ms"]), (name, rec)
         assert ("library_ms" in rec) == name.startswith("argsort")
         assert rec["smi_samples"] >= 2 and rec["sm_clock_mhz"][2] > 0
@@ -1129,3 +1132,43 @@ def test_wedged_exchange_raises(cuda):
     from kubernetes_tpu_torch.kubemark import gpu_evidence
     got = gpu_evidence.shard_wedge_child()
     assert got["raised"] and got["rc"] == 0, got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_scan_across_the_generation_wrap(cuda, shards):
+    """K7's flags across the generation wrap: a ShardSpace whose header
+    is two launches short of K7_GEN_MAX, every record word seeded with
+    the flag that generation 1's first exchanges expect (garbage
+    payloads). Two plain launches (the zone records unused), the second
+    the last generation, which zeroes the records; then two launches
+    with ServiceAntiAffinity, the first of them generation 1 again,
+    whose zone exchanges would take the seeded words were they still
+    there. Each launch bit-equal to K1 (assignment and State); the
+    header counts on from 0."""
+    from kubernetes_tpu_torch.kubemark import gpu_evidence
+    from kubernetes_tpu_torch.kubemark.fixtures import scan_tables, shard_pad
+    from kubernetes_tpu_torch.sched.device import engine as eng_mod
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    case = scan_cases()["service_anti/i64"]
+    tables = shard_pad(scan_tables(**case["tables"]), shards)
+    a = gpu_evidence.scan_args(*(eng_mod._upload(t, cuda) for t in tables))
+    init = [t.clone() for t in a.state]
+    space = sk.ShardSpace(shards, a.dims(), cuda)
+    space.xchg[16:] = (1 << 2) << 32 | 0x7FFFFFFF
+    space.xchg[0] = sk.K7_GEN_MAX - 2
+    flags = (case["weights"], case["has_aff"], case["has_spread"])
+    for anti in (0, 0, case["anti_weight"], case["anti_weight"]):
+        runs = []
+        for sharded in (True, False):
+            state = type(a.state)(*(t.clone() for t in init))
+            b = a._replace(state=state)
+            w, aff, spread = flags
+            out = (sk.scan_chunk_sharded(b, w, anti, aff, spread, space)
+                   if sharded else sk.scan_chunk(b, w, anti, aff, spread))
+            runs.append((out, state))
+        torch.cuda.synchronize()
+        (got, g_state), (want, w_state) = runs
+        assert torch.equal(got, want), anti
+        assert all(torch.equal(x, y) for x, y in zip(g_state, w_state))
+    assert int(space.xchg[0]) == 2

@@ -194,7 +194,13 @@ def test_sharded_launch_plan():
     sk.launch_plan(sk.SCAN, d, True, True, True, True, shards=2,
                    max_clusters=lambda *a: seen.append(a) or 4)
     assert seen[0][0] == sk.variant(True, True, True, True) | sk.SHARD_CODE
-    assert sk.exchange_words(4, 3) == 16 + 4 + 8 * (4 + 2 + 1 + 2)
+    # the header, a done word a shard, and by parity a shard's candidate
+    # record (three flagged words, padded to four), group-max word and
+    # zone words; the source's layout
+    assert sk.exchange_words(4, 3) == 16 + 4 + 8 * (4 + 1 + 3)
+    src = open(sk.SOURCE).read()
+    assert f"#define K7_CAND_WORDS {sk.K7_CAND_WORDS}" in src
+    assert "16 + (size_t)S * (3 + 2 * K7_CAND_WORDS + 2 * (size_t)Z)" in src
 
 
 # ------------------------------------------------- the plain sharded scan
@@ -643,8 +649,9 @@ def test_sharded_victim_plan():
     per = vk.launch_plan(1280, 16, 33)
     assert b == 1280 and plan.grid == 4 * per.grid
     assert plan.group == per.group and plan.threads == per.threads
-    assert vk.sharded_out_words(5120, plan, 4) == \
-        1 + 2 * 5120 + 2 * plan.grid + 8
+    # one counter and the unsharded layout: pick, kstar, score, and a
+    # winner a block
+    assert vk.out_words(5120, plan) == 1 + 2 * 5120 + 2 * plan.grid
     with pytest.raises(ValueError, match="shards"):
         vk.victim_search_sharded(vk.VictimArgs.from_table(
             __import__("test_torch_preemption")._sorted_table(4, 2, 0),
@@ -691,13 +698,15 @@ def test_batch_scheduler_on_sharded_mesh_end_to_end(shards):
 
 
 def test_k7_bound_counts_the_records():
-    """K7's bound: each shard's records written once, a candidate a
-    valid pod, a group max a spread pod, a zone histogram an anti pod,
-    a done record; bytes over the memory rate."""
+    """K7's bound: each shard's records written once, their payload
+    only (the flags beside it are the protocol's): a candidate a valid
+    pod (composite and slot), a group max a spread pod, a zone histogram
+    an anti pod (an int32 a zone), a done record; bytes over the memory
+    rate."""
     from kubernetes_tpu_torch.sched.device import bounds
     rate = {"int_ops_per_s": 1e12}
     got = bounds.k7_bound(4, 100, 10, 5, 3, rate)
-    assert got["k7_bytes"] == 4 * (100 * 24 + 10 * 16 + 5 * (8 + 12) + 8)
+    assert got["k7_bytes"] == 4 * (100 * 12 + 10 * 4 + 5 * 4 * 3 + 8)
     assert got["k7_ops"] == 3 * (3 * 100 + 10 + 3 * 5)
     assert got["k7_bound_by"] == "bytes"
     assert got["k7_bound_ms"] == got["k7_bytes"] / bounds.HBM_BYTES_PER_S \
@@ -706,17 +715,45 @@ def test_k7_bound_counts_the_records():
 
 
 def test_k7_profile_edits_apply_to_the_source(tmp_path, monkeypatch):
-    """profile_kernels' K7 copy: every anchor found once, each exchange
-    timed for CTA 0's thread 0, the reader exported."""
+    """profile_kernels' K7 copy: this source carries the probe points
+    (each exchange kind's six, the first poll in k7_read, the launch's
+    begin and end) and gets their definitions before them and the
+    reader; a source without the points is refused."""
     from kubernetes_tpu_torch.kubemark import profile_kernels as pk
     monkeypatch.setattr(pk, "VARIANT_DIR", str(tmp_path))
-    text = open(pk._variant("k7", sk.SOURCE, pk._k7_edits())).read()
-    assert text.count("k7_dbg[4 * shard +") == 4
-    assert text.count("const long long c0 = clock64();") >= 3
-    assert "k7_dbg_read" in text
     base = open(sk.SOURCE).read()
-    assert text.count("k7_best(x, best, best_j") == \
-        base.count("k7_best(x, best, best_j") == 1
+    for kind in range(3):
+        for phase in (0, 1, 3, 4, 5):
+            assert f"K7_MARK({kind}, {phase});" in base, (kind, phase)
+    assert "K7_MARK(-1, 2)" in base and "K7_PROBE_END(shard);" in base
+    text = open(pk._variant("k7", sk.SOURCE, pk._k7_edits(base))).read()
+    assert text.index("#define K7_MARK(kind, phase) k7_mark") < \
+        text.index("#ifndef K7_MARK")
+    assert "k7_dbg_read" in text
+    with pytest.raises(ValueError):
+        pk._k7_edits(base.replace("#ifndef K7_MARK", "#if 0"))
+
+
+def test_sharded_victim_profile_edits_apply_to_the_source(tmp_path,
+                                                          monkeypatch):
+    """profile_kernels' K4 copy takes the sharded K4's slots too: its
+    start, first maximum, counter and end, each anchor found once after
+    K4's own edits, so both kernels write the same eight slots."""
+    from kubernetes_tpu_torch.kubemark import profile_kernels as pk
+    from kubernetes_tpu_torch.sched.device import victim_kernel as vk
+    monkeypatch.setattr(pk, "VARIANT_DIR", str(tmp_path))
+    text = open(pk._variant("phases", vk.SOURCE, pk._phase_edits()
+                            + pk._sharded_phase_edits())).read()
+    body = text[text.index("victim_sharded_kernel(const VictimParams a)"):]
+    body = body[:body.index("extern \"C\"")]
+    at = "victim_dbg[(blockIdx.y * gridDim.x + blockIdx.x) * 8 + %d]"
+    for slot in range(8):
+        if slot not in (1, 2):      # search_node's, shared with K4
+            assert at % slot in body, slot
+    assert text.count(at % 1) == text.count(at % 2) == 1
+    assert "victim_dbg[blockIdx.x * 8 + 1]" not in text
+    assert body.index("+ 4] = clock64()") > body.index("count_done(")
+    assert body.index("+ 5] = clock64()") > body.index("a.pick[0] = best_j")
 
 
 def test_mesh_delta_tile_routes_rows_to_their_owners(monkeypatch):
@@ -778,3 +815,173 @@ def test_mesh_delta_tile_routes_rows_to_their_owners(monkeypatch):
             assert torch.equal(g, w)
     assert results["mesh"] == results["single"]
     assert results["mesh"][2] == 1
+
+
+# ------------------------------------ numpy models of K7's two protocols
+
+
+def _k7_flag_model(seed, launches=3000, shards=3, words=3, gen_max=5,
+                   flag=lambda gen, m: gen << 2 | (m & 3), slots=2,
+                   zero_at_wrap=True):
+    """The sharded K1's record protocol (csrc/scan_kernel.cu, struct K7)
+    as a random interleaving of relaxed word stores and polls. Each
+    launch takes its generation from the header (+1); per kind, shard r
+    posts counts 0 .. M - 1 (a word a step, in any order, into slot
+    m % slots), and after posting m reads every shard's record of count
+    m, polling until each word carries flag(gen, m). It posts m + 1 only
+    once it has read m. The last shard past its reads ends the launch:
+    generation gen_max zeroes every record and sets the header to 0.
+    The zone kind is used in launch 0 and then only by launches whose
+    generation it last had, so its slots sit unused across a wrap. ->
+    None, or the first fault: a record accepted with another write's
+    payload (stale), or a write into a slot that a reader has still to
+    read (the parity reuse rule)."""
+    rng = np.random.default_rng(seed)
+    buf = {}          # (kind, slot, shard, word) -> (flag, payload)
+    header = 0
+    for launch in range(launches):
+        gen = header + 1
+        counts = {"cand": int(rng.integers(1, 6))}
+        if launch == 0 or (gen == 1 and rng.random() < 0.7):
+            counts["zone"] = int(rng.integers(1, 4))
+        for kind, total in counts.items():
+            read = [0] * shards         # counts each shard has read
+            posting = [list(rng.permutation(words)) for _ in range(shards)]
+            posted = [0] * shards       # counts each shard has posted
+            while min(read) < total:
+                r = int(rng.integers(shards))
+                if read[r] == total:
+                    continue
+                if posted[r] == read[r]:          # post count m, a word
+                    m = posted[r]
+                    if min(read) < m + 1 - slots:
+                        return ("reuse", launch, kind, r, m)
+                    w = posting[r].pop()
+                    buf[kind, m % slots, r, w] = (flag(gen, m),
+                                                  (launch, r, m, w))
+                    if not posting[r]:
+                        posted[r] += 1
+                        posting[r] = list(rng.permutation(words))
+                    continue
+                m = read[r]                       # poll count m, once
+                got = [buf.get((kind, m % slots, q, w), (0, None))
+                       for q in range(shards) for w in range(words)]
+                if all(f == flag(gen, m) for f, _ in got):
+                    want = [(launch, q, m, w) for q in range(shards)
+                            for w in range(words)]
+                    if [v for _, v in got] != want:
+                        return ("stale", launch, kind, r, m)
+                    read[r] += 1
+        if gen == gen_max:
+            if zero_at_wrap:
+                buf = {}
+            header = 0
+        else:
+            header = gen
+    return None
+
+
+def test_k7_flag_protocol_numpy_model():
+    """The flag-in-data records: over 3000 launches of random
+    interleavings, with the zone slots left unused across generation
+    wraps, no reader accepts a stale word and no write lands in a slot
+    a reader has still to read. The model's rule is the source's: the
+    flag's expression, the records by parity, the zeroing at
+    K7_GEN_MAX. Each part of the rule is needed: a flag without the
+    count's bits accepts the slot's last use, one slot a kind breaks the
+    reuse rule, and no zeroing accepts a word from before the wrap."""
+    src = open(sk.SOURCE).read()
+    assert "return gen << 2 | (m & 3);" in src
+    assert "#define K7_GEN_MAX ((1u << 30) - 1)" in src
+    assert sk.K7_GEN_MAX == (1 << 30) - 1
+    assert "const int par = count & 1" in src
+    assert "if (x.gen == K7_GEN_MAX)" in src
+    for seed in range(3):
+        assert _k7_flag_model(seed) is None
+    assert _k7_flag_model(0, flag=lambda gen, m: gen)[0] == "stale"
+    assert _k7_flag_model(0, flag=lambda gen, m: gen << 1 | (m & 1))[0] \
+        == "stale"
+    assert _k7_flag_model(0, slots=1)[0] == "reuse"
+    assert _k7_flag_model(0, zero_at_wrap=False)[0] == "stale"
+
+
+_LLONG_MIN, _INT_MAX = -(1 << 63), (1 << 31) - 1
+
+
+def _beats(s, i, t, j):
+    return s > t or (s == t and i < j)
+
+
+def _warp_best(pairs, beats=_beats):
+    """redux.sync's best over a warp's (score, index) pairs."""
+    best = (_LLONG_MIN, _INT_MAX)
+    for s, i in pairs:
+        if beats(s, i, *best):
+            best = (s, i)
+    return best
+
+
+def _k4_one_counter(block_s, block_i, shards, warps, beats=_beats):
+    """victim_sharded_kernel's last block: warp w takes shards w, w +
+    warps, ...: each shard's blocks lane-strided (lane l: l, l + 32,
+    ...), the warp's best of them the shard's winner, the warp's best of
+    its shards' winners; then warp 0 the best of the warps'."""
+    per = len(block_s) // shards
+    out = []
+    for w in range(warps):
+        best = (_LLONG_MIN, _INT_MAX)
+        for r in range(w, shards, warps):
+            lanes = []
+            for lane in range(32):
+                lanes.append(_warp_best(
+                    [(block_s[r * per + b], block_i[r * per + b])
+                     for b in range(lane, per, 32)], beats))
+            s, i = _warp_best(lanes, beats)
+            if beats(s, i, *best):
+                best = (s, i)
+        out.append(best)
+    return _warp_best(out, beats)[1]
+
+
+def _k4_two_level(block_s, block_i, shards):
+    """The JAX engine's order: each shard's first maximum, then the
+    first maximum of the shards' (np.argmax twice)."""
+    per = len(block_s) // shards
+    wins = []
+    for r in range(shards):
+        s = np.asarray(block_s[r * per:(r + 1) * per])
+        i = np.asarray(block_i[r * per:(r + 1) * per])
+        top = s.max()
+        wins.append((int(top), int(i[s == top].min())))
+    top = max(s for s, _ in wins)
+    return min(i for s, i in wins if s == top)
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_k4_one_counter_reduction_numpy_model(shards):
+    """The sharded K4's one-counter reduction (a warp a shard over its
+    blocks, then the shards' winners) equals the two-level one and the
+    first maximum of the whole score vector, ties included (scores from
+    a few values, -1 where nothing helps), with 1 to 70 blocks a shard
+    and fewer warps than shards; it fails when ties go to the larger
+    index."""
+    rng = np.random.default_rng(shards)
+    for trial in range(40):
+        per = int(rng.integers(1, 71))
+        warps = int(rng.choice([1, 3, 32]))
+        rows = int(rng.integers(1, 9))            # nodes a block
+        score = rng.choice([-1, 5, 7, 7, 9], size=shards * per * rows)
+        if trial % 5 == 0:
+            score[:] = -1
+        bs, bi = [], []
+        for b in range(shards * per):
+            blk = score[b * rows:(b + 1) * rows]
+            bs.append(int(blk.max()))
+            bi.append(b * rows + int(np.argmax(blk)))
+        got = _k4_one_counter(bs, bi, shards, warps)
+        assert got == _k4_two_level(bs, bi, shards) == int(np.argmax(score))
+    bs, bi = [7] * (2 * shards), list(range(2 * shards))
+    assert _k4_one_counter(bs, bi, shards, 32,
+                           beats=lambda s, i, t, j: s > t or
+                           (s == t and i > j)) != _k4_two_level(bs, bi,
+                                                                shards)
