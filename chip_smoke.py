@@ -141,6 +141,30 @@ every answer to a reference:
             shard that withholds its first candidate record: the other
             shards' spin traps past its budget and the synchronize
             raises (gpu_evidence.shard_wedge_child).
+  soak      the churn soak (kubemark/soak.py) at 5000 hollow nodes and
+            5000 pods a cycle for 60 s: its leak gates hold from the
+            warm baseline to the end (RSS, watchers, threads, store
+            keys, the encoder's ledger, the modeler's tombstones), at
+            least two cycles, K1 launched at least once a cycle; RSS,
+            threads and the caching allocator's allocated bytes at the
+            baseline and the end are printed.
+  shard_soak  the shard-kill soak (kubemark/shard_soak.py) over
+            NodeMesh([card] * 4) on the e2e's fleet (5120 slots) and
+            chunk, 30000 pods: the seeded kill of shard 1 at 8066 bound
+            pods, a tile held in flight while its lease expires, fence,
+            re-shard onto 3, the tile dropped whole and requeued,
+            converged and bit-exact against a clean run on 3 shards;
+            the sharded K1 launched before and after the re-shard, K1
+            never; the seconds and launches of each part.
+  chaos     the benchmark's chaos arm: run_scheduling_benchmark(5000,
+            30000) with 1 % faults on every verb (seed 7); every pod
+            bound exactly once (a watch on the registry); pods/s beside
+            the e2e phase's.
+  node_chaos  the node-kill soak (kubemark/node_chaos.py) at 1000 nodes
+            and 600 replicas under 5 % API faults, 100 nodes killed:
+            converged, no pod left on a dead node, at least one
+            eviction, the kill set the seed's replay; the recovery
+            times.
   mixed     mixed mode (factory.create_mixed): the device probe on the
             card and one HTTP extender (the port's ExtenderServer over a
             CPU backend) place 8 pods on 5000 nodes, one at a time; the
@@ -156,7 +180,7 @@ same clock); every record with a bound names the rates
 The launch floor is the device time of a kernel that does nothing,
 timed like every kernel (20 launches in one CUDA graph).
 
-Nine paths are driven, each with the kernel launch counts set to 0
+Thirteen paths are driven, each with the kernel launch counts set to 0
 just before it and read just after: the engine and extender phases (the
 scan kernel a chunk, the filter kernel a Filter, the probe kernel a
 Prioritize), the reject phase (the argsort kernel), the e2e phase (the
@@ -165,7 +189,10 @@ scatter kernel, and the scan kernel), the spec path (K6a and K6b a
 block), the preempt phase's 64 searches (the victim kernel), the shard
 phase's 3 x 64 searches over a mesh (the sharded victim kernel), the
 shard path's batch loop over a mesh (the sharded scan kernel a chunk,
-K7 inside it) and the mixed phase (the probe kernel a pod).
+K7 inside it), the soak (the scan kernel, the scatter kernel), the
+shard-kill soak (the sharded scan kernel on 4 shards and then 3), the
+chaos arm and the node-kill soak (the scan kernel, the scatter kernel)
+and the mixed phase (the probe kernel a pod).
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero and prints no result. Every line carries the card's name
 and power limit (nvidia-smi). The last lines are the card's line, the
@@ -185,7 +212,8 @@ sharded K1's ms less K1's on the same chunk, its plain cost the sharded
 twin's less the plain scan's, its bound (the records' bytes) and its
 latency floor (`hop_floor_ms`: the chunk's pods x one relaxed hop
 through L2, read with profile_kernels.hop_cycles, the L2 hop probe
-built beside the kernels). Needs
+built beside the kernels); every kernel's launches on the soak, shard
+soak, chaos and node-chaos paths (`launches_soak_paths`). Needs
 one CUDA device;
 exits non-zero without one, or without the rest of the repository beside
 it.
@@ -206,6 +234,21 @@ EXTENDER_PODS = (1, 5, 7)                 # plain, node selector, host port
 EXTENDER_EXISTING = 2000
 SCATTER_SEED = 13
 MIXED_PODS = 8
+# the soak and chaos paths: the churn soak at SOAK_5K.json's shape (a
+# 60 s window; the 10,000-event watch window fills by design before the
+# baseline, as in tests/test_soak.py), the shard-kill soak at the e2e's
+# fleet and chunk, the benchmark's chaos arm at the e2e's size, and the
+# node-kill soak at tests/test_chaos.py's fleet-scale gate
+SOAK_SHAPE = {"duration_s": 60.0, "n_nodes": 5000, "pods_per_cycle": 5000,
+              "sample_every_s": 2.0, "history_window": 10_000}
+SHARD_SOAK_SHAPE = {"n_shards": 4, "n_nodes": 5000, "node_capacity": 5120,
+                    "n_pods": 30000, "tile": 8192, "seed": 0}
+CHAOS_ARM = {"chaos_seed": 7, "chaos_error_rate": 0.01}
+NODE_CHAOS_SHAPE = {"n_nodes": 1000, "replicas": 600, "kill_fraction": 0.10,
+                    "seed": 77, "fault_rate": 0.05, "timeout": 420.0,
+                    "heartbeat_interval": 2.0, "monitor_period": 0.3,
+                    "monitor_grace_period": 6.0,
+                    "pod_eviction_timeout": 0.5}
 
 
 def emit(obj) -> None:
@@ -1403,6 +1446,201 @@ def phase_shard_path():
             "wedge": wedge, "seconds": time.monotonic() - t0}
 
 
+
+def phase_soak():
+    """The churn soak (kubemark/soak.py) on the card at SOAK_SHAPE: each
+    cycle creates a wave of pods, waits until all are Running, deletes
+    them and waits until the store forgets them; the leak gates
+    (SoakResult.check: RSS, watchers, threads, store keys, the encoder's
+    ledger, the modeler's tombstones) hold from the warm baseline to the
+    end, at least two cycles ran and K1 launched at least once a cycle.
+    -> the record, with the launches counted over the soak."""
+    from kubernetes_tpu_torch.kubemark.soak import run_soak
+
+    t0 = time.monotonic()
+    _zero_counts()                        # the soak path starts here
+    r = run_soak(**SOAK_SHAPE)
+    launches = _read_counts()             # ... and ends here
+    r.check()
+    if r.cycles < 2:
+        raise AssertionError(f"soak: {r.cycles} cycles in "
+                             f"{r.duration_s} s")
+    if launches["scan_chunk"] < r.cycles:
+        raise AssertionError(f"soak: K1 launched {launches['scan_chunk']} "
+                             f"times in {r.cycles} cycles")
+    b, f = r.baseline, r.final
+    return {"phase": "soak", **{k: v for k, v in SOAK_SHAPE.items()},
+            "cycles": r.cycles, "pods_churned": r.pods_churned,
+            "n_samples": len(r.samples), "duration_s": r.duration_s,
+            "rss_kb": [b["rss_kb"], f["rss_kb"]],
+            "rss_drift": f["rss_kb"] / b["rss_kb"] - 1.0,
+            "threads": [b["threads"], f["threads"]],
+            "device_allocated_bytes": [b["device_bytes"], f["device_bytes"]],
+            "baseline": b, "final": f, "gates_ok": True,
+            "launches": launches, "seconds": time.monotonic() - t0}
+
+
+def phase_shard_soak():
+    """The shard-kill soak (kubemark/shard_soak.py) on NodeMesh([card] *
+    4) at SHARD_SOAK_SHAPE: shard 1's owner dies at the seeded kill
+    point, a tile is dispatched and held in flight while its lease ages
+    out on the FakeClock, the monitor fences it, the encoder and the
+    engine re-shard onto 3, the in-flight tile drops whole at the
+    shard-epoch fence and requeues, and the rest binds on the survivors;
+    converged (every gate of the soak) and the bindings bit-exact against
+    a clean run on 3 shards. The sharded K1 launched before the re-shard
+    and after it, the unsharded K1 never. -> the record: the seconds up
+    to the kill, from the kill through the re-shard, from there to the
+    end of the drain, and of the clean run; the launches in each."""
+    from kubernetes_tpu_torch.kubemark import shard_soak
+
+    marks = {}
+
+    def mark(name):
+        marks[name] = (time.monotonic(), _read_counts())
+
+    class Leases(shard_soak.ShardLeaseSet):
+        def kill(self, shard):
+            mark("kill")
+            super().kill(shard)
+
+    def reshard(*args, **kw):
+        out = real_reshard(*args, **kw)
+        mark("reshard")
+        return out
+
+    def clean(*args, **kw):
+        mark("clean")
+        return real_clean(*args, **kw)
+
+    real_leases = shard_soak.ShardLeaseSet
+    real_reshard = shard_soak.reshard_survivors
+    real_clean = shard_soak._run_clean
+    shard_soak.ShardLeaseSet = Leases
+    shard_soak.reshard_survivors = reshard
+    shard_soak._run_clean = clean
+    try:
+        _zero_counts()                    # the shard-kill path starts here
+        mark("start")
+        res = shard_soak.run_shard_kill_soak(**SHARD_SOAK_SHAPE)
+        mark("end")                       # ... and ends here
+    finally:
+        shard_soak.ShardLeaseSet = real_leases
+        shard_soak.reshard_survivors = real_reshard
+        shard_soak._run_clean = real_clean
+    out = res.as_dict()
+    if not (res.converged and res.parity_ok):
+        raise AssertionError(f"shard_soak: {out}")
+    if set(marks) != {"start", "kill", "reshard", "clean", "end"}:
+        raise AssertionError(f"shard_soak: the run passed {sorted(marks)}")
+    order = ("start", "kill", "reshard", "clean", "end")
+    spans = dict(zip(("to_kill", "kill_to_reshard", "drain", "clean"),
+                     zip(order, order[1:])))
+    seconds = {k: marks[b][0] - marks[a][0] for k, (a, b) in spans.items()}
+    launches = {k: {n: marks[b][1][n] - marks[a][1][n]
+                    for n in marks[b][1]} for k, (a, b) in spans.items()}
+    before = marks["reshard"][1]["scan_chunk_sharded"]
+    after = (marks["clean"][1]["scan_chunk_sharded"]
+             - marks["reshard"][1]["scan_chunk_sharded"])
+    if before < 1 or after < 1 or marks["end"][1]["scan_chunk"]:
+        raise AssertionError(f"shard_soak: the sharded K1 launched {before} "
+                             f"times before the re-shard and {after} after, "
+                             f"K1 {marks['end'][1]['scan_chunk']} times")
+    return {"phase": "shard_soak", **SHARD_SOAK_SHAPE, **out,
+            "replay_rows": res.replay_rows, "seconds_by_phase": seconds,
+            "launches_by_phase": launches,
+            "sharded_k1_before_reshard": before,
+            "sharded_k1_after_reshard": after,
+            "launches": marks["end"][1],
+            "seconds": marks["end"][0] - marks["start"][0]}
+
+
+def phase_chaos(e2e_pods_per_sec):
+    """The benchmark's chaos arm on the card: run_scheduling_benchmark at
+    the e2e's size with every component's client behind the seeded fault
+    injector (CHAOS_ARM: 1 % of the calls of every verb fail); every pod
+    bound, each binding seen once and never re-pointed (a watch on the
+    registry, under no injector). -> the record, pods/s beside the e2e
+    phase's (the same pipeline without faults, this run)."""
+    import threading
+    from kubernetes_tpu_torch.api.client import InProcClient
+    from kubernetes_tpu_torch.api.registry import Registry
+    from kubernetes_tpu_torch.kubemark.benchmark import \
+        run_scheduling_benchmark
+    from kubernetes_tpu_torch.kubemark.fixtures import E2E_COUNTS
+
+    n_nodes, n_pods = E2E_COUNTS["n_nodes"], E2E_COUNTS["n_pods"]
+    registry = Registry()
+    bound_to, rebinds = {}, []
+    watcher = InProcClient(registry).watch("pods", "default")
+
+    def track():
+        for ev in watcher:
+            pod = ev.object
+            if ev.type == "DELETED" or not pod.spec.node_name:
+                continue
+            prev = bound_to.get(pod.metadata.uid)
+            if prev is not None and prev != pod.spec.node_name:
+                rebinds.append(pod.metadata.name)
+            bound_to[pod.metadata.uid] = pod.spec.node_name
+
+    threading.Thread(target=track, daemon=True).start()
+    t0 = time.monotonic()
+    try:
+        _zero_counts()                    # the chaos path starts here
+        r = run_scheduling_benchmark(n_nodes, n_pods, "batch",
+                                     registry=registry, **CHAOS_ARM)
+        launches = _read_counts()         # ... and ends here
+        end = time.monotonic() + 60
+        while len(bound_to) < n_pods and time.monotonic() < end:
+            time.sleep(0.05)
+    finally:
+        watcher.stop()
+    pods, _ = registry.list("pods", "default")
+    unbound = sum(1 for p in pods if not p.spec.node_name)
+    if (r.scheduled, len(pods), unbound, len(bound_to), len(rebinds)) != (
+            n_pods, n_pods, 0, n_pods, 0):
+        raise AssertionError(
+            f"chaos: {r.scheduled} scheduled, {len(pods)} pods, {unbound} "
+            f"unbound, {len(bound_to)} bindings seen, {len(rebinds)} "
+            f"re-pointed")
+    if launches["scan_chunk"] < 1:
+        raise AssertionError(f"chaos: K1 never launched: {launches}")
+    return {"phase": "chaos", "nodes": n_nodes, "pods": n_pods,
+            **CHAOS_ARM, "scheduled": r.scheduled,
+            "bindings_seen": len(bound_to), "rebinds": len(rebinds),
+            "elapsed_s": r.elapsed_s, "pods_per_sec": r.pods_per_sec,
+            "e2e_pods_per_sec": e2e_pods_per_sec,
+            "vs_fault_free": r.pods_per_sec / e2e_pods_per_sec,
+            "upload_stats": r.upload_stats, "launches": launches,
+            "seconds": time.monotonic() - t0}
+
+
+def phase_node_chaos():
+    """The node-kill soak (kubemark/node_chaos.py) on the card at
+    NODE_CHAOS_SHAPE: 5 % API faults on every verb, 10 % of the hollow
+    fleet hard-killed once half the replicas are bound; the node
+    controller marks them Unknown and evicts their pods, the replication
+    manager recreates them, the batch loop binds them on live nodes.
+    Converged, no pod bound to a dead node, 100 killed, the kill set the
+    seed's pure replay, at least one eviction. -> the record, with the
+    recovery times."""
+    from kubernetes_tpu_torch.kubemark.node_chaos import run_node_kill_soak
+
+    t0 = time.monotonic()
+    _zero_counts()                        # the node-chaos path starts here
+    r = run_node_kill_soak(**NODE_CHAOS_SHAPE)
+    launches = _read_counts()             # ... and ends here
+    out = r.as_dict()
+    if not (r.converged and r.dead_bound == 0 and len(r.killed) == 100
+            and r.schedule_replayed and r.evictions >= 1):
+        raise AssertionError(f"node_chaos: {out}")
+    if launches["scan_chunk"] < 1:
+        raise AssertionError(f"node_chaos: K1 never launched: {launches}")
+    out["killed"] = len(r.killed)
+    return {"phase": "node_chaos", **NODE_CHAOS_SHAPE, **out,
+            "launches": launches, "seconds": time.monotonic() - t0}
+
 def _scatter_refusal():
     """A scatter-kernel launch the card refuses (the argsort kernel with
     more threads a block than the card takes) in place of the real one,
@@ -1797,6 +2035,14 @@ def main() -> int:
     stamp(shard)
     shard_path = phase_shard_path()
     stamp(shard_path)
+    soak = phase_soak()
+    stamp(soak)
+    shard_soak = phase_shard_soak()
+    stamp(shard_soak)
+    chaos = phase_chaos(e2e["pods_per_sec"])
+    stamp(chaos)
+    node_chaos = phase_node_chaos()
+    stamp(node_chaos)
     _zero_counts()                        # the mixed path starts here
     mixed = phase_mixed()
     mixed_launches = _read_counts()       # ... and ends here
@@ -1810,7 +2056,7 @@ def main() -> int:
     k6 = spec_t["chunk"]
     k1, k5, k5_p1 = scan_t["k1"], scan_t["k5"], scan_t["k5_p1"]
     sharded = shard_t["timings"][SHARD_TIMED]
-    emit({"kernels": [{
+    kernels = [{
         "name": "filter_masks", "route": "cuda",
         "source": "kubernetes_tpu_torch/sched/device/csrc/filter_kernel.cu",
         "replaces": "kubernetes_tpu/sched/device/pallas_filter.py:169",
@@ -1984,7 +2230,17 @@ def main() -> int:
                         "SM id (profile_kernels.hop_cycles)",
         "hop_cycles": shard_t["k7_hop"]["relaxed_hop_cycles"],
         "library_ms": None, "bytes": sharded["k7_bytes"],
-        "launch_floor_ms": floor_ms, **rate}]})
+        "launch_floor_ms": floor_ms, **rate}]
+    # each kernel's launches on the soak and chaos paths (K7's: the
+    # sharded K1's, which it runs inside)
+    paths = {"soak": soak, "shard_soak": shard_soak, "chaos": chaos,
+             "node_chaos": node_chaos}
+    for k in kernels:
+        counter = ("scan_chunk_sharded" if k["name"] == "k7_exchange"
+                   else k["name"])
+        k["launches_soak_paths"] = {p: rec["launches"][counter]
+                                    for p, rec in paths.items()}
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

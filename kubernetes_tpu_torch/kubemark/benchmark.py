@@ -10,8 +10,7 @@ control loop or the device batch loop — the benchmark measures the whole
 bind pipeline, not just the scoring math.
 
 The port's copy: the batch loop's engine runs on the CUDA device unless
-the caller passes `device` (the tests pass device="cpu"). The chaos arm
-(`chaos_seed`) waits for the port of the chaos package and raises.
+the caller passes `device` (the tests pass device="cpu").
 """
 
 from __future__ import annotations
@@ -119,9 +118,10 @@ def run_scheduling_benchmark(n_nodes: int = 1000, n_pods: int = 1000,
     registry: the master to run against (e.g. one over a
     `Store(publish_inline=True)`); None builds a default one.
 
-    chaos_seed: the JAX package's fault-injection arm (a seeded
-    chaos.ChaosClient at chaos_error_rate). Not in the port yet: any
-    value but None raises.
+    chaos_seed: when set, every component's client rides the seeded
+    fault injector (chaos.ChaosClient at chaos_error_rate on all verbs)
+    so the number is recorded UNDER fault load. None (the default)
+    leaves the hot path untouched.
 
     device: where the batch engine runs; None is the CUDA device and
     raises without one.
@@ -145,9 +145,9 @@ def run_scheduling_benchmark(n_nodes: int = 1000, n_pods: int = 1000,
     registry = registry or Registry()
     client = InProcClient(registry)
     if chaos_seed is not None:
-        raise NotImplementedError(
-            "the chaos arm (the chaos package) is not ported yet: "
-            "ROADMAP.md Queue 1, 'Harness and entry points'")
+        from ..chaos import ChaosClient, FaultPlan
+        client = ChaosClient(client, FaultPlan(seed=chaos_seed,
+                                               error_rate=chaos_error_rate))
     # the fleet beats as in the JAX benchmark: every node once per 600 s,
     # one shard of a tenth of the fleet every 30-90 s. The reference's
     # BenchmarkScheduling fixture has NO kubelets (nodes are API
@@ -246,8 +246,19 @@ def run_scheduling_benchmark(n_nodes: int = 1000, n_pods: int = 1000,
                 if not ids:
                     return
                 names = [f"bench-pod-{i:06d}" for i in ids]
-                client.create_from_template("pods", template, names,
-                                            "default")
+                while True:
+                    try:
+                        client.create_from_template(
+                            "pods", template, names, "default")
+                        break
+                    except Exception:
+                        # only injected faults are retried (a fault
+                        # fires before the call reaches the registry,
+                        # so the claimed chunk is never half-created);
+                        # real errors keep crashing the writer
+                        if chaos_seed is None or time.time() > deadline:
+                            raise
+                        time.sleep(0.01)
 
         writers = [threading.Thread(target=writer, daemon=True)
                    for _ in range(WRITER_THREADS)]

@@ -1172,3 +1172,18 @@ def test_sharded_scan_across_the_generation_wrap(cuda, shards):
         assert torch.equal(got, want), anti
         assert all(torch.equal(x, y) for x, y in zip(g_state, w_state))
     assert int(space.xchg[0]) == 2
+
+
+@pytest.mark.gpu
+def test_shard_kill_soak_on_the_card_equals_the_cpu(cuda):
+    """The shard-kill soak (kubemark/shard_soak.py) at its default shape
+    (8 nodes, 48 pods, tiles of 8) over NodeMesh(["cuda:0"] * 4): the
+    sharded K1 on 4 shards and, after shard 1's lease expires, on 3;
+    every field of its result equal to the CPU mesh's run."""
+    from kubernetes_tpu_torch.kubemark.shard_soak import run_shard_kill_soak
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    before = sk.scan_chunk_sharded.launches
+    card = run_shard_kill_soak(device="cuda:0").as_dict()
+    assert sk.scan_chunk_sharded.launches > before
+    assert card == run_shard_kill_soak(device="cpu").as_dict()
+    assert card["converged"] and card["parity_ok"]

@@ -2,10 +2,12 @@
 one extender round trip, the live pipeline under the kubemark
 benchmark and the evidence tool's e2e section, a victim search, a
 scatter through the table mirror, a mixed-mode config, a batch on a
-node-axis mesh and the shard-failure drill over the leases, all on the
-CPU) loads neither jax nor any module of the JAX package, and its entry
-points refuse to run without a CUDA device unless a device is named. Run in a subprocess, because this test
-process has jax loaded (tests/conftest.py)."""
+node-axis mesh and the shard-failure drill over the leases, the
+shard-kill soak, the chaos package, the controllers and the soaks'
+modules, all on the CPU) loads neither jax nor any module of the JAX
+package, and its entry points refuse to run without a CUDA device unless
+a device is named. Run in a subprocess, because this test process has
+jax loaded (tests/conftest.py)."""
 
 import ast
 import json
@@ -80,17 +82,41 @@ from kubernetes_tpu_torch.sched.device import NodeMesh
 meshed = schedule_batch(snap, mesh=NodeMesh(["cpu"] * 4)) == names
 drill = fx.shard_survivor_drill(n_nodes=16, n_pods=16, shards=4, dead=1,
                                 device="cpu")
+# the soak and chaos paths: the chaos package, the controllers, the
+# soaks, the flight recorder and the device pick; the shard-kill soak
+import kubernetes_tpu_torch.chaos
+import kubernetes_tpu_torch.controllers
+from kubernetes_tpu_torch.kubemark import node_chaos, shard_soak, soak
+import kubernetes_tpu_torch.obs.flightrec
+from kubernetes_tpu_torch.utils.platform import pick_device
+shard = shard_soak.run_shard_kill_soak(device="cpu")
 loaded = sorted(m for m in sys.modules if m in (
     "kubernetes_tpu_torch.sched.device.mesh",
     "kubernetes_tpu_torch.sched.device.shardfail",
-    "kubernetes_tpu_torch.utils.leaderelection"))
+    "kubernetes_tpu_torch.utils.leaderelection",
+    "kubernetes_tpu_torch.chaos.crash",
+    "kubernetes_tpu_torch.chaos.injector",
+    "kubernetes_tpu_torch.chaos.nodes",
+    "kubernetes_tpu_torch.chaos.workload",
+    "kubernetes_tpu_torch.controllers.framework",
+    "kubernetes_tpu_torch.controllers.node",
+    "kubernetes_tpu_torch.controllers.replication",
+    "kubernetes_tpu_torch.utils.workqueue",
+    "kubernetes_tpu_torch.obs.flightrec",
+    "kubernetes_tpu_torch.utils.platform"))
 
 torch.cuda.is_available = lambda: False
 errors = []
 for make in (BatchEngine, DeviceBackend,
              lambda: run_scheduling_benchmark(2, 1),
              lambda: section_e2e(2, 1),
-             lambda: factory.create_mixed(policy)):
+             lambda: factory.create_mixed(policy),
+             lambda: soak.run_soak(duration_s=1.0, n_nodes=2),
+             shard_soak.run_shard_kill_soak,
+             lambda: node_chaos.run_node_kill_soak(n_nodes=2),
+             lambda: node_chaos.run_partition_gate(n_nodes=2),
+             lambda: run_scheduling_benchmark(2, 1, chaos_seed=1),
+             pick_device):
     try:
         make()
     except RuntimeError as e:
@@ -103,6 +129,7 @@ print(json.dumps({"foreign": sorted(m for m in sys.modules if is_foreign(m)),
                   "delta": engine.upload_stats["delta_tiles"],
                   "mixed": mixed, "meshed": meshed,
                   "drill": [drill["mesh_after"], drill["second_half_bound"]],
+                  "shard_soak": [shard.converged, shard.parity_ok],
                   "loaded": loaded}))
 """
 
@@ -120,10 +147,11 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert res["bench"] == [40, 40] and res["e2e"] == 40
     assert len(res["feasible"]) == 4 and any(res["feasible"])
     assert res["delta"] == 1 and res["mixed"] == "DeviceAssistedAlgorithm"
-    assert len(res["errors"]) == 5
+    assert len(res["errors"]) == 11
     assert all("no CUDA device" in e for e in res["errors"])
     assert res["meshed"] and res["drill"] == [3, True]
-    assert len(res["loaded"]) == 3
+    assert res["shard_soak"] == [True, True]
+    assert len(res["loaded"]) == 13
 
 
 def _imports(path):

@@ -8,8 +8,6 @@ counts of bound pods equal those of one uninterrupted engine run over
 the fleet's nodes — and those of the JAX package's own benchmark at the
 same size. Tolerance 0: counts are integers."""
 
-import pytest
-
 from kubernetes_tpu.api.registry import Registry as JaxRegistry
 from kubernetes_tpu.kubemark.benchmark import _bench_pod as jax_bench_pod
 from kubernetes_tpu.kubemark.benchmark import \
@@ -78,9 +76,3 @@ def test_e2e_section_counts_equal_one_uninterrupted_run():
     for layer in ("drain", "encode", "commit"):
         assert out["layers"][layer]["count"] >= 1, layer
         assert out["layers"][layer]["seconds"] >= 0.0, layer
-
-
-def test_benchmark_refuses_the_unported_chaos_arm():
-    with pytest.raises(NotImplementedError, match="chaos"):
-        run_scheduling_benchmark(n_nodes=2, n_pods=1, chaos_seed=1,
-                                 device="cpu")
