@@ -180,7 +180,7 @@ same clock); every record with a bound names the rates
 The launch floor is the device time of a kernel that does nothing,
 timed like every kernel (20 launches in one CUDA graph).
 
-Thirteen paths are driven, each with the kernel launch counts set to 0
+Fifteen paths are driven, each with the kernel launch counts set to 0
 just before it and read just after: the engine and extender phases (the
 scan kernel a chunk, the filter kernel a Filter, the probe kernel a
 Prioritize), the reject phase (the argsort kernel), the e2e phase (the
@@ -191,8 +191,10 @@ phase's 3 x 64 searches over a mesh (the sharded victim kernel), the
 shard path's batch loop over a mesh (the sharded scan kernel a chunk,
 K7 inside it), the soak (the scan kernel, the scatter kernel), the
 shard-kill soak (the sharded scan kernel on 4 shards and then 3), the
-chaos arm and the node-kill soak (the scan kernel, the scatter kernel)
-and the mixed phase (the probe kernel a pod).
+chaos arm and the node-kill soak (the scan kernel, the scatter kernel),
+the density SLO over a real apiserver at 5000 nodes x 15000 pods and the
+chaos soak over HTTP (the scan kernel, the scatter kernel) and the mixed
+phase (the probe kernel a pod).
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero and prints no result. Every line carries the card's name
 and power limit (nvidia-smi). The last lines are the card's line, the
@@ -213,7 +215,8 @@ twin's less the plain scan's, its bound (the records' bytes) and its
 latency floor (`hop_floor_ms`: the chunk's pods x one relaxed hop
 through L2, read with profile_kernels.hop_cycles, the L2 hop probe
 built beside the kernels); every kernel's launches on the soak, shard
-soak, chaos and node-chaos paths (`launches_soak_paths`). Needs
+soak, chaos, node-chaos, SLO and HTTP chaos paths
+(`launches_soak_paths`). Needs
 one CUDA device;
 exits non-zero without one, or without the rest of the repository beside
 it.
@@ -249,6 +252,14 @@ NODE_CHAOS_SHAPE = {"n_nodes": 1000, "replicas": 600, "kill_fraction": 0.10,
                     "heartbeat_interval": 2.0, "monitor_period": 0.3,
                     "monitor_grace_period": 6.0,
                     "pod_eviction_timeout": 0.5}
+# the HTTP plane: the reference's density SLO (3 pods a node,
+# density.go:203-208) at the 5000-node fleet over a real apiserver, not
+# cut; and tests/test_chaos.py's chaos soak at its own size with the
+# scheduler fed through the HTTP watch path
+SLO_SHAPE = {"n_nodes": 5000, "n_pods": 15000}
+HTTP_CHAOS_SHAPE = {"seed": 0, "replicas": 16, "n_nodes": 6,
+                    "fault_rate": 0.05, "timeout": 150.0,
+                    "transport": "http"}
 
 
 def emit(obj) -> None:
@@ -1641,6 +1652,66 @@ def phase_node_chaos():
     return {"phase": "node_chaos", **NODE_CHAOS_SHAPE, **out,
             "launches": launches, "seconds": time.monotonic() - t0}
 
+def phase_slo():
+    """The density SLO (kubemark/slo.py) on the card at SLO_SHAPE: pod
+    writers and probers over HttpClient to the port's ApiServer, the
+    hollow fleet and the batch scheduler in-process, the GIL switch
+    interval at 1 ms for the run; SLOResult.check() at the full sample
+    floor (API p99 < 1 s on every gated endpoint, startup p50 < 5 s),
+    every pod Running and K1 launched. -> the record, with the per-verb
+    server-side latencies and the launches."""
+    from kubernetes_tpu_torch.kubemark.slo import MIN_API_SAMPLES, \
+        run_density_slo
+
+    t0 = time.monotonic()
+    _zero_counts()                        # the SLO path starts here
+    r = run_density_slo(**SLO_SHAPE)
+    launches = _read_counts()             # ... and ends here
+    out = r.as_dict()
+    if r.running != SLO_SHAPE["n_pods"]:
+        raise AssertionError(f"slo: {r.running} of {SLO_SHAPE['n_pods']} "
+                             f"pods Running: {out}")
+    r.check(min_samples=MIN_API_SAMPLES)
+    if launches["scan_chunk"] < 1:
+        raise AssertionError(f"slo: K1 never launched: {launches}")
+    return {"phase": "slo", **SLO_SHAPE, **out,
+            "api_verb_counts": {k: v["count"]
+                                for k, v in r.api_verbs.items()},
+            "min_api_samples": MIN_API_SAMPLES, "launches": launches,
+            "seconds": time.monotonic() - t0}
+
+
+def phase_http_chaos():
+    """tests/test_chaos.py's chaos soak on the card at HTTP_CHAOS_SHAPE
+    (fixtures.run_chaos_soak): the replication controller, the batch
+    scheduler and the hollow fleet over one seeded fault injector on an
+    HttpClient to the port's ApiServer, 5 % faults on every verb, one
+    forced watch cut. Converged, every binding seen once and never
+    re-pointed, the faults the seed's pure replay, K1 launched. -> the
+    record."""
+    from kubernetes_tpu_torch.chaos import VERBS
+    from kubernetes_tpu_torch.kubemark.fixtures import run_chaos_soak
+
+    t0 = time.monotonic()
+    _zero_counts()                        # the HTTP chaos path starts here
+    ok, rebinds, pods, trace, plan = run_chaos_soak(**HTTP_CHAOS_SHAPE)
+    launches = _read_counts()             # ... and ends here
+    replayed = all(trace[v] == plan.schedule(v, len(trace[v]))
+                   for v in VERBS)
+    faults = sum(1 for v in VERBS for f in trace[v] if f)
+    if not (ok and not rebinds and replayed):
+        raise AssertionError(
+            f"http_chaos: converged {ok}, re-pointed {rebinds}, replayed "
+            f"{replayed}: {[(p.metadata.name, p.spec.node_name) for p in pods]}")
+    if launches["scan_chunk"] < 1:
+        raise AssertionError(f"http_chaos: K1 never launched: {launches}")
+    return {"phase": "http_chaos", **HTTP_CHAOS_SHAPE, "converged": ok,
+            "rebinds": len(rebinds), "pods": len(pods),
+            "calls": sum(len(t) for t in trace.values()),
+            "faults_injected": faults, "launches": launches,
+            "seconds": time.monotonic() - t0}
+
+
 def _scatter_refusal():
     """A scatter-kernel launch the card refuses (the argsort kernel with
     more threads a block than the card takes) in place of the real one,
@@ -2043,6 +2114,10 @@ def main() -> int:
     stamp(chaos)
     node_chaos = phase_node_chaos()
     stamp(node_chaos)
+    slo = phase_slo()
+    stamp(slo)
+    http_chaos = phase_http_chaos()
+    stamp(http_chaos)
     _zero_counts()                        # the mixed path starts here
     mixed = phase_mixed()
     mixed_launches = _read_counts()       # ... and ends here
@@ -2231,10 +2306,10 @@ def main() -> int:
         "hop_cycles": shard_t["k7_hop"]["relaxed_hop_cycles"],
         "library_ms": None, "bytes": sharded["k7_bytes"],
         "launch_floor_ms": floor_ms, **rate}]
-    # each kernel's launches on the soak and chaos paths (K7's: the
-    # sharded K1's, which it runs inside)
+    # each kernel's launches on the soak, chaos and HTTP paths (K7's:
+    # the sharded K1's, which it runs inside)
     paths = {"soak": soak, "shard_soak": shard_soak, "chaos": chaos,
-             "node_chaos": node_chaos}
+             "node_chaos": node_chaos, "slo": slo, "http_chaos": http_chaos}
     for k in kernels:
         counter = ("scan_chunk_sharded" if k["name"] == "k7_exchange"
                    else k["name"])

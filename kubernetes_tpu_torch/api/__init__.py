@@ -1,2 +1,2 @@
 from .registry import Registry, ResourceInfo
-from .client import Client, InProcClient
+from .client import Client, InProcClient, HttpClient

@@ -42,6 +42,10 @@ pods, full nodes) and the FMA trap of Balanced (cpu_frac 0.9 against
 mem_frac 0 on its first slots and pods). `scan_cases` names the tables
 chip_smoke's scan phase and the card tests hold the kernels to: each
 tier (`SCAN_TIERS`) and each edge (`SCAN_EDGES`) in both layouts.
+
+`run_chaos_soak` is the JAX package's chaos soak (tests/test_chaos.py)
+in the port, over the HTTP plane or in-process: chip_smoke's
+`http_chaos` phase and tests/test_torch_chaos.py run it.
 """
 
 from __future__ import annotations
@@ -717,3 +721,136 @@ def _drill_pod(i: int) -> api.Pod:
                 "cpu": parse_quantity("100m"),
                 "memory": parse_quantity("64Mi")}))]),
         status=api.PodStatus(phase="Pending"))
+
+
+def _chaos_pod(name: str, labels=None) -> api.Pod:
+    """tests/test_chaos.py's pod: 100m / 64Mi."""
+    return api.Pod(
+        metadata=api.ObjectMeta(name=name, namespace="default",
+                                labels=labels or {}),
+        spec=api.PodSpec(containers=[api.Container(
+            name="c", image="img",
+            resources=api.ResourceRequirements(
+                requests={"cpu": parse_quantity("100m"),
+                          "memory": parse_quantity("64Mi")}))]),
+        status=api.PodStatus(phase="Pending"))
+
+
+def run_chaos_soak(seed: int, replicas: int = 16, n_nodes: int = 6,
+                   fault_rate: float = 0.05, timeout: float = 150.0,
+                   transport: str = "http", device=None):
+    """The JAX package's chaos soak (tests/test_chaos.py run_chaos_soak)
+    in the port: a replication controller, the batch scheduler and a
+    hollow fleet, every one of them through one seeded fault injector
+    (FaultPlan at `fault_rate` on every verb), and one forced watch cut
+    once a quarter of the replicas are bound. transport="http" puts the
+    injector over an HttpClient to an ApiServer on the registry, as the
+    JAX soak does, so the scheduler is fed through the HTTP watch path;
+    "inproc" over an InProcClient. An invariant tracker watches the
+    registry directly (no faults, no HTTP): every binding observed once,
+    never re-pointed. device: where the batch engine runs; None is the
+    CUDA device and raises without one. -> (converged, rebinds, pods,
+    trace, plan)."""
+    import threading
+    import time
+
+    from ..api.client import HttpClient, InProcClient
+    from ..api.registry import Registry
+    from ..api.server import ApiServer
+    from ..chaos import ChaosClient, FaultPlan
+    from ..controllers.replication import ReplicationManager
+    from ..sched.batch import BatchScheduler
+    from ..sched.device.engine import resolve_device
+    from ..sched.factory import ConfigFactory
+    from .fleet import HollowFleet
+
+    if transport not in ("http", "inproc"):
+        raise ValueError(f"transport {transport!r}: http or inproc")
+    device = resolve_device(device)
+
+    def wait_until(cond, limit):
+        end = time.time() + limit
+        while time.time() < end:
+            if cond():
+                return True
+            time.sleep(0.05)
+        return cond()
+
+    registry = Registry()
+    srv = None
+    if transport == "http":
+        srv = ApiServer(registry, port=0).start()
+        inner = HttpClient(srv.url)
+    else:
+        inner = InProcClient(registry)
+    plan = FaultPlan(seed=seed, error_rate=fault_rate)
+    chaos = ChaosClient(inner, plan)
+
+    bound_to, rebinds = {}, []
+    lock = threading.Lock()
+    tracker_w = InProcClient(registry).watch("pods", "default")
+
+    def track():
+        for ev in tracker_w:
+            pod = ev.object
+            if ev.type == "DELETED" or not pod.spec.node_name:
+                continue
+            with lock:
+                prev = bound_to.get(pod.metadata.uid)
+                if prev is not None and prev != pod.spec.node_name:
+                    rebinds.append((pod.metadata.name, prev,
+                                    pod.spec.node_name))
+                bound_to[pod.metadata.uid] = pod.spec.node_name
+
+    threading.Thread(target=track, daemon=True).start()
+
+    fleet = HollowFleet(chaos, n_nodes, heartbeat_interval=1.0).run()
+    factory = ConfigFactory(chaos, rate_limit=False).start()
+    sched = BatchScheduler(factory.create_batch(device=device)).run()
+    rc_mgr = ReplicationManager(chaos).run()
+    try:
+        wait_until(lambda: len(factory.node_lister.list()) == n_nodes, 60)
+        rc = api.ReplicationController(
+            metadata=api.ObjectMeta(name="soak", namespace="default"),
+            spec=api.ReplicationControllerSpec(
+                replicas=replicas, selector={"app": "soak"},
+                template=api.PodTemplateSpec(
+                    metadata=api.ObjectMeta(labels={"app": "soak"}),
+                    spec=_chaos_pod("t", labels={"app": "soak"}).spec)))
+        # the RC's creation rides the injector too (retried until it
+        # lands: an injected fault fires before the request is sent)
+        deadline = time.time() + 30
+        while True:
+            try:
+                chaos.create("replicationcontrollers", rc)
+                break
+            except Exception:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.05)
+
+        def converged():
+            pods, _ = registry.list("pods", "default",
+                                    label_selector="app=soak")
+            live = [p for p in pods if p.metadata.deletion_timestamp
+                    is None]
+            return (len(live) == replicas
+                    and all(p.spec.node_name for p in live)
+                    and all(p.status.phase == "Running" for p in live))
+
+        # some progress, then every component's streams drop at once
+        # (the apiserver-restart moment)
+        wait_until(lambda: len(bound_to) >= max(2, replicas // 4),
+                   timeout / 2)
+        chaos.cut_watches()
+        ok = wait_until(converged, timeout)
+        pods, _ = registry.list("pods", "default", label_selector="app=soak")
+        return ok, list(rebinds), pods, chaos.trace(), plan
+    finally:
+        rc_mgr.stop()
+        sched.stop()
+        factory.stop()
+        fleet.stop()
+        tracker_w.stop()
+        if srv is not None:
+            srv.stop()

@@ -162,17 +162,16 @@ def _upload(tree, device: torch.device):
 
 def _alloc_like(tree):
     """A NamedTuple of new, uninitialised tensors shaped like `tree`'s,
-    carved from one buffer on their device (16-byte aligned views): one
-    allocation where `tree`'s fields each took one."""
-    offs, off = [], 0
+    carved from one buffer on their device (16-byte aligned views,
+    scatter_kernel.carve): one allocation where `tree`'s fields each
+    took one."""
+    layout, off = [], 0
     for t in tree:
-        offs.append(off)
+        layout.append((off, t.dtype, tuple(t.shape)))
         off += -(-t.numel() * t.element_size() // 16) * 16
     buf = torch.empty(max(off, 16), dtype=torch.uint8,
                       device=tree[0].device)
-    return type(tree)(*(
-        buf[o:o + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
-        for o, t in zip(offs, tree)))
+    return type(tree)(*scatter_kernel.carve(buf, layout))
 
 
 # the tensor dtype `_tensor` gives each encoder dtype: torch dtypes never
@@ -717,7 +716,7 @@ class BatchEngine:
         if landed is not None:
             landed()
         self.upload_stats["pod_bytes"] += _host_nbytes(pods_h)
-        return node, state, PodXs(*(staged.view(i) for i in slots)), p
+        return node, state, PodXs(*staged.views(slots)), p
 
     def run_chunked(self, enc: EncodeResult, chunk: int = 1024,
                     state_override: Optional[State] = None,

@@ -903,11 +903,12 @@ def scan_chunk_plain(a: ScanArgs, weights: Tuple[int, int, int],
                      fits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1's function as the per-pod loop of tensor ops (about 150
     launches a pod on the card) -> i32[P]; commits into a.state. `fits`:
-    see `step`."""
+    see `step`. An invalid pod (the chunk's padding) fits nowhere and
+    commits a zero delta, so its step is skipped: its answer is -1."""
     p = a.pods.valid.shape[0]
     aux = node_aux(a.node)
-    out = torch.empty(p, dtype=torch.int32, device=a.device)
-    for k in range(p):
+    out = torch.full((p,), -1, dtype=torch.int32, device=a.device)
+    for k in np.flatnonzero(a.pods.valid.cpu().numpy()).tolist():
         pod = type(a.pods)(*(t[k:k + 1] for t in a.pods))
         out[k:k + 1] = step(a.node, aux, weights, anti_weight, a.state,
                             pod, has_aff, has_spread, fits)

@@ -17,7 +17,7 @@ into one `Prologue`:
     slot = pro.carry(pod_column, rows)        # a host array, zero-padded
     staged = pro.stage(device)                # one buffer, one copy
     apply_staged(staged)                      # one launch
-    pods = staged.view(slot)
+    pods, = staged.views([slot])
 
 `scatter` writes packed host rows into rows `idx` of each column (and of
 a second column where `also` names one: a dirty State row goes into the
@@ -142,11 +142,32 @@ class Staged(NamedTuple):
     rows: int
     nbytes: int
 
-    def view(self, i: int) -> torch.Tensor:
-        """Carried array i as a typed view into the device buffer."""
-        off, dtype, shape = self.carried[i]
-        n = math.prod(shape) * dtype.itemsize
-        return self.buf[off:off + n].view(dtype).view(shape)
+    def views(self, slots) -> List[torch.Tensor]:
+        """The carried arrays at `slots`, each a typed view into the
+        device buffer (carved as `carve` does)."""
+        return carve(self.buf, [self.carried[i] for i in slots])
+
+
+def carve(buf: torch.Tensor, layout) -> List[torch.Tensor]:
+    """Typed views into a uint8 buffer, one per (byte offset, dtype,
+    shape) of `layout`, each offset a multiple of its dtype's size.
+
+    Each torch op that makes a view hands the GIL round, and a thread
+    that hands it round in a process whose other threads keep it busy
+    (an API server's) waits for it again: so the buffer is viewed once a
+    dtype, each array is sliced out of that view (slicing keeps the GIL)
+    and only arrays of more than one dimension take a view to their
+    shape."""
+    typed = {}
+    out = []
+    for off, dtype, shape in layout:
+        base = typed.get(dtype)
+        if base is None:
+            base = typed[dtype] = buf.view(dtype)
+        k = off // dtype.itemsize
+        a = base[k:k + math.prod(shape)]
+        out.append(a if len(shape) == 1 else a.view(shape))
+    return out
 
 
 def _check_columns(columns, rows, n, device) -> None:

@@ -6,11 +6,11 @@ Cross-package: for seeds 0-9 the port's plans make the same decisions
 as the JAX package's (FaultPlan per verb, CrashPlan, ShardKillPlan,
 NodeFaultPlan, WorkloadPlan), the same scripted calls through both
 ChaosClients draw the same traces and outcomes, and a FlightRecorder
-bundle is byte-equal. Then the in-process tests of tests/test_chaos.py,
-ported: the plans' determinism, watch cuts, the chaos soak (its
-invariants over InProcClient), the node-kill soak (40 nodes) and the
-partition gate; and the benchmark's chaos arm with every pod bound
-exactly once. All on the CPU (device="cpu"); without a device named,
+bundle is byte-equal. Then the tests of tests/test_chaos.py, ported:
+the plans' determinism, watch cuts, the chaos soak (its invariants over
+ApiServer and HttpClient, and over InProcClient), the node-kill soak
+(40 nodes) and the partition gate; and the benchmark's chaos arm with
+every pod bound exactly once. All on the CPU (device="cpu"); without a device named,
 every entry point needs a CUDA device and raises without one."""
 
 import dataclasses
@@ -42,12 +42,8 @@ from kubernetes_tpu_torch.chaos import (VERBS, ChaosClient, CrashChaos,
                                         CrashPlan, FaultPlan, NodeFaultPlan,
                                         WorkloadPlan)
 from kubernetes_tpu_torch.chaos.crash import ShardKillPlan
-from kubernetes_tpu_torch.controllers.replication import ReplicationManager
-from kubernetes_tpu_torch.core import types as api
-from kubernetes_tpu_torch.kubemark.fleet import HollowFleet
+from kubernetes_tpu_torch.kubemark import fixtures as fx
 from kubernetes_tpu_torch.obs.flightrec import FlightRecorder
-from kubernetes_tpu_torch.sched.batch import BatchScheduler
-from kubernetes_tpu_torch.sched.factory import ConfigFactory
 from kubernetes_tpu_torch.utils.clock import FakeClock
 
 from test_chaos import mkpod as jax_mkpod
@@ -363,98 +359,25 @@ class TestCrashPlanDeterminism:
 
 # ----------------------------------------------------------- chaos soak
 
-def run_chaos_soak(seed, replicas=16, n_nodes=6, fault_rate=0.05,
-                   timeout=150.0):
-    """tests/test_chaos.py's soak body over InProcClient: RC + batch
-    scheduler (device="cpu") + hollow fleet, all through one seeded
-    injector; one forced watch cut mid-run. The JAX soak runs over
-    ApiServer and HttpClient, and under the lock-order witness; the
-    port's HTTP transport waits for the HTTP plane (ROADMAP.md Queue 1
-    item 3), its lint package for item 8. -> (converged, rebinds, pods,
-    trace, plan)."""
-    registry = Registry()
-    plan = FaultPlan(seed=seed, error_rate=fault_rate)
-    chaos = ChaosClient(InProcClient(registry), plan)
-
-    # invariant tracker rides the registry directly (no chaos): every
-    # binding observed exactly once, never re-pointed
-    bound_to, rebinds = {}, []
-    lock = threading.Lock()
-    tracker_w = InProcClient(registry).watch("pods", "default")
-
-    def track():
-        for ev in tracker_w:
-            pod = ev.object
-            if ev.type == "DELETED" or not pod.spec.node_name:
-                continue
-            with lock:
-                prev = bound_to.get(pod.metadata.uid)
-                if prev is not None and prev != pod.spec.node_name:
-                    rebinds.append((pod.metadata.name, prev,
-                                    pod.spec.node_name))
-                bound_to[pod.metadata.uid] = pod.spec.node_name
-
-    threading.Thread(target=track, daemon=True).start()
-
-    fleet = HollowFleet(chaos, n_nodes, heartbeat_interval=1.0).run()
-    factory = ConfigFactory(chaos, rate_limit=False).start()
-    sched = BatchScheduler(factory.create_batch(device="cpu")).run()
-    rc_mgr = ReplicationManager(chaos).run()
-    try:
-        wait_until(lambda: len(factory.node_lister.list()) == n_nodes,
-                   timeout=60)
-        rc = api.ReplicationController(
-            metadata=api.ObjectMeta(name="soak", namespace="default"),
-            spec=api.ReplicationControllerSpec(
-                replicas=replicas, selector={"app": "soak"},
-                template=api.PodTemplateSpec(
-                    metadata=api.ObjectMeta(labels={"app": "soak"}),
-                    spec=mkpod("t", labels={"app": "soak"}).spec)))
-        deadline = time.time() + 30
-        while True:
-            try:
-                chaos.create("replicationcontrollers", rc)
-                break
-            except Exception:
-                if time.time() > deadline:
-                    raise
-                time.sleep(0.05)
-
-        def converged():
-            pods, _ = registry.list("pods", "default",
-                                    label_selector="app=soak")
-            live = [p for p in pods if p.metadata.deletion_timestamp
-                    is None]
-            return (len(live) == replicas
-                    and all(p.spec.node_name for p in live)
-                    and all(p.status.phase == "Running" for p in live))
-
-        wait_until(lambda: len(bound_to) >= max(2, replicas // 4),
-                   timeout=timeout / 2)
-        chaos.cut_watches()
-        ok = wait_until(converged, timeout=timeout)
-        pods, _ = registry.list("pods", "default",
-                                label_selector="app=soak")
-        return ok, list(rebinds), pods, chaos.trace(), plan
-    finally:
-        rc_mgr.stop()
-        sched.stop()
-        factory.stop()
-        fleet.stop()
-        tracker_w.stop()
-
-
 @pytest.mark.chaos
-def test_chaos_soak_converges_with_single_bindings():
+@pytest.mark.parametrize("transport", ["inproc", "http"])
+def test_chaos_soak_converges_with_single_bindings(transport):
     """Seeded 5% faults on all verbs + one forced watch cut: the RC
     reaches desired replicas, every scheduled pod holds exactly one
-    binding, and the run's fault schedule is the seed's pure replay."""
-    ok, rebinds, pods, trace, plan = run_chaos_soak(seed=42)
+    binding, and the run's fault schedule is the seed's pure replay.
+    tests/test_chaos.py's soak body (fixtures.run_chaos_soak), over
+    ApiServer and HttpClient as the JAX soak runs it, and over
+    InProcClient. The JAX soak also runs the store's locks under the
+    lock-order witness; the port has no lint package, so that check
+    stays out here."""
+    ok, rebinds, pods, trace, plan = fx.run_chaos_soak(
+        seed=42, transport=transport, device="cpu")
     assert ok, [(p.metadata.name, p.spec.node_name, p.status.phase)
                 for p in pods]
     assert rebinds == [], rebinds
     for verb in VERBS:
         assert trace[verb] == plan.schedule(verb, len(trace[verb])), verb
+    assert any(trace[verb] for verb in VERBS)
 
 
 # ------------------------------------------------------- node-kill chaos

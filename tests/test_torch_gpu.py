@@ -1187,3 +1187,21 @@ def test_shard_kill_soak_on_the_card_equals_the_cpu(cuda):
     assert sk.scan_chunk_sharded.launches > before
     assert card == run_shard_kill_soak(device="cpu").as_dict()
     assert card["converged"] and card["parity_ok"]
+
+
+@pytest.mark.gpu
+def test_density_slo_on_the_card(cuda):
+    """The density SLO at 1000 nodes x 3000 pods with the batch engine on
+    the card: pod writers and probers over HTTP to the port's ApiServer,
+    every pod Running, the reference's latency gates, and K1 launched.
+    The sample floor is scaled with the pods (1000 at chip_smoke's 15000,
+    so 200 here), as tests/test_slo.py scales it for its fixture: the
+    window of 3000 pods is a fifth as long."""
+    from kubernetes_tpu_torch.kubemark.slo import (MIN_API_SAMPLES,
+                                                   run_density_slo)
+    from kubernetes_tpu_torch.sched.device import scan_kernel as sk
+    before = sk.scan_chunk.launches
+    r = run_density_slo(n_nodes=1000, n_pods=3000)
+    assert sk.scan_chunk.launches > before
+    assert r.running == 3000, r.as_dict()
+    r.check(min_samples=MIN_API_SAMPLES * 3000 // 15000)

@@ -4,8 +4,10 @@ benchmark and the evidence tool's e2e section, a victim search, a
 scatter through the table mirror, a mixed-mode config, a batch on a
 node-axis mesh and the shard-failure drill over the leases, the
 shard-kill soak, the chaos package, the controllers and the soaks'
-modules, all on the CPU) loads neither jax nor any module of the JAX
-package, and its entry points refuse to run without a CUDA device unless
+modules, one CRUD and one watch through the port's ApiServer and
+HttpClient with its lazily imported handlers, a metrics scrape of it, the
+SLO run's and the fan-out soak's modules, all on the CPU) loads neither
+jax nor any module of the JAX package, and its entry points refuse to run without a CUDA device unless
 a device is named. Run in a subprocess, because this test process has
 jax loaded (tests/conftest.py)."""
 
@@ -105,6 +107,56 @@ loaded = sorted(m for m in sys.modules if m in (
     "kubernetes_tpu_torch.obs.flightrec",
     "kubernetes_tpu_torch.utils.platform"))
 
+# the HTTP plane and the metrics plane: one CRUD and one watch through
+# the port's ApiServer and HttpClient, the lazily imported handlers
+# (swagger, the dashboards, the websocket watch, the node proxy's relay,
+# third-party groups, the pod log relay), a FleetScraper scrape of the
+# server, and the SLO run's and the fan-out soak's modules
+import urllib.error, urllib.request
+from kubernetes_tpu_torch.api.server import ApiServer
+from kubernetes_tpu_torch.api.client import HttpClient
+from kubernetes_tpu_torch.api.tunneler import WsTunneler
+from kubernetes_tpu_torch.core import types as api
+from kubernetes_tpu_torch.obs.metricsplane import FleetScraper, HttpTarget
+from kubernetes_tpu_torch.utils import wsstream
+from kubernetes_tpu_torch.kubemark.slo import run_density_slo
+from kubernetes_tpu_torch.kubemark.fanout_soak import run_fanout_soak
+import kubernetes_tpu_torch.auth
+srv = ApiServer(Registry(), port=0).start()
+try:
+    hc = HttpClient(srv.url)
+    w = hc.watch("pods", "default")
+    hc.create("nodes", api.Node(metadata=api.ObjectMeta(name="n0")))
+    hc.create("pods", api.Pod(
+        metadata=api.ObjectMeta(name="h0", namespace="default"),
+        spec=api.PodSpec(containers=[api.Container(name="c", image="i")])))
+    got = hc.get("pods", "h0", "default").metadata.name
+    ev = w.next(timeout=10)
+    w.stop()
+    codes = []
+    for path in ("/swaggerapi", "/ui", "/ui/server",
+                 "/api/v1/proxy/nodes/n0/healthz", "/apis/ghost.io/v1/x",
+                 "/api/v1/namespaces/default/pods/h0/log"):
+        try:
+            with urllib.request.urlopen(srv.url + path, timeout=10) as r:
+                codes.append(r.status)
+        except urllib.error.HTTPError as e:
+            codes.append(e.code)
+    hc.delete("pods", "h0", "default", grace_period_seconds=0)
+    ws = wsstream.client_connect("127.0.0.1", srv.port,
+                                 "/api/v1/pods?watch=true")
+    wsstream.write_frame(ws.sendall, b"hi", wsstream.PING, mask=True)
+    pong = wsstream.read_frame(ws.recv)
+    ws.close()
+    scraper = FleetScraper([HttpTarget("apiserver", srv.url + "/metrics")])
+    scraped = sorted(scraper.sample()["counters"])
+finally:
+    srv.stop()
+http = {"crud": got, "watch": [ev.type, ev.object.metadata.name],
+        "codes": codes, "pong": pong[1].decode(),
+        "scraped": "apiserver_request_count" in scraped,
+        "tunneler": WsTunneler.__name__}
+
 torch.cuda.is_available = lambda: False
 errors = []
 for make in (BatchEngine, DeviceBackend,
@@ -116,7 +168,9 @@ for make in (BatchEngine, DeviceBackend,
              lambda: node_chaos.run_node_kill_soak(n_nodes=2),
              lambda: node_chaos.run_partition_gate(n_nodes=2),
              lambda: run_scheduling_benchmark(2, 1, chaos_seed=1),
-             pick_device):
+             pick_device,
+             lambda: run_density_slo(n_nodes=2, n_pods=2),
+             lambda: fx.run_chaos_soak(seed=0)):
     try:
         make()
     except RuntimeError as e:
@@ -130,7 +184,7 @@ print(json.dumps({"foreign": sorted(m for m in sys.modules if is_foreign(m)),
                   "mixed": mixed, "meshed": meshed,
                   "drill": [drill["mesh_after"], drill["second_half_bound"]],
                   "shard_soak": [shard.converged, shard.parity_ok],
-                  "loaded": loaded}))
+                  "loaded": loaded, "http": http}))
 """
 
 
@@ -147,11 +201,17 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert res["bench"] == [40, 40] and res["e2e"] == 40
     assert len(res["feasible"]) == 4 and any(res["feasible"])
     assert res["delta"] == 1 and res["mixed"] == "DeviceAssistedAlgorithm"
-    assert len(res["errors"]) == 11
+    assert len(res["errors"]) == 13
     assert all("no CUDA device" in e for e in res["errors"])
     assert res["meshed"] and res["drill"] == [3, True]
     assert res["shard_soak"] == [True, True]
     assert len(res["loaded"]) == 13
+    http = res["http"]
+    assert http["crud"] == "h0" and http["watch"] == ["ADDED", "h0"]
+    # swagger, both dashboards, a node proxy to a node with no kubelet
+    # endpoint, an unknown third-party group, an unscheduled pod's log
+    assert http["codes"] == [200, 200, 200, 404, 404, 400]
+    assert http["pong"] == "hi" and http["scraped"]
 
 
 def _imports(path):

@@ -344,14 +344,55 @@ def test_prologue_pod_views_equal_upload_and_pad(chunk):
     staged = pro.stage("cpu")
     assert staged.n_desc == 0
     want = port_engine._upload(pods_h, torch.device("cpu"))
-    for f, i, w in zip(pods_h._fields, slots, want):
-        got = staged.view(i)
+    for f, got, w in zip(pods_h._fields, staged.views(slots), want):
         padded = torch.cat([w, torch.zeros((pad,) + tuple(w.shape[1:]),
                                            dtype=w.dtype)])
         assert got.dtype == w.dtype and got.shape == padded.shape, f
         assert torch.equal(got, padded), f
         assert got.data_ptr() % 16 == 0
-    assert not staged.view(slots[0])[p:].any()
+    assert not staged.views(slots[:1])[0][p:].any()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_carve_gives_the_layout_views(seed):
+    """scatter_kernel.carve (one view of the buffer a dtype, each array
+    sliced out of it) gives the views the slice-then-view construction
+    gave: same dtypes, shapes, addresses and values, zero-size arrays
+    and every dtype the engine carries included; Staged.views and
+    _alloc_like go through it."""
+    rng = np.random.default_rng(seed)
+    dtypes = [torch.bool, torch.int32, torch.int64, torch.float64,
+              torch.uint8]
+    layout, off = [], 0
+    for _ in range(12):
+        dt = dtypes[rng.integers(len(dtypes))]
+        shape = tuple(int(x) for x in rng.integers(0, 5, size=rng.integers(
+            1, 3)))
+        layout.append((off, dt, shape))
+        off += -(-int(np.prod(shape)) * dt.itemsize // 16) * 16
+    buf = torch.from_numpy(rng.integers(0, 256, size=max(off, 16),
+                                        dtype=np.uint8))
+    for (o, dt, shape), got in zip(layout, scatter_kernel.carve(buf,
+                                                                layout)):
+        n = int(np.prod(shape)) * dt.itemsize
+        want = buf[o:o + n].view(dt).view(shape)
+        assert got.dtype == dt and got.shape == want.shape
+        assert torch.equal(got, want)
+        if n:
+            assert got.data_ptr() == want.data_ptr()
+    state = port_engine._upload(BatchEngine(device="cpu").host_args(
+        port_encode_snapshot())[1], torch.device("cpu"))
+    run = port_engine._alloc_like(state)
+    base = run[0].data_ptr()
+    for f, a, b in zip(state._fields, run, state):
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert a.data_ptr() >= base and a.data_ptr() % 16 == 0, f
+
+
+def port_encode_snapshot():
+    from kubernetes_tpu_torch.kubemark.fixtures import mixed_snapshot
+    from kubernetes_tpu_torch.sched.device import encode_snapshot
+    return encode_snapshot(mixed_snapshot(4, 12, 45, 5))
 
 
 def test_magic_division_is_exact():
