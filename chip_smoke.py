@@ -142,7 +142,7 @@ every answer to a reference:
             shards' spin traps past its budget and the synchronize
             raises (gpu_evidence.shard_wedge_child).
   soak      the churn soak (kubemark/soak.py) at 5000 hollow nodes and
-            5000 pods a cycle for 60 s: its leak gates hold from the
+            5000 pods a cycle for 45 s: its leak gates hold from the
             warm baseline to the end (RSS, watchers, threads, store
             keys, the encoder's ledger, the modeler's tombstones), at
             least two cycles, K1 launched at least once a cycle; RSS,
@@ -165,6 +165,28 @@ every answer to a reference:
             converged, no pod left on a dead node, at least one
             eviction, the kill set the seed's replay; the recovery
             times.
+  durable   the e2e's pipeline (5000 x 30000) over Store(wal_dir,
+            fsync_policy="batch"): every pod bound, the per-node counts
+            equal to E2E_COUNTS; then Store.recover(wal_dir), every
+            pod's node and resourceVersion and the revision equal to
+            the live store's; the WAL's frames and bytes, the recovery's
+            seconds and records a second, pods/s beside the e2e's.
+  native    the same over NativeStore(wal_dir) (the C++ store, built
+            from native/kvstore.cc with g++ in the build phase) and
+            NativeStore.recover.
+  split     `python -m kubernetes_tpu_torch` as three processes:
+            apiserver (native store, NamespaceAutoProvision),
+            hollow-fleet (5000 nodes, heartbeats every 60 s) and
+            scheduler (batch, on the card); 15000 pods over HttpClient
+            in batch POSTs of 128 (SLO_5K.json's density tier): all
+            bound once and Running, no node over its capacity, the
+            counts equal to fixtures.SPLIT_COUNTS (the JAX engine's),
+            the scheduler on the card (its READY line names
+            device=cuda, nvidia-smi lists it, and the launch counts it
+            prints as it exits hold K1 and K3 at least once), every
+            child exiting 0 on SIGTERM; the seconds to the last POST,
+            the last binding and the last pod Running, each component's
+            start-up seconds, the scheduler's launches.
   mixed     mixed mode (factory.create_mixed): the device probe on the
             card and one HTTP extender (the port's ExtenderServer over a
             CPU backend) place 8 pods on 5000 nodes, one at a time; the
@@ -180,8 +202,8 @@ same clock); every record with a bound names the rates
 The launch floor is the device time of a kernel that does nothing,
 timed like every kernel (20 launches in one CUDA graph).
 
-Fifteen paths are driven, each with the kernel launch counts set to 0
-just before it and read just after: the engine and extender phases (the
+Seventeen paths are driven in this process, each with the kernel launch
+counts set to 0 just before it and read just after: the engine and extender phases (the
 scan kernel a chunk, the filter kernel a Filter, the probe kernel a
 Prioritize), the reject phase (the argsort kernel), the e2e phase (the
 scan kernel a chunk, the scatter kernel a tile), the mirror phase (the
@@ -193,8 +215,12 @@ K7 inside it), the soak (the scan kernel, the scatter kernel), the
 shard-kill soak (the sharded scan kernel on 4 shards and then 3), the
 chaos arm and the node-kill soak (the scan kernel, the scatter kernel),
 the density SLO over a real apiserver at 5000 nodes x 15000 pods and the
-chaos soak over HTTP (the scan kernel, the scatter kernel) and the mixed
-phase (the probe kernel a pod).
+chaos soak over HTTP (the scan kernel, the scatter kernel), the e2e over
+a journaled Store and over the native store (the scan kernel, the
+scatter kernel) and the mixed phase (the probe kernel a pod). The split
+deployment's scheduler launches in a process of its own, which starts
+with its counts at 0 and prints them as it exits on SIGTERM (the scan
+kernel, the scatter kernel).
 Each phase prints one JSON line; a failed check raises, so the script
 exits non-zero and prints no result. Every line carries the card's name
 and power limit (nvidia-smi). The last lines are the card's line, the
@@ -216,7 +242,8 @@ latency floor (`hop_floor_ms`: the chunk's pods x one relaxed hop
 through L2, read with profile_kernels.hop_cycles, the L2 hop probe
 built beside the kernels); every kernel's launches on the soak, shard
 soak, chaos, node-chaos, SLO and HTTP chaos paths
-(`launches_soak_paths`). Needs
+(`launches_soak_paths`) and on the durable, native and split paths
+(`launches_store_paths`). Needs
 one CUDA device;
 exits non-zero without one, or without the rest of the repository beside
 it.
@@ -238,11 +265,13 @@ EXTENDER_EXISTING = 2000
 SCATTER_SEED = 13
 MIXED_PODS = 8
 # the soak and chaos paths: the churn soak at SOAK_5K.json's shape (a
-# 60 s window; the 10,000-event watch window fills by design before the
-# baseline, as in tests/test_soak.py), the shard-kill soak at the e2e's
+# 45 s window, tests/test_soak.py's depth, which keeps the smoke's time;
+# the 10,000-event watch window fills by design before the baseline, as
+# in tests/test_soak.py),
+# the shard-kill soak at the e2e's
 # fleet and chunk, the benchmark's chaos arm at the e2e's size, and the
 # node-kill soak at tests/test_chaos.py's fleet-scale gate
-SOAK_SHAPE = {"duration_s": 60.0, "n_nodes": 5000, "pods_per_cycle": 5000,
+SOAK_SHAPE = {"duration_s": 45.0, "n_nodes": 5000, "pods_per_cycle": 5000,
               "sample_every_s": 2.0, "history_window": 10_000}
 SHARD_SOAK_SHAPE = {"n_shards": 4, "n_nodes": 5000, "node_capacity": 5120,
                     "n_pods": 30000, "tile": 8192, "seed": 0}
@@ -260,6 +289,14 @@ SLO_SHAPE = {"n_nodes": 5000, "n_pods": 15000}
 HTTP_CHAOS_SHAPE = {"seed": 0, "replicas": 16, "n_nodes": 6,
                     "fault_rate": 0.05, "timeout": 150.0,
                     "transport": "http"}
+
+
+# the durable store and the split deployment: the e2e's pipeline over a
+# store that writes a WAL (batch fsync) and over the native store with
+# its WAL, each recovered and read back; the north star's deployment,
+# apiserver | hollow-fleet | scheduler in processes of their own, at
+# SLO_5K.json's density tier (fixtures.SPLIT_COUNTS)
+SPLIT_SHAPE = "5000x15000"
 
 
 def emit(obj) -> None:
@@ -280,6 +317,12 @@ def phase_build():
     records = _build.build_all([filter_kernel.SOURCE, reject_kernel.SOURCE,
                                 scatter_kernel.SOURCE, victim_kernel.SOURCE,
                                 scan_kernel.SOURCE, L2_HOP_SOURCE])
+    # the native store's library (g++), which the split deployment's
+    # apiserver loads: built here, before any child process starts
+    from kubernetes_tpu_torch.core import native_store
+    t_native = time.monotonic()
+    native_lib = native_store._load_library()._name
+    native_s = time.monotonic() - t_native
     entries = {}
     for r in records:
         for line in r["log"].splitlines():
@@ -295,7 +338,8 @@ def phase_build():
     return {"phase": "build", "seconds": time.monotonic() - t0,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "libraries": [os.path.relpath(r["library"], ROOT)
-                          for r in records],
+                          for r in records + [{"library": native_lib}]],
+            "native_store_s": native_s,
             "ptxas": {k: [v["registers"], v["spill_stores"]]
                       for k, v in entries.items()}}
 
@@ -1712,6 +1756,91 @@ def phase_http_chaos():
             "seconds": time.monotonic() - t0}
 
 
+def phase_store(backend, e2e):
+    """The e2e's pipeline (5000 x 30000) over a journaled store on the
+    card (kubemark/deployment.run_durable_e2e): backend "python" is
+    Store(wal_dir, fsync_policy="batch") ("durable"), "native" the
+    native store with its WAL ("native"). Every pod bound, the per-node
+    counts equal to E2E_COUNTS; then the store recovered from its
+    directory, every pod's node and resourceVersion and the revision
+    equal to the live store's. -> the record, pods/s beside the same
+    call's e2e, with the WAL's frames and bytes, the recovery's seconds
+    and records a second, and the launches."""
+    from kubernetes_tpu_torch.kubemark.deployment import run_durable_e2e
+    from kubernetes_tpu_torch.kubemark.fixtures import E2E_COUNTS
+
+    name = "durable" if backend == "python" else "native"
+    want = E2E_COUNTS
+    t0 = time.monotonic()
+    _zero_counts()                        # the store's path starts here
+    r = run_durable_e2e(want["n_nodes"], want["n_pods"], backend,
+                        timeout_s=300.0)
+    launches = _read_counts()             # ... and ends here
+    if r["scheduled"] != want["n_pods"] or r["pods_unbound"]:
+        raise AssertionError(f"{name}: bound {r['scheduled']} of "
+                             f"{want['n_pods']} pods, {r['pods_unbound']} "
+                             f"unbound in the store")
+    if (r["counts_sha256"], r["counts_bound"]) != (want["sha256"],
+                                                  want["bound"]):
+        raise AssertionError(
+            f"{name}: per-node counts {r['counts_sha256']} / "
+            f"{r['counts_bound']} differ from the JAX engine's "
+            f"{want['sha256']} / {want['bound']}")
+    if launches["scan_chunk"] < 1:
+        raise AssertionError(f"{name}: K1 never launched: {launches}")
+    keep = ("backend", "elapsed_s", "pods_per_sec", "scheduled",
+            "tiles_chained", "tiles_unchained", "k1_device_ms", "layers",
+            "revision", "pods_live", "wal_frames", "wal_bytes",
+            "wal_disk_bytes", "snapshot_rev", "replayed_records",
+            "recovery_s", "replayed_per_s", "recovered_equal",
+            "counts_sha256")
+    return {"phase": name, **{k: r[k] for k in keep}, "counts_ok": True,
+            "e2e_elapsed_s": e2e["elapsed_s"],
+            "e2e_pods_per_sec": e2e["pods_per_sec"],
+            "vs_e2e": r["pods_per_sec"] / e2e["pods_per_sec"],
+            "launches": launches, "seconds": time.monotonic() - t0}
+
+
+def phase_split():
+    """The split deployment on the card (kubemark/deployment.run_split):
+    `python -m kubernetes_tpu_torch apiserver` over the native store with
+    NamespaceAutoProvision, `hollow-fleet` of 5000 nodes (heartbeats
+    every 60 s), `scheduler --mode batch --no-rate-limit` on the card, a
+    process each; 15000 identical pods over HttpClient in batch POSTs of
+    128. Every pod bound once and Running on a node that exists, no node
+    over its capacity, the per-node counts equal to
+    fixtures.SPLIT_COUNTS (the JAX engine's), the scheduler on the card
+    (its READY line names device=cuda; its pid among nvidia-smi's compute
+    processes, or one more of them than before it started: in a
+    container nvidia-smi lists the host's pids; and the launch counts
+    it prints as it exits hold K1 and K3 at least once), every child
+    exiting 0 on SIGTERM. -> the record: seconds from the first POST to
+    the last pod Running, pods/s, each component's start-up seconds,
+    the scheduler's launches (`launches`, counted in its process)."""
+    from kubernetes_tpu_torch.kubemark.deployment import run_split
+    from kubernetes_tpu_torch.kubemark.fixtures import SPLIT_COUNTS
+
+    want = SPLIT_COUNTS[SPLIT_SHAPE]
+    t0 = time.monotonic()
+    r = run_split(want["n_nodes"], want["n_pods"], timeout_s=500.0)
+    if not r["scheduler_ready"].endswith("device=cuda"):
+        raise AssertionError(f"split: the scheduler was not on the card: "
+                             f"{r['scheduler_ready']!r}")
+    launches = r.pop("scheduler_launches")
+    for name in ("scan_chunk", "scatter_prologue"):
+        if launches[name] == 0:
+            raise AssertionError(f"the split's scheduler never launched "
+                                 f"{name}: {launches}")
+    if (r["counts_sha256"], r["counts_bound"]) != (want["sha256"],
+                                                  want["bound"]):
+        raise AssertionError(
+            f"split: per-node counts {r['counts_sha256']} / "
+            f"{r['counts_bound']} differ from the JAX engine's "
+            f"{want['sha256']} / {want['bound']}")
+    return {"phase": "split", **r, "counts_ok": True,
+            "launches": launches, "seconds": time.monotonic() - t0}
+
+
 def _scatter_refusal():
     """A scatter-kernel launch the card refuses (the argsort kernel with
     more threads a block than the card takes) in place of the real one,
@@ -2118,6 +2247,12 @@ def main() -> int:
     stamp(slo)
     http_chaos = phase_http_chaos()
     stamp(http_chaos)
+    durable = phase_store("python", e2e)
+    stamp(durable)
+    native = phase_store("native", e2e)
+    stamp(native)
+    split = phase_split()
+    stamp(split)
     _zero_counts()                        # the mixed path starts here
     mixed = phase_mixed()
     mixed_launches = _read_counts()       # ... and ends here
@@ -2315,6 +2450,10 @@ def main() -> int:
                    else k["name"])
         k["launches_soak_paths"] = {p: rec["launches"][counter]
                                     for p, rec in paths.items()}
+        k["launches_store_paths"] = {
+            "durable": durable["launches"][counter],
+            "native": native["launches"][counter],
+            "split": split["launches"][counter]}
     emit({"kernels": kernels})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

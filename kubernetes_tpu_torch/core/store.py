@@ -73,10 +73,6 @@ from . import watch as watchpkg
 from .errors import AlreadyExists, Conflict, Expired, NotFound
 from .types import fast_replace
 
-WAL_NOT_PORTED = ("the write-ahead log (core/wal.py) is not ported yet: "
-                  "ROADMAP.md Queue 1, 'Durable store'. This Store keeps "
-                  "its state in memory only")
-
 
 def _with_rv(obj: Any, rev: int) -> Any:
     meta = fast_replace(obj.metadata, resource_version=str(rev))
@@ -336,15 +332,26 @@ class Store:
         # embedded resourceVersion stays sound because no events exist
         # for this segment between the two revisions)
         self._seg_writes: Dict[str, int] = {}
-        # durability: the JAX package journals every revision to a
-        # segmented write-ahead log (its core/wal.py). The port has no
-        # copy of the WAL yet, so it refuses a wal_dir rather than run
-        # without the durability the caller asked for. The _wal hooks
-        # below stay, inert, for the slice that brings the WAL over.
+        # durability (opt-in): a segmented, checksummed write-ahead log
+        # hooked at the ledger stage — one record per committed
+        # revision, appended under the ledger lock so append order IS
+        # revision order (core/wal.py; recovery is Store.recover).
+        # wal_dir=None keeps every hot path byte-identical to before.
         self._wal = None
         self._wal_scheme = None
         if wal_dir is not None:
-            raise NotImplementedError(WAL_NOT_PORTED)
+            import os
+            from .wal import WalError, WalWriter, _segments, _snapshots
+            if os.path.isdir(wal_dir) and (_segments(wal_dir)
+                                           or _snapshots(wal_dir)):
+                raise WalError(
+                    f"{wal_dir} already holds a WAL — a fresh Store "
+                    f"would fork its history; use Store.recover()")
+            self._wal = WalWriter(wal_dir, fsync_policy=fsync_policy,
+                                  segment_records=wal_segment_records,
+                                  snapshot_records=wal_snapshot_records)
+            from .scheme import default_scheme
+            self._wal_scheme = default_scheme
 
     # ------------------------------------------------------------- helpers
 
@@ -1376,6 +1383,78 @@ class Store:
                 fsync_policy: str = "batch",
                 wal_segment_records: int = 10_000,
                 wal_snapshot_records: int = 50_000) -> "Store":
-        """Rebuild a Store from its WAL directory. Not in the port yet:
-        raises (see WAL_NOT_PORTED)."""
-        raise NotImplementedError(WAL_NOT_PORTED)
+        """Rebuild a Store from its WAL directory: newest snapshot,
+        then the record tail, applied in strict revision order — the
+        pre-crash ledger prefix, bit-identically: same revision
+        counter, same live entries (insertion order preserved through
+        the snapshot), same history tail, same per-segment write
+        tokens and key index. Expired keys are not resurrected: every
+        record carries its absolute expiry, and expiries the old
+        process committed are first-class DELETED records. A torn
+        final record is truncated, not fatal (core/wal.py).
+
+        The returned store has the WAL re-attached and keeps
+        journaling; `recovery_stats` records what the replay did.
+        """
+        import time as _time
+        from ..utils.metrics import global_metrics
+        from .scheme import default_scheme
+        from .wal import WalWriter, read_wal
+
+        t0 = _time.monotonic()
+        snap, records = read_wal(wal_dir)
+        st = cls(window=window, publish_inline=publish_inline)
+        decode = default_scheme.decode_dict
+        if snap is not None:
+            st._rev = snap["rev"]
+            # revisions at or below the snapshot are no longer
+            # replayable from history (same meaning as a rolled window)
+            st._oldest_rev = snap["rev"]
+            st._seg_writes = {k: int(v)
+                              for k, v in snap["seg_writes"].items()}
+            st._ttl_segs = set(snap["ttl_segs"])
+            for key, mod_rev, expiry, wire in snap["entries"]:
+                obj = decode(wire)
+                st._data[key] = (obj, int(mod_rev), expiry)
+                st._index_add(key)
+                if expiry is not None:
+                    heapq.heappush(st._expiry_heap, (expiry, key))
+        hist = st._history
+        for rev, etype, key, expiry, wire in records:
+            obj = decode(wire)
+            prev_entry = st._data.get(key)
+            if etype == watchpkg.DELETED:
+                # the record's object IS the pre-delete stored object;
+                # the live _record path emits (obj=stored, prev=stored)
+                if prev_entry is not None:
+                    del st._data[key]
+                    st._index_del(key)
+                prev = obj
+            else:
+                st._data[key] = (obj, rev, expiry)
+                st._index_add(key)
+                if expiry is not None:
+                    heapq.heappush(st._expiry_heap, (expiry, key))
+                    st._ttl_segs.add(st._seg(key))
+                prev = prev_entry[0] if prev_entry is not None else None
+            seg = st._seg(key)
+            st._seg_writes[seg] = st._seg_writes.get(seg, 0) + 1
+            if len(hist) == hist.maxlen:
+                st._oldest_rev = hist[0][0]
+            hist.append((rev, etype, key, obj, prev))
+            st._rev = rev
+        st._published_rev = st._rev  # nothing is pending fan-out
+        w = WalWriter(wal_dir, fsync_policy=fsync_policy,
+                      segment_records=wal_segment_records,
+                      snapshot_records=wal_snapshot_records)
+        w._since_snapshot = len(records)  # resume the compaction cadence
+        st._wal = w
+        st._wal_scheme = default_scheme
+        global_metrics.inc("wal_recoveries_total")
+        st.recovery_stats = {
+            "snapshot_rev": snap["rev"] if snap is not None else 0,
+            "replayed_records": len(records),
+            "recovered_revision": st._rev,
+            "seconds": round(_time.monotonic() - t0, 6),
+        }
+        return st

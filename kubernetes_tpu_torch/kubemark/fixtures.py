@@ -84,6 +84,24 @@ E2E_COUNTS = {
     "bound": 30000}
 
 
+#: the split deployment (kubemark/deployment.run_split: apiserver |
+#: hollow-fleet | scheduler, one process each, max_pods 40 a node) under
+#: identical bench pods: the per-node counts digest of one uninterrupted
+#: engine run over the fleet's nodes, as for E2E_COUNTS; a CPU test
+#: computes both entries with the JAX engine. "5000x15000" is
+#: chip_smoke's split phase (SLO_5K.json's density tier), "500x1500"
+#: the card test's.
+SPLIT_COUNTS = {
+    "5000x15000": {
+        "n_nodes": 5000, "n_pods": 15000, "max_pods": 40,
+        "sha256": "ebcd41e62710d351b2eabbb7c6cbf57d6e7b92075006c8a6472b145c9bb9c6d0",
+        "bound": 15000},
+    "500x1500": {
+        "n_nodes": 500, "n_pods": 1500, "max_pods": 40,
+        "sha256": "e9f6faca4418b838792896bde73601a57e7b7ff0353f67e58c9a301eee32d2f1",
+        "bound": 1500}}
+
+
 PREEMPT_SEED = 5
 PREEMPT_SHAPE = (5000, 16, 64)     # nodes, bound pods a node, preemptors
 PREEMPT_DIGEST = "f1a101e2193f1e457138c6866165cdd0a217a8d83b231ab02eb96dbc6db30b91"

@@ -1276,7 +1276,8 @@ E2E_LAYERS = {"drain": "batch_drain_latency_microseconds",
 
 
 def section_e2e(n_nodes: int = 5000, n_pods: int = 30000,
-                device=None, timeout_s: float = 900.0, mesh=None) -> dict:
+                device=None, timeout_s: float = 900.0, mesh=None,
+                registry=None) -> dict:
     """One run of the live pipeline under the kubemark benchmark (not
     best-of-two: card time is the budget). device=None is the card; the
     tests pass device="cpu" at a small size. Reports the tiles (chained
@@ -1284,7 +1285,9 @@ def section_e2e(n_nodes: int = 5000, n_pods: int = 30000,
     host layer of E2E_LAYERS spent, summed over the run, and the
     per-node counts digest. `k1_device_ms` is the scan kernel's time on
     the card in the run (scan_stats' CUDA events around the launches).
-    `mesh`: a NodeMesh for the batch loop's engine (the shard phase)."""
+    `mesh`: a NodeMesh for the batch loop's engine (the shard phase).
+    `registry`: the master to run against (one over a store that writes
+    a WAL, or over the native store); None builds a default one."""
     from ..api.registry import Registry
     from ..utils.metrics import global_metrics
     from .benchmark import run_scheduling_benchmark
@@ -1299,7 +1302,7 @@ def section_e2e(n_nodes: int = 5000, n_pods: int = 30000,
             out[layer] = (stats.get("count", 0), stats.get("sum", 0.0))
         return out
 
-    registry = Registry()
+    registry = Registry() if registry is None else registry
     before = reading()
     r = run_scheduling_benchmark(n_nodes, n_pods, "batch",
                                  registry=registry, device=device,

@@ -12,8 +12,8 @@ tests/test_tls_auth.py run on the port, the kubelet relay verbs go
 through the port's server and InProcClient to a JAX KubeletServer
 (reached only over HTTP and websocket), and the authentication and
 authorization tables of tests/test_admission_auth.py decide alike in
-both packages. The admission chain is not ported, so the admission
-cases of that file wait for it (ROADMAP.md)."""
+both packages. The admission cases of that file run on the port in
+tests/test_torch_master.py."""
 
 import base64
 import http.client

@@ -246,10 +246,20 @@ def test_config_refuses_unported_options(option):
 
 
 def test_store_refuses_wal_dir(tmp_path):
-    with pytest.raises(NotImplementedError, match="Durable store"):
-        Store(wal_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Durable store"):
-        Store.recover(str(tmp_path))
+    """The WAL is ported: a fresh Store journals into an empty wal_dir,
+    and refuses one that already holds a WAL (it would fork the
+    history; Store.recover re-opens it)."""
+    from kubernetes_tpu_torch.core.wal import WalError
+    d = str(tmp_path / "wal")
+    s = Store(wal_dir=d)
+    s.create("/registry/nodes//n0", cross([ready_node("n0")])[0])
+    s.wal_close()
+    with pytest.raises(WalError, match="already holds a WAL"):
+        Store(wal_dir=d)
+    r = Store.recover(d)
+    assert r.current_revision == 1
+    assert r.get("/registry/nodes//n0").metadata.name == "n0"
+    r.wal_close()
 
 
 def test_default_engine_needs_a_card(monkeypatch):

@@ -1205,3 +1205,26 @@ def test_density_slo_on_the_card(cuda):
     assert sk.scan_chunk.launches > before
     assert r.running == 3000, r.as_dict()
     r.check(min_samples=MIN_API_SAMPLES * 3000 // 15000)
+
+
+@pytest.mark.gpu
+def test_split_deployment_on_the_card(cuda):
+    """The split deployment at 500 nodes x 1500 pods: apiserver (native
+    store) | hollow-fleet | scheduler on the card, a process each, the
+    pods POSTed in batches of 128; every pod bound once and Running, no
+    node over capacity, the per-node counts the JAX engine's
+    (fixtures.SPLIT_COUNTS), the scheduler on the card (its READY line,
+    nvidia-smi's compute processes, and K1 and K3 among the launches it
+    counts in its own process), every child exiting 0 on SIGTERM."""
+    from kubernetes_tpu_torch.kubemark.deployment import run_split
+    from kubernetes_tpu_torch.kubemark.fixtures import SPLIT_COUNTS
+    want = SPLIT_COUNTS["500x1500"]
+    r = run_split(want["n_nodes"], want["n_pods"])
+    assert r["scheduler_on_card"] and r["scheduler_ready"].endswith(
+        "device=cuda")
+    assert r["scheduler_launches"]["scan_chunk"] >= 1
+    assert r["scheduler_launches"]["scatter_prologue"] >= 1
+    assert (r["counts_sha256"], r["counts_bound"]) == (want["sha256"],
+                                                       want["bound"])
+    assert r["exit_codes"] == {"scheduler": 0, "hollow-fleet": 0,
+                               "apiserver": 0}

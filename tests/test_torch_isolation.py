@@ -6,7 +6,10 @@ node-axis mesh and the shard-failure drill over the leases, the
 shard-kill soak, the chaos package, the controllers and the soaks'
 modules, one CRUD and one watch through the port's ApiServer and
 HttpClient with its lazily imported handlers, a metrics scrape of it, the
-SLO run's and the fan-out soak's modules, all on the CPU) loads neither
+SLO run's and the fan-out soak's modules, a journaled Store and the
+native store with their recoveries, a Master over the native store with
+an admission chain, a recorded event, a migration, a traced engine run
+and `python -m kubernetes_tpu_torch -h`, all on the CPU) loads neither
 jax nor any module of the JAX package, and its entry points refuse to run without a CUDA device unless
 a device is named. Run in a subprocess, because this test process has
 jax loaded (tests/conftest.py)."""
@@ -157,6 +160,71 @@ http = {"crud": got, "watch": [ev.type, ev.object.metadata.name],
         "scraped": "apiserver_request_count" in scraped,
         "tunneler": WsTunneler.__name__}
 
+# the durable store, the master with admission and events, the split
+# deployment's entry point and the profiling hook: a journaled Store and
+# its recovery, the native store with its WAL, a Master over the native
+# store with an admission chain, a recorded event, a migration, a traced
+# engine run, and `python -m kubernetes_tpu_torch -h` run in this process
+import runpy, tempfile
+from kubernetes_tpu_torch.core.store import Store
+from kubernetes_tpu_torch.core.native_store import NativeStore
+from kubernetes_tpu_torch.core.migrate import migrate_store
+from kubernetes_tpu_torch.api.record import EventBroadcaster, ClientEventSink
+from kubernetes_tpu_torch.master import Master, MasterConfig
+from kubernetes_tpu_torch.utils.profiling import profiled_schedule
+from kubernetes_tpu_torch.kubemark.deployment import run_durable_e2e
+from kubernetes_tpu_torch.kubemark import profile_window
+import kubernetes_tpu_torch.hyperkube
+with tempfile.TemporaryDirectory() as d:
+    st = Store(wal_dir=d + "/py")
+    st.create("/registry/nodes//n0", api.Node(metadata=api.ObjectMeta(name="n0")))
+    st.wal_close()
+    rec_rev = Store.recover(d + "/py").current_revision
+    ns = NativeStore(wal_dir=d + "/nat")
+    ns.create("/registry/nodes//n0", api.Node(metadata=api.ObjectMeta(name="n0")))
+    ns.close()
+    nat_rev = NativeStore.recover(d + "/nat").current_revision
+    prof = profiled_schedule(engine, enc, d + "/trace", 8)[1] == d + "/trace"
+m = Master(MasterConfig(storage_backend="native",
+                        admission_control=["SecurityContextDeny",
+                                           "NamespaceLifecycle"])).start()
+try:
+    mc = HttpClient(m.url)
+    refused = False
+    try:
+        mc.create("pods", api.Pod(metadata=api.ObjectMeta(name="x", namespace="ghost"),
+                                  spec=api.PodSpec(containers=[api.Container(name="c", image="i")])),
+                  "ghost")
+    except Exception:
+        refused = True
+    EventBroadcaster().start_recording_to_sink(ClientEventSink(mc)).new_recorder(
+        api.EventSource(component="isolation")).event(
+        mc.get("namespaces", "default"), "Normal", "Checked", "ok")
+    migrated = migrate_store(m.store).rewritten
+finally:
+    m.stop()
+sys.argv = ["kubernetes_tpu_torch", "-h"]
+try:
+    runpy.run_module("kubernetes_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    usage_code = e.code
+store = {"recovered": [rec_rev, nat_rev], "refused": refused,
+         "migrated": migrated > 0, "profiled": prof, "usage": usage_code}
+loaded_store = sorted(m for m in sys.modules if m in (
+    "kubernetes_tpu_torch.core.wal",
+    "kubernetes_tpu_torch.core.native_store",
+    "kubernetes_tpu_torch.native.build",
+    "kubernetes_tpu_torch.core.migrate",
+    "kubernetes_tpu_torch.api.record",
+    "kubernetes_tpu_torch.utils.healthz",
+    "kubernetes_tpu_torch.kubelet.securitycontext",
+    "kubernetes_tpu_torch.admission.plugins",
+    "kubernetes_tpu_torch.master",
+    "kubernetes_tpu_torch.hyperkube",
+    "kubernetes_tpu_torch.utils.profiling",
+    "kubernetes_tpu_torch.kubemark.deployment",
+    "kubernetes_tpu_torch.kubemark.profile_window"))
+
 torch.cuda.is_available = lambda: False
 errors = []
 for make in (BatchEngine, DeviceBackend,
@@ -170,7 +238,9 @@ for make in (BatchEngine, DeviceBackend,
              lambda: run_scheduling_benchmark(2, 1, chaos_seed=1),
              pick_device,
              lambda: run_density_slo(n_nodes=2, n_pods=2),
-             lambda: fx.run_chaos_soak(seed=0)):
+             lambda: fx.run_chaos_soak(seed=0),
+             lambda: run_durable_e2e(2, 1),
+             lambda: profile_window.main(["--nodes", "2", "--pods", "1"])):
     try:
         make()
     except RuntimeError as e:
@@ -184,7 +254,8 @@ print(json.dumps({"foreign": sorted(m for m in sys.modules if is_foreign(m)),
                   "mixed": mixed, "meshed": meshed,
                   "drill": [drill["mesh_after"], drill["second_half_bound"]],
                   "shard_soak": [shard.converged, shard.parity_ok],
-                  "loaded": loaded, "http": http}))
+                  "loaded": loaded, "http": http, "store": store,
+                  "loaded_store": loaded_store}))
 """
 
 
@@ -201,7 +272,7 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert res["bench"] == [40, 40] and res["e2e"] == 40
     assert len(res["feasible"]) == 4 and any(res["feasible"])
     assert res["delta"] == 1 and res["mixed"] == "DeviceAssistedAlgorithm"
-    assert len(res["errors"]) == 13
+    assert len(res["errors"]) == 15
     assert all("no CUDA device" in e for e in res["errors"])
     assert res["meshed"] and res["drill"] == [3, True]
     assert res["shard_soak"] == [True, True]
@@ -212,6 +283,10 @@ def test_port_runs_without_jax_or_the_jax_package():
     # endpoint, an unknown third-party group, an unscheduled pod's log
     assert http["codes"] == [200, 200, 200, 404, 404, 400]
     assert http["pong"] == "hi" and http["scraped"]
+    assert res["store"] == {"recovered": [1, 1], "refused": True,
+                            "migrated": True, "profiled": True,
+                            "usage": 0}
+    assert len(res["loaded_store"]) == 13
 
 
 def _imports(path):
