@@ -187,6 +187,26 @@ every answer to a reference:
             child exiting 0 on SIGTERM; the seconds to the last POST,
             the last binding and the last pod Running, each component's
             start-up seconds, the scheduler's launches.
+  crash     the process-crash soak (kubemark/crash_soak.py) at 1000
+            hollow nodes (heartbeats every 10 s) and 3000 replicas, then
+            1500 more after the last kill: a WAL-backed store behind an
+            ApiServer, two batch schedulers on the card and two
+            controller managers, each pair under lease election, 5 % API
+            faults on every verb, and a seeded CrashPlan killing the
+            apiserver (the store recovered from its WAL), the active
+            scheduler (reaped: its threads ended, its engine's device
+            tables released) and the active controller manager.
+            tests/test_chaos.py's gates: converged, the recovered store
+            equal to the pre-crash ledger, no duplicate binding, no
+            term violation, all three kills applied and the schedule
+            the seed's replay, both terms at 2 or more, every
+            durability counter moved; both engines on the card, K1
+            launched, and K3 on every tile off the table mirror (the
+            RC's pods carry spread groups, so their tiles upload in full
+            and K3 is not on this path). Prints the elapsed, converge
+            and recovery seconds, the replayed records, the kill points,
+            the launches and the allocated device bytes before and
+            after.
   mixed     mixed mode (factory.create_mixed): the device probe on the
             card and one HTTP extender (the port's ExtenderServer over a
             CPU backend) place 8 pods on 5000 nodes, one at a time; the
@@ -202,7 +222,7 @@ same clock); every record with a bound names the rates
 The launch floor is the device time of a kernel that does nothing,
 timed like every kernel (20 launches in one CUDA graph).
 
-Seventeen paths are driven in this process, each with the kernel launch
+Eighteen paths are driven in this process, each with the kernel launch
 counts set to 0 just before it and read just after: the engine and extender phases (the
 scan kernel a chunk, the filter kernel a Filter, the probe kernel a
 Prioritize), the reject phase (the argsort kernel), the e2e phase (the
@@ -217,7 +237,8 @@ chaos arm and the node-kill soak (the scan kernel, the scatter kernel),
 the density SLO over a real apiserver at 5000 nodes x 15000 pods and the
 chaos soak over HTTP (the scan kernel, the scatter kernel), the e2e over
 a journaled Store and over the native store (the scan kernel, the
-scatter kernel) and the mixed phase (the probe kernel a pod). The split
+scatter kernel), the process-crash soak (the scan kernel) and the mixed
+phase (the probe kernel a pod). The split
 deployment's scheduler launches in a process of its own, which starts
 with its counts at 0 and prints them as it exits on SIGTERM (the scan
 kernel, the scatter kernel).
@@ -241,7 +262,7 @@ twin's less the plain scan's, its bound (the records' bytes) and its
 latency floor (`hop_floor_ms`: the chunk's pods x one relaxed hop
 through L2, read with profile_kernels.hop_cycles, the L2 hop probe
 built beside the kernels); every kernel's launches on the soak, shard
-soak, chaos, node-chaos, SLO and HTTP chaos paths
+soak, chaos, node-chaos, SLO, HTTP chaos and crash paths
 (`launches_soak_paths`) and on the durable, native and split paths
 (`launches_store_paths`). Needs
 one CUDA device;
@@ -297,6 +318,14 @@ HTTP_CHAOS_SHAPE = {"seed": 0, "replicas": 16, "n_nodes": 6,
 # apiserver | hollow-fleet | scheduler in processes of their own, at
 # SLO_5K.json's density tier (fixtures.SPLIT_COUNTS)
 SPLIT_SHAPE = "5000x15000"
+# the controller manager under the process-crash soak: the reference
+# density test's 3 pods a node (density.go:203-208) on NODE_CHAOS_SHAPE's
+# 1000-node fleet (the north star's 5000 cut for the smoke's time), the
+# reference kubelet's 10 s node-status period against the node
+# controller's 40 s grace; the soak's compressed lease timings
+CRASH_SHAPE = {"n_nodes": 1000, "replicas": 3000, "seed": 0,
+               "fault_rate": 0.05, "heartbeat_interval": 10.0,
+               "timeout": 300.0}
 
 
 def emit(obj) -> None:
@@ -1841,6 +1870,68 @@ def phase_split():
             "launches": launches, "seconds": time.monotonic() - t0}
 
 
+def phase_crash():
+    """The process-crash soak on the card at CRASH_SHAPE (see the module
+    docstring): tests/test_chaos.py's gates on the result, both engines
+    on the card, K1 and K3 launched. -> the record, with the launches and
+    the caching allocator's bytes before and after."""
+    import torch
+    from kubernetes_tpu_torch.kubemark.crash_soak import run_crash_soak
+
+    t0 = time.monotonic()
+    before = torch.cuda.memory_allocated()
+    _zero_counts()                        # the crash path starts here
+    r = run_crash_soak(**CRASH_SHAPE)
+    launches = _read_counts()             # ... and ends here
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    out = r.as_dict()
+    rec = r.recovery or {}
+    gates = {
+        "converged": r.converged,
+        "recovered": bool(rec) and rec.get("revision_match") is True
+        and rec.get("live_set_match") is True
+        and rec.get("replayed_records", 0) >= 1,
+        "no_duplicate_bindings": r.duplicate_bindings == [],
+        "no_term_violations": r.term_violations == [],
+        "all_kills": set(r.killed) == {"apiserver", "scheduler",
+                                       "controller-manager"},
+        "schedule_replayed": r.schedule_replayed,
+        "terms": r.terms.get("batch-scheduler", 0) >= 2
+        and r.terms.get("controller-manager", 0) >= 2,
+        "counters": r.counters.get("wal_records_total", 0) >= 1
+        and r.counters.get("wal_recoveries_total", 0) >= 1
+        and r.counters.get("leader_transitions_total", 0) >= 4
+        and r.counters.get("lease_renew_failures_total", 0) >= 1,
+        "engines_on_card": bool(r.engine_devices) and all(
+            d.startswith("cuda") for d in r.engine_devices.values()),
+        "reaped": r.reaped,
+        "k1": launches["scan_chunk"] >= 1,
+        # K3 is the prologue of a tile off the table mirror: one launch
+        # a delta tile at least (the RC's pods carry SelectorSpread
+        # groups, which the mirror's delta path does not take, so their
+        # tiles upload in full: BatchEngine._delta_eligible)
+        "k3_every_delta_tile": launches["scatter_prologue"]
+        >= r.upload_tiles.get("delta", 0)}
+    failed = sorted(k for k, ok in gates.items() if not ok)
+    if failed:
+        raise AssertionError(f"crash: gates {failed} failed: {out}, "
+                             f"launches {launches}")
+    print(f"crash: elapsed_s {r.elapsed_s} converge_s {r.converge_s} "
+          f"recovery_s {rec['seconds']}", flush=True)
+    print(f"crash: replayed_records {rec['replayed_records']}", flush=True)
+    print(f"crash: kill points {json.dumps(r.killed, sort_keys=True)}",
+          flush=True)
+    print(f"crash: launches K1 {launches['scan_chunk']} K3 "
+          f"{launches['scatter_prologue']}; tiles "
+          f"{json.dumps(r.upload_tiles, sort_keys=True)}", flush=True)
+    for k in ("duplicate_bindings", "term_violations", "flight_bundles"):
+        out[k] = len(out[k])
+    return {"phase": "crash", **CRASH_SHAPE, **out, "gates": gates,
+            "device_allocated_bytes": [before, after],
+            "launches": launches, "seconds": time.monotonic() - t0}
+
+
 def _scatter_refusal():
     """A scatter-kernel launch the card refuses (the argsort kernel with
     more threads a block than the card takes) in place of the real one,
@@ -2253,6 +2344,8 @@ def main() -> int:
     stamp(native)
     split = phase_split()
     stamp(split)
+    crash = phase_crash()
+    stamp(crash)
     _zero_counts()                        # the mixed path starts here
     mixed = phase_mixed()
     mixed_launches = _read_counts()       # ... and ends here
@@ -2444,7 +2537,8 @@ def main() -> int:
     # each kernel's launches on the soak, chaos and HTTP paths (K7's:
     # the sharded K1's, which it runs inside)
     paths = {"soak": soak, "shard_soak": shard_soak, "chaos": chaos,
-             "node_chaos": node_chaos, "slo": slo, "http_chaos": http_chaos}
+             "node_chaos": node_chaos, "slo": slo, "http_chaos": http_chaos,
+             "crash": crash}
     for k in kernels:
         counter = ("scan_chunk_sharded" if k["name"] == "k7_exchange"
                    else k["name"])

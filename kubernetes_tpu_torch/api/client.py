@@ -322,7 +322,8 @@ class _HttpWatcher(Watcher):
                 if data["type"] == "ERROR":
                     self.send(Event("ERROR", from_status(obj)))
                     break
-                self.send(Event(data["type"], self._scheme.decode_dict(obj)))
+                self.send(Event(data["type"],
+                                self._scheme.decode_watched(obj)))
         except Exception as e:
             # a deliberate stop() shuts the socket down under the
             # reader — that is a clean stop, not a stream failure

@@ -86,6 +86,16 @@ def _authz_target(path: str):
     return "", ""
 
 
+class _HttpServer(ThreadingHTTPServer):
+    """The listening socket's backlog: socketserver's default of 5 resets
+    the connections that arrive while five wait to be accepted (a
+    replication manager's burst of creates, every client opening a
+    connection a request), and the client's breaker then counts each
+    reset as the server being down. The reference's Go listener takes
+    the system's limit (net.core.somaxconn)."""
+    request_queue_size = 4096
+
+
 class ApiServer:
     def __init__(self, registry: Registry, host: str = "127.0.0.1",
                  port: int = 0, max_in_flight: int = 400,
@@ -179,7 +189,7 @@ class ApiServer:
                 # proxy relay (pkg/apiserver/proxy.go:52)
                 server.handle(self, "PATCH")
 
-        self.httpd = ThreadingHTTPServer((host, port), Handler)
+        self.httpd = _HttpServer((host, port), Handler)
         self.httpd.daemon_threads = True
         if self._tls:
             import ssl

@@ -9,6 +9,7 @@ pod events adjusting expectations (addPod/updatePod/deletePod :221-280).
 
 from __future__ import annotations
 
+import logging
 import threading
 from dataclasses import replace
 from typing import List, Optional
@@ -19,7 +20,11 @@ from ..core.labels import selector_from_set
 from .framework import (ControllerExpectations, QueueWorkers,
                         active_pods_sort_key, filter_active_pods)
 
+logger = logging.getLogger(__name__)
+
 BURST_REPLICAS = 500  # replication_controller.go:64
+#: threads that carry a burst's creates or deletes (_spawn_all)
+SPAWN_THREADS = 16
 
 
 class ReplicationManager:
@@ -138,9 +143,26 @@ class ReplicationManager:
     @staticmethod
     def _spawn_all(fns) -> None:
         # the reference fans these out on goroutines + WaitGroup
-        # (manageReplicas :352-365); cheap threads keep latency flat for
-        # large diffs against an HTTP apiserver
-        threads = [threading.Thread(target=fn, daemon=True) for fn in fns]
+        # (manageReplicas :352-365); here at most SPAWN_THREADS threads
+        # run them, each taking the next until none is left: a burst of
+        # 500 threads, each with its HTTP request, left every other
+        # client of the interpreter (binds, lease renewals, status
+        # confirms) waiting seconds a call
+        fns = list(fns)
+        lock = threading.Lock()
+
+        def worker():
+            while True:
+                with lock:
+                    if not fns:
+                        return
+                    fn = fns.pop()
+                try:
+                    fn()
+                except Exception:      # a thread of its own would die
+                    logger.exception("replication burst call failed")
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(min(SPAWN_THREADS, len(fns)))]
         for t in threads:
             t.start()
         for t in threads:

@@ -17,7 +17,9 @@ under a native mutex, and kv_wait parks watcher threads in native code.
 Writes serialise on one Python lock (`_window`) around their engine
 call: commit_txn and every journaled write pre-assign a window of
 revisions, and no other write may land between its staging and its
-commit. Pick it when fidelity to the external-store architecture
+commit; the unjournaled guaranteed_update and batch hold it across each
+attempt's read, fn, encode and CAS, as Store.guaranteed_update holds its
+lock. Pick it when fidelity to the external-store architecture
 matters more than in-proc throughput, or as the base for a future
 multi-process / shared-memory deployment.
 
@@ -701,19 +703,22 @@ class NativeStore:
         if self._wal_on:
             return self._txn_commit_native([(key, fn)], flat=True)[0]
         for _ in range(retries):
-            raw, mod_rev = self._get_raw(key)
-            new_obj = fn(self._decode(raw, mod_rev, key))
-            new_raw = self._encode(new_obj)
+            # read, fn, encode and CAS under one hold of the window, as
+            # Store.guaranteed_update holds its lock: a writer that read
+            # outside it queued on the lock with a revision already stale
             with self._window:
+                raw, mod_rev = self._get_raw(key)
+                new_obj = fn(self._decode(raw, mod_rev, key))
+                new_raw = self._encode(new_obj)
                 rev = self._lib.kv_update(self._h, key.encode(), new_raw,
                                           len(new_raw), mod_rev)
-            if rev == ERR_CONFLICT:
-                continue  # raced: re-read and retry (etcd_helper.go:449)
-            if rev == ERR_NOT_FOUND:
-                raise NotFound(name=key)
-            out = self._stamp(new_obj, rev)
-            self._cache_put(key, rev, out)
-            return out
+                if rev == ERR_CONFLICT:
+                    continue  # raced: re-read and retry (etcd_helper.go:449)
+                if rev == ERR_NOT_FOUND:
+                    raise NotFound(name=key)
+                out = self._stamp(new_obj, rev)
+                self._cache_put(key, rev, out)
+                return out
         raise Conflict(f"guaranteed_update on {key}: too many retries")
 
     def delete(self, key: str, expect_rv: Optional[str] = None) -> Any:
@@ -760,32 +765,34 @@ class NativeStore:
             # framing Store.batch journals) — kv_batch has no WAL hook
             return self._txn_commit_native(ops, flat=True)
         for _ in range(10):
-            staged: List[Tuple[str, Any, bytes, int]] = []
-            for key, fn in ops:
-                raw, mod_rev = self._get_raw(key)
-                new_obj = fn(self._decode(raw, mod_rev, key))
-                staged.append((key, new_obj, self._encode(new_obj),
-                               mod_rev))
-            n = len(staged)
-            keys = (ctypes.c_char_p * n)(
-                *[s[0].encode() for s in staged])
-            vals = (ctypes.c_char_p * n)(*[s[2] for s in staged])
-            val_lens = (ctypes.c_uint64 * n)(
-                *[len(s[2]) for s in staged])
-            expects = (ctypes.c_uint64 * n)(*[s[3] for s in staged])
+            # staging and kv_batch under one hold of the window, as in
+            # guaranteed_update
             with self._window:
+                staged: List[Tuple[str, Any, bytes, int]] = []
+                for key, fn in ops:
+                    raw, mod_rev = self._get_raw(key)
+                    new_obj = fn(self._decode(raw, mod_rev, key))
+                    staged.append((key, new_obj, self._encode(new_obj),
+                                   mod_rev))
+                n = len(staged)
+                keys = (ctypes.c_char_p * n)(
+                    *[s[0].encode() for s in staged])
+                vals = (ctypes.c_char_p * n)(*[s[2] for s in staged])
+                val_lens = (ctypes.c_uint64 * n)(
+                    *[len(s[2]) for s in staged])
+                expects = (ctypes.c_uint64 * n)(*[s[3] for s in staged])
                 first = self._lib.kv_batch(self._h, n, keys, vals, val_lens,
                                            expects)
-            if first == ERR_CONFLICT:
-                continue  # some key raced: restage the whole tile
-            if first == ERR_NOT_FOUND:
-                raise NotFound(name="batch")
-            out = []
-            for i, (key, new_obj, _raw, _mr) in enumerate(staged):
-                stamped = self._stamp(new_obj, first + i)
-                self._cache_put(key, first + i, stamped)
-                out.append(stamped)
-            return out
+                if first == ERR_CONFLICT:
+                    continue  # some key raced: restage the whole tile
+                if first == ERR_NOT_FOUND:
+                    raise NotFound(name="batch")
+                out = []
+                for i, (key, new_obj, _raw, _mr) in enumerate(staged):
+                    stamped = self._stamp(new_obj, first + i)
+                    self._cache_put(key, first + i, stamped)
+                    out.append(stamped)
+                return out
         raise Conflict("batch: too many retries")
 
     def commit_txn(self, ops: Iterable[Tuple[str, Callable[[Any], Any]]]

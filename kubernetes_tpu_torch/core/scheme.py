@@ -14,7 +14,7 @@ from typing import Any, Dict, Optional, Type
 
 from . import types as api
 from .errors import BadRequest
-from .serde import from_wire, to_wire, wire_json
+from .serde import from_wire, to_wire, watch_decoder, wire_json
 
 API_VERSION = "v1"
 
@@ -64,6 +64,14 @@ class Scheme:
                 f"expected {self._type_to_kind.get(expect, expect.__name__)}, got {kind}"
             )
         return from_wire(cls, data)
+
+    def decode_watched(self, data: Dict[str, Any]) -> Any:
+        """decode_dict for a watch stream's object (serde.watch_decoder:
+        the same decode, each type's plan worked out once)."""
+        kind = data.get("kind", "")
+        if not kind:
+            raise BadRequest("object has no kind")
+        return watch_decoder(self.type_for(kind))(data)
 
     def decode(self, raw: str, expect: Optional[type] = None) -> Any:
         try:

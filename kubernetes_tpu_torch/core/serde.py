@@ -154,6 +154,100 @@ def _from_wire(tp: Any, data: Any) -> Any:
     return data
 
 
+#: per type hint, the function that decodes a wire value into it
+_decoders: Dict[Any, Any] = {}
+
+
+def watch_decoder(cls: type):
+    """from_wire(cls, ·) for the objects of a watch stream, with each type
+    hint's branches and each dataclass's wire keys worked out once
+    (`_decoder`) where from_wire walks the hints on every call. Every
+    informer decodes every event of its stream: at 1000 hollow nodes over
+    HTTP (~100 heartbeats a second, each to several node watchers, and
+    each pod write to ~10 pod watchers) the reflective walk took more of
+    the interpreter than there was. The REST verbs keep from_wire: the
+    density SLO times its pod writer through them, and a faster writer
+    floods its own window (PERF.md section 6). The two agree on every
+    wire value (tests/test_torch_serde.py)."""
+    return _decoder(cls)
+
+
+def _decoder(tp: Any):
+    """The decoding function of one type hint, built once a hint:
+    from_wire's walk (Optional unwrapped, Quantity parsed, lists, tuples
+    and dicts element by element, dataclasses field by field by wire
+    key, ints widened to float fields and integral floats narrowed to
+    int fields, anything else passed through), with each hint's branches
+    and each dataclass's wire keys resolved ahead of the data."""
+    d = _decoders.get(tp)
+    if d is None:
+        d = _decoders[tp] = _make_decoder(tp)
+    return d
+
+
+def _identity(data: Any) -> Any:
+    return data
+
+
+def _make_decoder(hint: Any):
+    tp = _unwrap_optional(hint)
+    if tp is Quantity:
+        return lambda data: None if data is None else parse_quantity(data)
+    if tp is Any:
+        return _identity
+    origin = get_origin(tp)
+    if origin in (list, tuple):
+        (elem,) = get_args(tp) or (Any,)
+        elem_d = _decoder(elem)
+        if origin is tuple:
+            return lambda data: (None if data is None
+                                 else tuple([elem_d(v) for v in data]))
+        return lambda data: (None if data is None
+                             else [elem_d(v) for v in data])
+    if origin is dict:
+        args = get_args(tp)
+        val_d = _decoder(args[1] if len(args) == 2 else Any)
+        return lambda data: (None if data is None
+                             else {k: val_d(v) for k, v in data.items()})
+    if dataclasses.is_dataclass(tp):
+        return _dataclass_decoder(tp)
+    if tp is float:
+        return lambda data: (float(data) if isinstance(data, int)
+                             else data)
+    if tp is int:
+        return lambda data: (int(data) if isinstance(data, float)
+                             and data == int(data) else data)
+    return _identity
+
+
+def _dataclass_decoder(tp: type):
+    hints = _hints(tp)
+    # wire key -> (field name, the field's decoder, resolved on first
+    # use so that a dataclass may hold fields of its own type)
+    fields = {_camel(f.name): [f.name, hints[f.name], None]
+              for f in dataclasses.fields(tp)}
+
+    def decode(data: Any) -> Any:
+        if data is None:
+            return None
+        kwargs: Dict[str, Any] = {}
+        for wk, wv in (data or {}).items():
+            ent = fields.get(wk)
+            if ent is None:
+                continue
+            fd = ent[2]
+            if fd is None:
+                fd = ent[2] = _decoder(ent[1])
+            kwargs[ent[0]] = fd(wv)
+        aliases = WIRE_ALIASES.get(tp)
+        if aliases and isinstance(data, dict):
+            for alias, fname in aliases.items():
+                if alias in data and not kwargs.get(fname):
+                    kwargs[fname] = _decoder(hints[fname])(data[alias])
+        return tp(**kwargs)
+    return decode
+
+
 def wire_json(obj: Any) -> str:
     """JSON fragment for one API object, cached on the object keyed by
     its resourceVersion — the serialization row of the watch cache's

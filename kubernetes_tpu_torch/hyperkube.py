@@ -6,14 +6,15 @@ first argument). The split deployment runs as separate processes:
     python -m kubernetes_tpu_torch apiserver --port 8080 --storage-backend native
     python -m kubernetes_tpu_torch hollow-fleet --master http://127.0.0.1:8080 --num-nodes 100
     python -m kubernetes_tpu_torch scheduler --master http://127.0.0.1:8080 --mode batch
+    python -m kubernetes_tpu_torch controller-manager --master http://127.0.0.1:8080
     python -m kubernetes_tpu_torch migrate-storage --master http://127.0.0.1:8080
 
 The scheduler is the one component that touches a device: its batch
 engine runs on the CUDA device, or on the CPU with `--cpu`. Without
 `--cpu` and without a card it exits non-zero with the engine's error and
 never runs on the CPU quietly. The other components of the JAX package's
-hyperkube (controller-manager, kubelet, hollow-node, proxy, dns,
-kubectl) are not ported (ROADMAP.md Queue 1).
+hyperkube (kubelet, hollow-node, proxy, dns, kubectl) are not ported
+(ROADMAP.md Queue 1).
 
 Each long-running component prints one READY line to stdout
 (`<component> ready <detail>`) once serving — process supervisors and the
@@ -61,15 +62,20 @@ def _wait_for_master(url: str, timeout_s: float = 60.0) -> None:
     raise RuntimeError(f"master {url} not healthy after {timeout_s}s: {last}")
 
 
-def _start_healthz():
-    """Serve the scheduler's healthz/metrics on its conventional port
-    (:10251, the port the apiserver's componentstatus resource probes;
-    ref: plugin/cmd/kube-scheduler/app/server.go:128-143). Best effort:
-    a taken port (tests, several schedulers) disables the server rather
+def _start_healthz(component: str, port: Optional[int] = None):
+    """Serve healthz/metrics on the component's conventional port
+    (scheduler :10251 / controller-manager :10252, the ports the
+    apiserver's componentstatus resource probes; ref: plugin/cmd/
+    kube-scheduler/app/server.go:128-143), or on `port`. Best effort: a
+    taken port (tests, several schedulers) disables the server rather
     than the component."""
-    from .utils.healthz import SCHEDULER_PORT, HealthzServer
+    from .utils.healthz import (CONTROLLER_MANAGER_PORT, SCHEDULER_PORT,
+                                HealthzServer)
+    if port is None:
+        port = (SCHEDULER_PORT if component == "scheduler"
+                else CONTROLLER_MANAGER_PORT)
     try:
-        server = HealthzServer(port=SCHEDULER_PORT).start()
+        server = HealthzServer(port=port).start()
         return server.stop
     except OSError:
         return lambda: None
@@ -304,11 +310,40 @@ def run_scheduler(argv: List[str]) -> int:
     # READY only once the node cache holds its first LIST: a pod created
     # after READY is scheduled against every node registered before it
     factory.node_informer.cache.wait_for_sync(60.0)
-    stops = [sched.stop, factory.stop, _start_healthz()]
+    stops = [sched.stop, factory.stop, _start_healthz("scheduler")]
     return _serve_until_signal(
         f"scheduler ready mode={args.mode}"
         + (f" device={device}" if device is not None else ""), stops,
         _kernel_launches if args.mode == "batch" else None)
+
+
+def run_controller_manager(argv: List[str]) -> int:
+    """(ref: cmd/kube-controller-manager/app/controllermanager.go:284)"""
+    p = argparse.ArgumentParser(prog="controller-manager")
+    p.add_argument("--master", required=True)
+    p.add_argument("--port", type=int, default=None,
+                   help="healthz/metrics port (default 10252, "
+                        "controllermanager.go's --port)")
+    p.add_argument("--allocate-node-cidrs", action="store_true",
+                   help="assign each node a pod CIDR from "
+                        "--cluster-cidr (controllermanager.go:228)")
+    p.add_argument("--cluster-cidr", default="10.244.0.0/16")
+    args = p.parse_args(argv)
+
+    from .api.client import HttpClient
+    from .controllers.manager import ControllerManager
+
+    _wait_for_master(args.master)
+    client = HttpClient(args.master)
+    # controllers record first-class events (SuccessfulCreate, eviction
+    # notices, ...) like the reference's per-controller recorders
+    manager = ControllerManager(
+        client, recorder=_make_recorder(client, "controller-manager"),
+        allocate_node_cidrs=args.allocate_node_cidrs,
+        cluster_cidr=args.cluster_cidr).run()
+    return _serve_until_signal(
+        "controller-manager ready",
+        [manager.stop, _start_healthz("controller-manager", args.port)])
 
 
 def run_hollow_fleet(argv: List[str]) -> int:
@@ -363,6 +398,8 @@ COMPONENTS = {
     "kube-apiserver": run_apiserver,
     "scheduler": run_scheduler,
     "kube-scheduler": run_scheduler,
+    "controller-manager": run_controller_manager,
+    "kube-controller-manager": run_controller_manager,
     "hollow-fleet": run_hollow_fleet,
     "migrate-storage": run_migrate_storage,
 }

@@ -22,6 +22,7 @@ import queue
 import random
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from typing import Dict, Iterable, List, Optional, Set
 
@@ -38,11 +39,18 @@ class HollowFleet:
     def __init__(self, client, n_nodes: int, name_prefix: str = "hollow-",
                  cpu: str = "4", memory: str = "32Gi", max_pods: int = 40,
                  heartbeat_interval: float = 10.0,
-                 labels_for=None, jitter_seed: Optional[int] = None):
+                 labels_for=None, jitter_seed: Optional[int] = None,
+                 confirm_workers: int = 1):
         """labels_for: optional fn(index) -> labels dict (zones etc.).
         jitter_seed: seeds the heartbeat-phase RNG so a chaos/soak
         harness's beat schedule is reproducible; None keeps the
-        process RNG (beats must decohere, not share a phase)."""
+        process RNG (beats must decohere, not share a phase).
+        confirm_workers: how many status calls confirm a burst of pods
+        Running at once (the burst split into that many slices, each
+        one update_status_batch). 1 is the JAX fleet's single pump; a
+        client that cannot batch (HTTP: one PUT a pod) confirms a burst
+        pod after pod, where the kubelets of a real fleet confirm side
+        by side."""
         self.client = client
         self._jitter_rng = (random.Random(f"{jitter_seed}:heartbeat")
                             if jitter_seed is not None else random.Random())
@@ -70,6 +78,8 @@ class HollowFleet:
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._informer: Optional[Informer] = None
+        self.confirm_workers = max(1, int(confirm_workers))
+        self._confirm_pool = None
 
     # ---------------------------------------------------------- node side
 
@@ -335,24 +345,33 @@ class HollowFleet:
                                      attrs={"pods": len(batch)})
             try:
                 with obs.use(span):
-                    batched = False
-                    if len(updated) > 1:
-                        try:
-                            self.client.update_status_batch("pods",
-                                                            updated)
-                            batched = True
-                        except Exception:
-                            # degrade to singles: per-pod NotFound
-                            # handling
-                            pass
-                    if not batched:
-                        for p, u in zip(batch, updated):
-                            self._status_one(p, u)
+                    n = min(self.confirm_workers, len(batch))
+                    if n > 1:
+                        list(self._confirm_pool.map(
+                            lambda i: self._confirm(batch[i::n],
+                                                    updated[i::n]),
+                            range(n)))
+                    else:
+                        self._confirm(batch, updated)
             finally:
                 tr.end(span)
                 global_metrics.observe(
                     "fleet_status_batch_latency_microseconds",
                     (time.monotonic() - t0) * 1e6)
+
+    def _confirm(self, batch: List[api.Pod], updated: List[api.Pod]
+                 ) -> None:
+        batched = False
+        if len(updated) > 1:
+            try:
+                self.client.update_status_batch("pods", updated)
+                batched = True
+            except Exception:
+                # degrade to singles: per-pod NotFound handling
+                pass
+        if not batched:
+            for p, u in zip(batch, updated):
+                self._status_one(p, u)
 
     def _status_one(self, pod: api.Pod, updated: api.Pod) -> None:
         try:
@@ -399,6 +418,9 @@ class HollowFleet:
             on_add=self._on_pod,
             on_update=lambda old, new: self._on_pod(new),
             on_delete=self._on_pod_delete).start()
+        if self.confirm_workers > 1:
+            self._confirm_pool = ThreadPoolExecutor(
+                self.confirm_workers, thread_name_prefix="fleet-confirm")
         hb = threading.Thread(target=self._heartbeat_loop, daemon=True,
                               name="fleet-heartbeat")
         pump = threading.Thread(target=self._status_pump, daemon=True,
@@ -413,3 +435,9 @@ class HollowFleet:
         if self._informer:
             self._informer.stop()
         self._status_q.put(None)
+        if self._confirm_pool is not None:
+            # the pump hands the pool its last burst before it exits
+            for t in self._threads:
+                if t.name == "fleet-status-pump":
+                    t.join(timeout=5.0)
+            self._confirm_pool.shutdown(wait=False)

@@ -37,6 +37,7 @@ import logging
 import queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
@@ -51,6 +52,10 @@ from .device.engine import CARRY_DTYPES
 from .device.incremental import IncrementalEncoder, NeedsFullEncode
 from .generic import FitError
 from .predicates import node_schedulable
+
+#: calls a failed tile's halving commit makes side by side
+#: (BatchScheduler._bind_halves)
+BIND_SPLIT_THREADS = 16
 
 
 @dataclass
@@ -254,6 +259,35 @@ class BatchScheduler:
         if self.elector is not None:
             self.elector.kill()
         self._stop.set()
+
+    def reap(self, timeout: float = 30.0) -> bool:
+        """After kill(): wait for the dead process's scheduler and binder
+        threads to end (the binder drops what was queued, as kill()
+        says) and release its engine's device tables, so that a standby
+        in the same process (kubemark/crash_soak.py) does not inherit
+        them. -> whether both threads ended within `timeout`."""
+        if not self._killed:
+            raise RuntimeError("reap: the scheduler was not killed")
+        deadline = time.monotonic() + timeout
+        if self._thread:
+            self._thread.join(timeout=timeout)
+        try:
+            self._commit_q.put(None, timeout=max(
+                0.001, deadline - time.monotonic()))
+        except queue.Full:
+            return False
+        if self._commit_thread:
+            self._commit_thread.join(timeout=max(
+                0.0, deadline - time.monotonic()))
+        ended = not any(t is not None and t.is_alive()
+                        for t in (self._thread, self._commit_thread))
+        if ended:
+            self._prev = None
+            self._last_handed = None
+            if self._inc is not None:
+                self._inc.detach()
+            self.config.engine.release()
+        return ended
 
     def stop(self) -> None:
         if self.elector is not None:
@@ -1080,23 +1114,14 @@ class BatchScheduler:
                     committed = [True] * len(rows)
                 except Exception:
                     # the tile's txn failed (e.g. a pod got bound by
-                    # another scheduler mid-flight): degrade to per-pod
-                    # CAS so one conflict doesn't waste the rest
-                    for i, (ns, name, host) in enumerate(rows):
-                        try:
-                            f.client.bind(api.Binding(
-                                metadata=api.ObjectMeta(namespace=ns,
-                                                        name=name),
-                                target=api.ObjectReference(
-                                    kind="Node", name=host)))
-                            committed[i] = True
-                        except Exception as e:
-                            pod = scheduled[i][0]
-                            if f.recorder is not None:
-                                f.recorder.eventf(
-                                    pod, "Normal", "FailedScheduling",
-                                    f"Binding rejected: {e}")
-                            self._bind_failed(pod, host, e)
+                    # another scheduler mid-flight, a transient fault)
+                    # and, all-or-nothing, committed nothing: commit it
+                    # in halves, each one txn, down to per-pod CAS for
+                    # the pods that conflict, so one conflict doesn't
+                    # waste the rest (over HTTP a call a pod took
+                    # minutes for a tile of thousands)
+                    self._bind_halves(rows, scheduled, committed, 0,
+                                      len(rows))
         finally:
             tr.end(bind_span)
         c.metrics.observe("binding_latency_microseconds",
@@ -1117,6 +1142,58 @@ class BatchScheduler:
                 # now; the watch echo dedupes via the ledger
                 self._inc.assume(assumed)
         f.modeler.assume_pods(to_assume)
+
+    def _bind_halves(self, rows: List[Tuple[str, str, str]],
+                     scheduled: List[Tuple[api.Pod, str]],
+                     committed: List[bool], lo: int, hi: int) -> None:
+        """Commit rows[lo:hi], whose txn failed: commit each half as one
+        txn and split again whichever fails, a level of halves at a time
+        with the level's calls side by side (BIND_SPLIT_THREADS); a
+        single row is one per-pod CAS whose failure routes the pod as the
+        per-pod path always did. One conflict costs about 2 log2(rows)
+        calls in about log2(rows) rounds; a failover's run of pods the
+        dead leader bound costs a round a level, not a call a pod."""
+        f = self.config.factory
+
+        def one(i: int) -> None:
+            ns, name, host = rows[i]
+            try:
+                f.client.bind(api.Binding(
+                    metadata=api.ObjectMeta(namespace=ns, name=name),
+                    target=api.ObjectReference(kind="Node", name=host)))
+                committed[i] = True
+            except Exception as e:
+                pod = scheduled[i][0]
+                if f.recorder is not None:
+                    f.recorder.eventf(pod, "Normal", "FailedScheduling",
+                                      f"Binding rejected: {e}")
+                self._bind_failed(pod, host, e)
+
+        def txn(r: Tuple[int, int]) -> bool:
+            a, b = r
+            try:
+                f.client.bind_batch_hosts(rows[a:b])
+            except Exception:
+                return False
+            committed[a:b] = [True] * (b - a)
+            return True
+
+        failed = [(lo, hi)]
+        with ThreadPoolExecutor(BIND_SPLIT_THREADS,
+                                thread_name_prefix="bind-split") as pool:
+            while failed:
+                halves = []
+                for a, b in failed:
+                    if b - a == 1:
+                        halves.append((a, b))
+                    else:
+                        mid = (a + b) // 2
+                        halves += [(a, mid), (mid, b)]
+                singles = [a for a, b in halves if b - a == 1]
+                batches = [r for r in halves if r[1] - r[0] > 1]
+                ok = list(pool.map(txn, batches))
+                list(pool.map(one, singles))
+                failed = [r for r, good in zip(batches, ok) if not good]
 
     def _error(self, pod: api.Pod, err: Exception) -> None:
         self.config.factory.error_func(pod, err)

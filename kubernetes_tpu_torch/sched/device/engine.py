@@ -390,6 +390,15 @@ class BatchEngine:
         self._table_cache = None
         self.shard_spaces = {}
 
+    def release(self) -> None:
+        """Drop the device-resident state this engine keeps between
+        launches (the table mirror and the shard spaces), so that a
+        scheduler that died in this process (BatchScheduler.reap) leaves
+        no tensors to the standby that takes over. The next dispatch, if
+        any, reseeds the mirror with one full upload."""
+        self._table_cache = None
+        self.shard_spaces = {}
+
     def _space(self, args: scan_kernel.ScanArgs) -> scan_kernel.ShardSpace:
         """The shard space of this mesh and these sizes (made once)."""
         d = args.dims()

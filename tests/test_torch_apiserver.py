@@ -1240,3 +1240,37 @@ def test_relay_legs_ride_the_tunnel(relay_cluster):
         assert dialed
     finally:
         t.stop()
+
+
+def test_apiserver_takes_a_burst_of_connections():
+    """The listening socket's backlog holds a burst: 300 clients that
+    connect at once each get their answer (socketserver's default
+    backlog of 5 reset some of them)."""
+    import http.client
+    import threading as _threading
+    from kubernetes_tpu_torch.api import server as port_server
+    assert port_server._HttpServer.request_queue_size >= 1024
+    srv = port_server.ApiServer(Registry(), port=0).start()
+    codes, errors = [], []
+    go = _threading.Event()
+
+    def one():
+        go.wait()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                              timeout=60)
+            conn.request("GET", "/healthz")
+            codes.append(conn.getresponse().status)
+            conn.close()
+        except Exception as e:             # counted below
+            errors.append(repr(e))
+    threads = [_threading.Thread(target=one) for _ in range(300)]
+    try:
+        for t in threads:
+            t.start()
+        go.set()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        srv.stop()
+    assert errors == [] and codes == [200] * 300

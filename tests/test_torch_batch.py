@@ -268,3 +268,56 @@ def test_default_engine_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         factory.create_batch()
     assert factory.create_batch(device="cpu").engine.device.type == "cpu"
+
+
+def test_failed_tile_commit_splits_in_halves_down_to_the_conflict():
+    """A tile whose all-or-nothing bind fails commits in halves, each
+    one txn, splitting again only where the conflict is: every other
+    pod binds where it was scheduled, the pod already bound elsewhere
+    keeps its node and goes to the per-pod failure path, and the calls
+    number about 2 log2(tile) rather than one a pod."""
+    registry = Registry()
+    inner = InProcClient(registry)
+    for n in _nodes()[:2]:
+        inner.create("nodes", cross([n])[0])
+    pods = cross(_pods()[:64])
+    for p in pods:
+        inner.create("pods", p, "default")
+    inner.bind_batch_hosts([("default", pods[37].metadata.name,
+                             "mnode-01")])
+    calls = {"batch": 0, "one": 0}
+
+    class Counting:
+        def __getattr__(self, name):
+            return getattr(inner, name)
+
+        def bind_batch_hosts(self, rows):
+            calls["batch"] += 1
+            return inner.bind_batch_hosts(rows)
+
+        def bind(self, binding, namespace=""):
+            calls["one"] += 1
+            return inner.bind(binding, namespace)
+
+    factory = ConfigFactory(Counting(), rate_limit=False)
+    sched = BatchScheduler(BatchSchedulerConfig(
+        factory, engine=BatchEngine(device="cpu")))
+    failed = []
+    sched._bind_failed = lambda pod, host, err: failed.append(
+        pod.metadata.name)
+    rows = [("default", p.metadata.name, "mnode-00") for p in pods]
+    scheduled = [(p, "mnode-00") for p in pods]
+    committed = [False] * len(rows)
+    with pytest.raises(Exception):
+        inner.bind_batch_hosts(rows)       # the tile's txn fails whole
+    sched._bind_halves(rows, scheduled, committed, 0, len(rows))
+    assert failed == [pods[37].metadata.name]
+    assert committed == [i != 37 for i in range(64)]
+    got = {p.metadata.name: p.spec.node_name
+           for p in inner.list("pods", "default")[0]}
+    assert got[pods[37].metadata.name] == "mnode-01"
+    assert all(got[p.metadata.name] == "mnode-00"
+               for i, p in enumerate(pods) if i != 37)
+    # log2(64) = 6 levels, two txns a level at most; the conflicting
+    # pod's last pair are single CAS calls
+    assert calls["one"] <= 2 and calls["batch"] <= 2 * 6

@@ -9,9 +9,12 @@ ChaosClients draw the same traces and outcomes, and a FlightRecorder
 bundle is byte-equal. Then the tests of tests/test_chaos.py, ported:
 the plans' determinism, watch cuts, the chaos soak (its invariants over
 ApiServer and HttpClient, and over InProcClient), the node-kill soak
-(40 nodes) and the partition gate; and the benchmark's chaos arm with
-every pod bound exactly once. All on the CPU (device="cpu"); without a device named,
-every entry point needs a CUDA device and raises without one."""
+(40 nodes), the partition gate and the process-crash soak (6 nodes, 24
+replicas; its two-invocation repro is marked slow as in the JAX file);
+and the benchmark's chaos arm with every pod bound exactly once; and the
+hollow fleet confirming Running over several calls at once. All on the
+CPU (device="cpu"); without a device named, every entry point needs a
+CUDA device and raises without one."""
 
 import dataclasses
 import os
@@ -454,12 +457,79 @@ def test_benchmark_chaos_arm_binds_every_pod_exactly_once():
     assert len(bound_to) == 2000 and rebinds == []
 
 
+# ------------------------------------------------ process-crash soak
+
+def _assert_crash_soak_gates(r):
+    """tests/test_chaos.py's crash-soak assertions, on the port's
+    result, plus the killed scheduler reaped and both engines on the
+    device the run named."""
+    assert r.converged, r.as_dict()
+    # apiserver kill: recovery is the pre-crash ledger prefix
+    assert r.recovery, "apiserver kill never fired"
+    assert r.recovery["revision_match"], r.recovery
+    assert r.recovery["live_set_match"], r.recovery
+    assert r.recovery["replayed_records"] >= 1
+    # scheduler/manager kills: standbys took over, exactly-once binds
+    assert r.duplicate_bindings == []
+    assert r.term_violations == []
+    assert set(r.killed) == {"apiserver", "scheduler",
+                             "controller-manager"}
+    assert r.schedule_replayed, (r.killed, r.schedule)
+    assert r.terms["batch-scheduler"] >= 2
+    assert r.terms["controller-manager"] >= 2
+    assert r.counters["wal_records_total"] >= 1
+    assert r.counters["wal_recoveries_total"] >= 1
+    assert r.counters["leader_transitions_total"] >= 4
+    assert r.counters["lease_renew_failures_total"] >= 1
+    assert r.reaped
+    assert r.engine_devices == {"a": "cpu", "b": "cpu"}
+
+
+@pytest.mark.chaos
+@pytest.mark.durability
+def test_crash_soak_survives_control_plane_kills():
+    """tests/test_chaos.py's crash soak on the port at its own shape (6
+    nodes, 24 replicas): WAL-backed store, redundant schedulers and
+    controller-managers under lease election, 5% API faults, and a
+    seeded CrashPlan killing the apiserver, the active scheduler and the
+    active controller-manager; the kill schedule is the JAX CrashPlan's."""
+    from kubernetes_tpu_torch.kubemark.crash_soak import run_crash_soak
+    r = run_crash_soak(n_nodes=6, replicas=24, seed=0, fault_rate=0.05,
+                       timeout=150, device="cpu")
+    _assert_crash_soak_gates(r)
+    assert r.schedule == JaxCrashPlan(seed=0).schedule(24)
+
+
+@pytest.mark.chaos
+@pytest.mark.durability
+@pytest.mark.slow
+def test_crash_soak_reproducible_across_invocations():
+    """The long gate, on the port: two crash soaks with one seed both
+    converge with no duplicate binding or term violation and apply the
+    same kill schedule."""
+    from kubernetes_tpu_torch.kubemark.crash_soak import run_crash_soak
+    results = [run_crash_soak(n_nodes=6, replicas=24, seed=1337,
+                              fault_rate=0.05, timeout=150, device="cpu")
+               for _ in range(2)]
+    for r in results:
+        assert r.converged, r.as_dict()
+        assert r.duplicate_bindings == []
+        assert r.term_violations == []
+        assert r.schedule_replayed
+        assert r.recovery["revision_match"], r.recovery
+        assert r.recovery["live_set_match"], r.recovery
+    a, b = results
+    assert a.killed == b.killed == a.schedule
+
+
 # ---------------------------------------------------- no card, no run
 
 @pytest.mark.parametrize("entry", ["soak", "shard_soak", "node_kill",
-                                   "partition", "chaos_arm", "platform"])
+                                   "partition", "chaos_arm", "platform",
+                                   "crash_soak"])
 def test_entry_points_refuse_to_run_without_a_card(monkeypatch, entry):
-    from kubernetes_tpu_torch.kubemark import node_chaos, shard_soak, soak
+    from kubernetes_tpu_torch.kubemark import (crash_soak, node_chaos,
+                                               shard_soak, soak)
     from kubernetes_tpu_torch.kubemark.benchmark import \
         run_scheduling_benchmark
     from kubernetes_tpu_torch.utils.platform import pick_device
@@ -469,9 +539,43 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch, entry):
              "partition": lambda: node_chaos.run_partition_gate(n_nodes=2),
              "chaos_arm": lambda: run_scheduling_benchmark(2, 1,
                                                            chaos_seed=1),
-             "platform": pick_device}
+             "platform": pick_device,
+             "crash_soak": lambda: crash_soak.run_crash_soak(n_nodes=2)}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     threads = threading.active_count()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
     assert threading.active_count() == threads  # nothing was started
+
+
+def test_fleet_confirms_over_http_on_several_workers():
+    """HollowFleet(confirm_workers=4) over an HttpClient (no status
+    batching on the wire): a burst of bound pods is confirmed Running
+    by four calls side by side, every pod once, and the pool stops with
+    the fleet."""
+    from kubernetes_tpu_torch.api.client import HttpClient
+    from kubernetes_tpu_torch.api.server import ApiServer
+    from kubernetes_tpu_torch.kubemark.fleet import HollowFleet
+    registry = Registry()
+    srv = ApiServer(registry, port=0).start()
+    client = InProcClient(registry)
+    fleet = HollowFleet(HttpClient(srv.url), 6, heartbeat_interval=600.0,
+                        confirm_workers=4)
+    names = []
+    try:
+        fleet.run()
+        for i in range(60):
+            p = mkpod(f"cw-{i:02d}")
+            client.create("pods", p, "default")
+            names.append(p.metadata.name)
+        client.bind_batch_hosts([("default", n, f"hollow-{i % 6:05d}")
+                                 for i, n in enumerate(names)])
+        assert wait_until(lambda: sum(
+            p.status.phase == "Running"
+            for p in client.list("pods", "default")[0]) == 60, timeout=60)
+        assert any(t.name.startswith("fleet-confirm")
+                   for t in threading.enumerate())
+    finally:
+        fleet.stop()
+        srv.stop()
+    assert fleet.running_count() == 60

@@ -8,8 +8,10 @@ modules, one CRUD and one watch through the port's ApiServer and
 HttpClient with its lazily imported handlers, a metrics scrape of it, the
 SLO run's and the fan-out soak's modules, a journaled Store and the
 native store with their recoveries, a Master over the native store with
-an admission chain, a recorded event, a migration, a traced engine run
-and `python -m kubernetes_tpu_torch -h`, all on the CPU) loads neither
+an admission chain, a recorded event, a migration, a traced engine run,
+`python -m kubernetes_tpu_torch -h`, and the controller manager with
+every controller reconciling an RC, and the process-crash soak's
+module, all on the CPU) loads neither
 jax nor any module of the JAX package, and its entry points refuse to run without a CUDA device unless
 a device is named. Run in a subprocess, because this test process has
 jax loaded (tests/conftest.py)."""
@@ -225,6 +227,51 @@ loaded_store = sorted(m for m in sys.modules if m in (
     "kubernetes_tpu_torch.kubemark.deployment",
     "kubernetes_tpu_torch.kubemark.profile_window"))
 
+# the controller manager: every controller over an in-proc registry, an
+# RC's pods created, a FakeCloudProvider for the service and route
+# controllers; the process-crash soak's module
+import time
+from kubernetes_tpu_torch.cloudprovider import FakeCloudProvider
+from kubernetes_tpu_torch.controllers.manager import ControllerManager
+from kubernetes_tpu_torch.kubemark import crash_soak
+cm_client = InProcClient(Registry())
+cm = ControllerManager(cm_client, cloud=FakeCloudProvider(),
+                       metrics_source=lambda ns, sel: None).run()
+try:
+    cm_client.create("replicationcontrollers", api.ReplicationController(
+        metadata=api.ObjectMeta(name="iso", namespace="default"),
+        spec=api.ReplicationControllerSpec(
+            replicas=2, selector={"app": "iso"},
+            template=api.PodTemplateSpec(
+                metadata=api.ObjectMeta(labels={"app": "iso"}),
+                spec=api.PodSpec(containers=[
+                    api.Container(name="c", image="i")])))), "default")
+    deadline = time.time() + 30
+    while time.time() < deadline and len(cm_client.list(
+            "pods", "default", label_selector="app=iso")[0]) < 2:
+        time.sleep(0.05)
+    cm_pods = len(cm_client.list("pods", "default",
+                                 label_selector="app=iso")[0])
+    cm_controllers = len(cm.controllers)
+finally:
+    cm.stop()
+loaded_ctrl = sorted(m for m in sys.modules if m in (
+    "kubernetes_tpu_torch.cloudprovider",
+    "kubernetes_tpu_torch.cloudprovider.cloud",
+    "kubernetes_tpu_torch.controllers.gc",
+    "kubernetes_tpu_torch.controllers.persistentvolume",
+    "kubernetes_tpu_torch.controllers.podautoscaler",
+    "kubernetes_tpu_torch.controllers.resourcequota",
+    "kubernetes_tpu_torch.controllers.namespace",
+    "kubernetes_tpu_torch.controllers.serviceaccount",
+    "kubernetes_tpu_torch.controllers.endpoint",
+    "kubernetes_tpu_torch.controllers.job",
+    "kubernetes_tpu_torch.controllers.daemon",
+    "kubernetes_tpu_torch.controllers.deployment",
+    "kubernetes_tpu_torch.controllers.service",
+    "kubernetes_tpu_torch.controllers.manager",
+    "kubernetes_tpu_torch.kubemark.crash_soak"))
+
 torch.cuda.is_available = lambda: False
 errors = []
 for make in (BatchEngine, DeviceBackend,
@@ -240,7 +287,8 @@ for make in (BatchEngine, DeviceBackend,
              lambda: run_density_slo(n_nodes=2, n_pods=2),
              lambda: fx.run_chaos_soak(seed=0),
              lambda: run_durable_e2e(2, 1),
-             lambda: profile_window.main(["--nodes", "2", "--pods", "1"])):
+             lambda: profile_window.main(["--nodes", "2", "--pods", "1"]),
+             lambda: crash_soak.run_crash_soak(n_nodes=2)):
     try:
         make()
     except RuntimeError as e:
@@ -255,7 +303,9 @@ print(json.dumps({"foreign": sorted(m for m in sys.modules if is_foreign(m)),
                   "drill": [drill["mesh_after"], drill["second_half_bound"]],
                   "shard_soak": [shard.converged, shard.parity_ok],
                   "loaded": loaded, "http": http, "store": store,
-                  "loaded_store": loaded_store}))
+                  "loaded_store": loaded_store,
+                  "controllers": [cm_controllers, cm_pods],
+                  "loaded_ctrl": loaded_ctrl}))
 """
 
 
@@ -272,7 +322,7 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert res["bench"] == [40, 40] and res["e2e"] == 40
     assert len(res["feasible"]) == 4 and any(res["feasible"])
     assert res["delta"] == 1 and res["mixed"] == "DeviceAssistedAlgorithm"
-    assert len(res["errors"]) == 15
+    assert len(res["errors"]) == 16
     assert all("no CUDA device" in e for e in res["errors"])
     assert res["meshed"] and res["drill"] == [3, True]
     assert res["shard_soak"] == [True, True]
@@ -287,6 +337,9 @@ def test_port_runs_without_jax_or_the_jax_package():
                             "migrated": True, "profiled": True,
                             "usage": 0}
     assert len(res["loaded_store"]) == 13
+    # twelve controllers, the HPA and the service and route controllers
+    assert res["controllers"] == [15, 2]
+    assert len(res["loaded_ctrl"]) == 15
 
 
 def _imports(path):

@@ -5,9 +5,8 @@ utils/healthz.py) against the JAX package's.
 tests/test_master.py and tests/test_admission_auth.py run on the port as
 they stand: their sources are compiled here with every `kubernetes_tpu.`
 import pointed at `kubernetes_tpu_torch.` (tests/conftest.py's
-`ensure_default_namespace` replaced by the port's own). One case of
-test_admission_auth.py is left out: the resource-quota controller it
-drives is not ported (ROADMAP.md Queue 1). Then the two packages side by
+`ensure_default_namespace` replaced by the port's own), every case of
+both, the resource-quota controller's included. Then the two packages side by
 side: one script of admission cases (namespace lifecycle, auto-provision
 and exists, limit ranger, quota, service account, SecurityContextDeny,
 AlwaysDeny) gives the same verdicts and admitted objects in both; an
@@ -65,8 +64,6 @@ def ensure_default_namespace(client):
 
 exec(_port_source("test_master.py"))
 exec(_port_source("test_admission_auth.py"))
-# the resource-quota controller is not in the port
-del TestResourceQuota.test_quota_controller_frees_deleted_pods  # noqa: F821
 
 PKGS = {"jax": (jax_adm, JaxRegistry, jax_scheme, JaxApiError, JaxClient,
                 jax_record),

@@ -6,7 +6,9 @@ with every component a `python -m kubernetes_tpu_torch` process and the
 scheduler on the CPU (`--cpu`); the same deployment through
 kubemark/deployment.run_split (chip_smoke's split phase, small), its
 per-node counts equal to the JAX engine's; `migrate-storage` against a
-live apiserver process; the usage exit codes; and a scheduler without
+live apiserver process; `controller-manager` against a live apiserver
+process (its healthz served, an RC's pods created); the usage exit
+codes; and a scheduler without
 `--cpu` on a box with no card exiting non-zero before it binds
 anything. Also pins fixtures.SPLIT_COUNTS, the digests chip_smoke's
 split phase and the card test are held to, with the JAX engine."""
@@ -179,13 +181,80 @@ def test_migrate_storage_component(log_dir):
         assert apiserver.terminate() == 0
 
 
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def test_controller_manager_component(log_dir):
+    """`controller-manager --master <url>` against a port apiserver
+    process: it prints its READY line, serves healthz on the port it is
+    given, and its replication manager creates an RC's pods."""
+    import urllib.request
+    apiserver = Child("apiserver", "--port", "0", log_dir=log_dir)
+    procs = [apiserver]
+    try:
+        url = apiserver.wait_ready().split()[-1]
+        port = _free_port()
+        manager = Child("controller-manager", "--master", url, "--port",
+                        str(port), log_dir=log_dir)
+        procs.append(manager)
+        assert manager.wait_ready() == "controller-manager ready"
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=10) as resp:
+            assert resp.status == 200
+            assert resp.read().strip() == b"ok"
+        client = HttpClient(url)
+        labels = {"app": "cm"}
+        client.create("replicationcontrollers", api.ReplicationController(
+            metadata=api.ObjectMeta(name="cm", namespace="default"),
+            spec=api.ReplicationControllerSpec(
+                replicas=3, selector=dict(labels),
+                template=api.PodTemplateSpec(
+                    metadata=api.ObjectMeta(labels=dict(labels)),
+                    spec=bench_pod(0).spec))), "default")
+        deadline = time.time() + 60
+        mine = []
+        while time.time() < deadline:
+            mine = client.list("pods", "default",
+                               label_selector="app=cm")[0]
+            if len(mine) == 3:
+                break
+            time.sleep(0.2)
+        assert len(mine) == 3, [p.metadata.name for p in mine]
+        # the service-account controller made the default namespace's
+        # account
+        assert wait_for(lambda: client.get("serviceaccounts", "default",
+                                           "default"))
+    finally:
+        codes = {p.component: p.terminate() for p in reversed(procs)}
+    assert codes == {"apiserver": 0, "controller-manager": 0}
+
+
+def wait_for(fn, timeout=30.0):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        try:
+            if fn():
+                return True
+        except Exception:
+            pass
+        time.sleep(0.2)
+    return False
+
+
 @pytest.mark.parametrize("argv,code,says", [
     ((), 1, "usage: python -m kubernetes_tpu_torch <apiserver"),
-    (("-h",), 0, "hollow-fleet | kube-apiserver | kube-scheduler | "
+    (("-h",), 0, "controller-manager | hollow-fleet | kube-apiserver | "
+                 "kube-controller-manager | kube-scheduler | "
                  "migrate-storage | scheduler>"),
     (("no-such-thing",), 1, "unknown component 'no-such-thing'"),
     (("kubelet",), 1, "unknown component 'kubelet'"),
     (("scheduler",), 2, "the following arguments are required: --master"),
+    (("controller-manager",), 2,
+     "the following arguments are required: --master"),
 ])
 def test_hyperkube_usage(argv, code, says):
     out = run(*argv, timeout=60)

@@ -388,3 +388,55 @@ def test_profile_window_arms_run_on_the_cpu(capsys):
     s = NativeStore()
     assert isinstance(s._window, type(__import__("threading").RLock()))
     s.close()
+
+
+@pytest.mark.parametrize("verb", ["guaranteed_update", "batch"])
+def test_unjournaled_cas_writers_never_run_out_of_retries(verb):
+    """The unjournaled guaranteed_update and batch read, apply fn, encode
+    and CAS under one hold of the store's lock: four threads of 25
+    writes each reach 100 on one key in every one of 50 rounds (a writer
+    that read outside the lock queued on it with a stale revision, and
+    some rounds ran out of retries)."""
+    import threading
+    from kubernetes_tpu_torch.core.native_store import NativeStore
+    wire = jax_scheme.encode_dict(jax_api.Pod(
+        metadata=jax_api.ObjectMeta(name="ctr", namespace="default"),
+        spec=jax_api.PodSpec(containers=[jax_api.Container(name="c",
+                                                           image="i")])))
+    key = "/registry/pods/default/ctr"
+
+    def bump(cur):
+        labels = dict(cur.metadata.labels)
+        labels["n"] = str(int(labels.get("n", "0")) + 1)
+        return dc_replace(cur, metadata=dc_replace(cur.metadata,
+                                                   labels=labels))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    lost = []
+    try:
+        for rnd in range(50):
+            s = NativeStore()
+            s.create(key, port_scheme.decode_dict(wire))
+            errors = []
+
+            def worker():
+                try:
+                    for _ in range(25):
+                        if verb == "batch":
+                            s.batch([(key, bump)])
+                        else:
+                            s.guaranteed_update(key, bump)
+                except Exception as e:        # counted below
+                    errors.append(e)
+            threads = [threading.Thread(target=worker) for _ in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errors or s.get(key).metadata.labels["n"] != "100":
+                lost.append((rnd, [type(e).__name__ for e in errors]))
+            s.close()
+    finally:
+        sys.setswitchinterval(old)
+    assert lost == []
